@@ -1,0 +1,19 @@
+"""llama3.2-1b [dense] — small llama3 [hf:meta-llama/Llama-3.2-1B; unverified]."""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama3.2-1b",
+    family="dense",
+    num_layers=16,
+    d_model=2048,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=64,
+    d_ff=8192,
+    vocab_size=128_256,
+    layer_pattern=("attn",),
+    mlp_kind="swiglu",
+    tie_embeddings=True,
+    sharding_preset="tp",
+)

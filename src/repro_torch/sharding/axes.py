@@ -1,0 +1,126 @@
+"""Logical-axis -> mesh-axis rules, resolved against a virtual mesh (the
+part of ``repro.sharding.axes`` the train-state layout needs). A spec is a
+tuple of per-dim entries (``None``, an axis name, or a tuple of names) with
+trailing ``None``s trimmed, as ``tuple(PartitionSpec)`` gives."""
+
+from __future__ import annotations
+
+import itertools
+from dataclasses import dataclass, field
+from typing import Any
+
+import numpy as np
+
+from repro_torch.sharding.mesh import VirtualMesh
+from repro_torch.sharding.spec import ParamSpec
+
+AxisVal = Any  # str | tuple[str, ...] | None
+
+
+@dataclass(frozen=True)
+class ShardingRules:
+    """Logical dim name -> mesh axes."""
+
+    rules: dict[str, AxisVal] = field(default_factory=dict)
+
+    def get(self, dim: str | None) -> AxisVal:
+        if dim is None:
+            return None
+        return self.rules.get(dim, None)
+
+
+_COMMON = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "act_embed": "model",
+    "vocab": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "mlp": "model",
+    "embed": None,
+    "experts": None,
+    "moe_group": ("pod", "data"),
+    "ssm_heads": "model",
+    "ssm_state": None,
+    "ssm_inner": "model",
+    "conv": None,
+    "layers": None,
+    "kv_seq": None,
+    "vision": None,
+}
+
+TP_RULES = ShardingRules(dict(_COMMON))
+FSDP_RULES = ShardingRules({**_COMMON, "embed": ("pod", "data")})
+
+
+def resolve_axis(val: AxisVal, dim_size: int, mesh: VirtualMesh) -> AxisVal:
+    """Drop mesh axes that don't exist or don't divide the dim."""
+    if val is None:
+        return None
+    axes = (val,) if isinstance(val, str) else tuple(val)
+    out = []
+    prod = 1
+    for a in axes:
+        if a not in mesh.shape:
+            continue
+        sz = mesh.shape[a]
+        if dim_size % (prod * sz) != 0 or dim_size < prod * sz:
+            continue
+        out.append(a)
+        prod *= sz
+    if not out:
+        return None
+    return out[0] if len(out) == 1 else tuple(out)
+
+
+def _as_tuple(e: AxisVal) -> tuple[str, ...]:
+    if e is None:
+        return ()
+    return (e,) if isinstance(e, str) else tuple(e)
+
+
+def _dedupe_entries(entries: list[AxisVal]) -> list[AxisVal]:
+    """A mesh axis may appear in at most one spec dim; first (leftmost) wins."""
+    used: set[str] = set()
+    out: list[AxisVal] = []
+    for e in entries:
+        axes = [a for a in _as_tuple(e) if a not in used]
+        used.update(axes)
+        out.append(None if not axes else (axes[0] if len(axes) == 1 else tuple(axes)))
+    return out
+
+
+def _trim(entries: list[AxisVal]) -> tuple:
+    while entries and entries[-1] is None:
+        entries.pop()
+    return tuple(entries)
+
+
+def spec_to_pspec(spec: ParamSpec, rules: ShardingRules, mesh: VirtualMesh) -> tuple:
+    entries = [resolve_axis(rules.get(dim), size, mesh) for size, dim in zip(spec.shape, spec.dims)]
+    return _trim(_dedupe_entries(entries))
+
+
+def zero1_pspec(spec: ParamSpec, rules: ShardingRules, mesh: VirtualMesh) -> tuple:
+    """ZeRO-1 sharding for optimizer state: the param's spec with a
+    still-replicated dim additionally sharded over the data axes (largest
+    dividing combination wins), so every optimizer byte has one owner."""
+    base = spec_to_pspec(spec, rules, mesh)
+    entries = list(base) + [None] * (len(spec.shape) - len(base))
+    used = {a for e in entries for a in _as_tuple(e)}
+    data_ax = [a for a in ("pod", "data") if a in mesh.shape and a not in used]
+    if not data_ax:
+        return base
+    combos: list[tuple[str, ...]] = []
+    for rlen in range(len(data_ax), 0, -1):
+        combos.extend(itertools.combinations(data_ax, rlen))
+    combos.sort(key=lambda c: -int(np.prod([mesh.shape[a] for a in c])))
+    rep_dims = sorted((i for i, e in enumerate(entries) if e is None), key=lambda i: -spec.shape[i])
+    for i in rep_dims:
+        for combo in combos:
+            size = int(np.prod([mesh.shape[a] for a in combo]))
+            if spec.shape[i] % size == 0 and spec.shape[i] >= size:
+                entries[i] = combo[0] if len(combo) == 1 else combo
+                return _trim(entries)
+    return base
