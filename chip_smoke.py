@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: build the kernels, hold
 each against its plain PyTorch version, then create and restore a full-width
-llama3.2-1b train state through the device tier.
+llama3.2-1b train state through the device tier and through the host-tier
+checkpoint engine.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and the CUDA toolkit (``nvcc``); it exits non-zero,
@@ -10,20 +11,39 @@ printing no result, on any failure or without a card. Phases:
 1. build: one ``nvcc`` per kernel source, all at once; the card's name and
    power limit and the host's free memory;
 2. kernel tests: ``pytest -m cuda tests/test_torch_cuda.py`` in a child
-   process: B1-B4 against their plain versions at ragged small sizes, and the
-   device tier on the card against the CPU path (f32/bf16/int8 leaves,
-   padded shards, ragged groups, every tolerated failure combination);
+   process: B1-B5b against their plain versions at ragged small sizes
+   (quantize: f32/bf16/f16, unaligned inputs, all-zero blocks, values on the
+   round-half-even boundaries), the device tier on the card against the CPU
+   path (f32/bf16/int8 leaves, padded shards, ragged groups, every tolerated
+   failure combination, compress=True), and the host engine with its state
+   on the card against the same engine on the CPU;
 3. kernels at the main path's shapes (the encode outputs are stripe-slot
-   views of a payload tensor, and the decode runs at both runs' shapes):
-   each bit-equal to its plain version, with its time, its plain version's,
-   a PyTorch call's where one computes the same function, and its bound;
-4. main path: the llama3.2-1b train state (~17.3 GB, seeded) on a virtual
-   (8, 1) ("data", "model") mesh, with rs g=4 m=2 and with xor g=4:
+   views of a payload tensor, the decode runs at both runs' shapes, the
+   quantize pair at the device-tier bucket's): each bit-equal to its plain
+   version, with its time, its plain version's, a PyTorch call's where one
+   computes the same function, and its bound;
+4. device-tier path: the llama3.2-1b train state (~17.3 GB, seeded) on a
+   virtual (8, 1) ("data", "model") mesh, with rs g=4 m=2 and with xor g=4:
    snapshot with the device checksum (held against ``np_checksum`` of the
    staged host bytes), staged fetch to pinned host memory (twice: first
    with fresh pinned buffers, then reusing them), ranks killed, parity
-   uploaded, striped restore, every leaf compared. The kernels' launch
-   counts are read over this phase alone.
+   uploaded, striped restore, every leaf compared; then the copy codec with
+   compress=True: int8 partner codes and scales bit-equal to the plain
+   quantize of the same bucket, the staged fetch, and the fetched partner
+   dequantized on the card within half a step of the original;
+5. engine path: the same state held by a ShardedStateEntity over 4 ranks
+   (the ZeRO-1 data dim split four ways) plus an RngEntity, through
+   ``CheckpointEngine(4, EngineConfig(compress=True, restore_mode="sync"))``:
+   checkpoint, overwrite the live state, wipe rank 2's host store, restore;
+   survivors byte-exact, rank 2's split float leaves bit-equal to the plain
+   dequantize(quantize(x)); then the same cycle uncompressed, byte-exact.
+   If the host lacks the RAM this path needs, depth (layers) is cut, never
+   width, and the cut is printed.
+
+Phase 5 runs before phase 4: it needs the most host RAM, and phase 4's
+staged fetches leave pinned host blocks in PyTorch's cache. The kernels'
+launch counts are set to 0 before each of the two paths and read after it;
+every kernel a path runs must have launched in it.
 
 The line before the last is the kernels' JSON; the last line is the result.
 """
@@ -31,15 +51,18 @@ The line before the last is the kernels' JSON; the last line is the result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 ARCH = "llama3.2-1b"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores, NVIDIA data sheet
 # Integer instruction issue: 4 schedulers per SM, each one 32-lane warp
 # instruction per clock, so 128 lanes per SM (64 on the INT32 pipe, 64 on
 # the FMA pipe, which runs IMAD; Hopper architecture white paper) x 132 SMs
@@ -115,8 +138,8 @@ def gf_ops(coefs, n_words: int) -> float:
     return ops * n_words
 
 
-def bound(nbytes: int, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S
+def bound(nbytes: int, ops: float, ops_per_s: float = INT_OPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -135,15 +158,36 @@ def max_abs_err(pairs) -> int:
     return err
 
 
+def max_value_err(a, b) -> float:
+    """Largest |a - b| over two equal-size tensors compared as numbers (int8
+    codes as integers, floats in float64); 0 only where they are equal bit
+    for bit (bits that differ between equal numbers, signed zeros, count as
+    infinite)."""
+    import torch
+
+    check(a.numel() == b.numel(), f"compared tensors differ in size: {a.numel()} != {b.numel()}")
+    a, b = a.reshape(-1), b.reshape(-1)
+    err, chunk = 0.0, 1 << 27
+    for s in range(0, a.numel(), chunk):
+        x, y = a[s : s + chunk], b[s : s + chunk]
+        if torch.equal(x.view(torch.uint8), y.view(torch.uint8)):
+            continue
+        d = float((x.to(torch.float64) - y.to(torch.float64)).abs().max())
+        err = max(err, d if d > 0 else float("inf"))
+    return err
+
+
 # ---------------------------------------------------------------------------
 # phase 2: the kernels on the card at small and ragged sizes (pytest -m cuda)
 # ---------------------------------------------------------------------------
 
 def kernel_tests_phase() -> None:
-    """tests/test_torch_cuda.py: B1-B4 against their plain versions at ragged
-    lengths, unaligned rows, all-ones words and every coefficient, and the
-    device tier on the card against the CPU path for every codec and failure
-    combination. Its launches happen in its own process."""
+    """tests/test_torch_cuda.py: B1-B5b against their plain versions at
+    ragged lengths, unaligned rows, all-ones words, every coefficient, zero
+    blocks and half steps; the device tier on the card against the CPU path
+    for every codec and failure combination and for compress=True; the host
+    engine on the card against the CPU. Its launches happen in its own
+    process."""
     import os
 
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
@@ -176,13 +220,14 @@ def kernel_phase_main(words: int, gen) -> list[dict]:
 
     from repro_torch.core import gf256
     from repro_torch.core.device_tier import striped_decode_rows
-    from repro_torch.kernels import checksum as ck, ref, rs_decode as rd, rs_encode as re, xor_parity as xp
+    from repro_torch.kernels import checksum as ck, quantize as qk, ref, rs_decode as rd, rs_encode as re
+    from repro_torch.kernels import xor_parity as xp
 
     results = []
 
-    def record(name, source, replaces, err, ms, plain, nbytes, ops, lib=None):
+    def record(name, source, replaces, err, ms, plain, nbytes, ops, lib=None, ops_per_s=INT_OPS_PER_S):
         check(err == 0, f"{name}: kernel differs from its plain version (max |err| {err})")
-        b_ms, b_by = bound(nbytes, ops)
+        b_ms, b_by = bound(nbytes, ops, ops_per_s)
         results.append(dict(name=name, source=source, replaces=replaces, max_abs_err=err, ms=ms,
                             plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
 
@@ -259,6 +304,42 @@ def kernel_phase_main(words: int, gen) -> list[dict]:
     record("gf256_matmul_dyn", "src/repro_torch/kernels/csrc/rs_decode.cu", "src/repro/kernels/rs_decode.py:77",
            max(err, xor_err), ms, plain, nbytes, ops)
     del x, rows, xi, slots, blobs
+    torch.cuda.empty_cache()
+
+    # B5a/B5b: the compressed device-tier bucket, (8, row) f32 rows (row =
+    # the bucket's words rounded up to whole 256-element blocks; at
+    # llama3.2-1b they are already whole), quantized in one launch; the plain
+    # versions row by row (their temporaries of all eight rows would not fit
+    # beside it)
+    row = -(-words // 256) * 256
+    n = 8 * row
+    xf = torch.randn((8, row), generator=gen, device="cuda")
+    q = torch.empty(n, dtype=torch.int8, device="cuda")
+    sc = torch.empty(n // 256, dtype=torch.float32, device="cuda")
+    qk.quantize_into(xf.view(-1), q, sc)
+    err = 0
+    for r in range(8):
+        pq, ps = ref.quantize_blockwise(xf[r])
+        err = max(err, max_value_err(q[r * row : (r + 1) * row], pq),
+                  max_value_err(sc[r * row // 256 : (r + 1) * row // 256], ps))
+    # per element: |x|, the running max, one division, the rounding, the clamp
+    record("quantize_blockwise", "src/repro_torch/kernels/csrc/quantize.cu", "src/repro/kernels/quantize.py:40",
+           err, time_ms(lambda: qk.quantize_into(xf.view(-1), q, sc)),
+           time_ms(lambda: [ref.quantize_blockwise(xf[r]) for r in range(8)], reps=1),
+           4 * n + n + 4 * (n // 256), 5 * n, ops_per_s=F32_FLOPS)
+    del xf
+    out = torch.empty(n, dtype=torch.float32, device="cuda")
+    qk.dequantize_into(q, sc, out)
+    err = 0
+    for r in range(8):
+        rows_q, rows_s = q[r * row : (r + 1) * row], sc[r * row // 256 : (r + 1) * row // 256]
+        err = max(err, max_value_err(out[r * row : (r + 1) * row], ref.dequantize_blockwise(rows_q, rows_s)))
+    record("dequantize_blockwise", "src/repro_torch/kernels/csrc/quantize.cu", "src/repro/kernels/quantize.py:60",
+           err, time_ms(lambda: qk.dequantize_into(q, sc, out)),
+           time_ms(lambda: [ref.dequantize_blockwise(q[r * row : (r + 1) * row], sc[r * row // 256 : (r + 1) * row // 256])
+                            for r in range(8)], reps=1),
+           n + 4 * (n // 256) + 4 * n, 2 * n, ops_per_s=F32_FLOPS)
+    del q, sc, out
     torch.cuda.empty_cache()
     for r in results:
         log(f"kernel {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, "
@@ -381,39 +462,302 @@ def main_run(state, layout, mesh, codec: str, g: int, m: int, kill) -> dict:
     )
 
 
-def main_path() -> tuple[dict, list[dict]]:
-    """The llama3.2-1b train state on the card, through every run of
-    MAIN_RUNS; returns the kernels' launch counts over those runs."""
+def compressed_run(state, layout, mesh) -> dict:
+    """The copy codec with compress=True: create (the quantize kernel on all
+    eight coordinate rows at once), codes and scales bit-equal to the plain
+    quantize of the same rows, the staged fetch, and the fetched partner
+    dequantized on the card (the dequantize kernel) within half a step of
+    the original."""
     import torch
 
-    from repro_torch.configs import get_config
-    from repro_torch.utils.pytree import tree_flatten
-    from repro_torch.kernels import ops
-    from repro_torch.launch.steps import init_train_state, train_state_layout
-    from repro_torch.sharding.mesh import make_mesh
+    from repro_torch.core.device_tier import build_snapshot_program, staged_snapshot_fetch
+    from repro_torch.kernels import ops, ref
 
-    mesh = make_mesh((8, 1), ("data", "model"))
-    layout = train_state_layout(get_config(ARCH), mesh)
-    t0 = time.perf_counter()
-    state = init_train_state(layout, mesh, torch.Generator(device="cuda").manual_seed(SEED))
+    prog = build_snapshot_program(mesh, layout.sds, layout.pspecs, compress=True)
+    check([b.tag for b in prog.buckets] == ["data:float32"], f"buckets {[b.tag for b in prog.buckets]}")
+    bucket = prog.buckets[0]
+    words, tag = bucket.words, bucket.tag
+    row = -(-words // 256) * 256  # the compressed row: whole 256-element blocks
+    fused = words * 4 * mesh.size
+    check(prog.pcie_bytes == prog.own_bytes + fused // 4,
+          f"compressed pcie_bytes {prog.pcie_bytes} != own {prog.own_bytes} + fused/4 {fused // 4}")
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    n_params = sum(x.numel() for x in tree_flatten(state["params"])[1])
-    state_bytes = sum(x.numel() * x.element_size() for x in tree_flatten(state)[1])
-    log(f"main: {ARCH} state {n_params} params, {state_bytes / 1e9:.3f} GB on the card "
-        f"({time.perf_counter() - t0:.1f} s to make)")
+    t0 = time.perf_counter()
+    payload = prog.snapshot_fn(state)
+    torch.cuda.synchronize()
+    create_s = time.perf_counter() - t0
+    q, sc = payload["partner"][tag]["q"], payload["partner"][tag]["scale"]
+    check(q.numel() == 8 * row and sc.numel() == 8 * row // 256, "compressed partner shapes")
+    del payload
+    torch.cuda.empty_cache()
+
+    # the plain version over the same bucket: the uncompressed copy program's
+    # partner holds the same f32 rows, moved along the same pairs
+    plain_prog = build_snapshot_program(mesh, layout.sds, layout.pspecs, include_own_copy=False, validate=False)
+    rows = plain_prog.snapshot_fn(state)["partner"][tag].view(torch.float32).view(8, words)
+
+    def padded(r: int):
+        if row == words:
+            return rows[r]
+        x = torch.zeros(row, dtype=torch.float32, device=rows.device)
+        x[:words] = rows[r]
+        return x
+
+    err = 0.0
+    for r in range(8):
+        pq, ps = ref.quantize_blockwise(padded(r))
+        err = max(err, max_value_err(q[r * row : (r + 1) * row], pq),
+                  max_value_err(sc[r * row // 256 : (r + 1) * row // 256], ps))
+        del pq, ps
+    check(err == 0, f"compressed partner differs from the plain quantize (max |err| {err})")
+
+    t0 = time.perf_counter()
+    host = staged_snapshot_fetch(prog, state, double_buffer=True)
+    d2h_s = time.perf_counter() - t0
+    hq = host["partner"][tag]["q"].to("cuda")
+    hs = host["partner"][tag]["scale"].to("cuda")
+    del host
+    check(torch.equal(hq, q) and torch.equal(hs.view(torch.int32), sc.view(torch.int32)),
+          "staged partner differs from the snapshot's")
+    del q, sc
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    deq = ops.dequantize_blockwise(hq, hs)
+    torch.cuda.synchronize()
+    deq_s = time.perf_counter() - t0
+    # |x - q·s| <= s/2 up to the rounding of x/s and of q·s: s/2 + 254·s·2^-24
+    worst = 0.0
+    for r in range(8):
+        d = (deq[r * row : (r + 1) * row] - padded(r)).abs().view(-1, 256).amax(1)
+        step = hs[r * row // 256 : (r + 1) * row // 256]
+        worst = max(worst, float((d / step).max()))
+        check(bool((d <= step * (0.5 + 254 * 2.0**-24)).all()), f"row {r}: dequantized beyond half a step")
+    peak = torch.cuda.max_memory_allocated()
+    del rows, deq, hq, hs
+    torch.cuda.empty_cache()
+    free_pinned_cache()
+    return dict(codec="copy", compress=True, create_s=create_s, d2h_s=d2h_s,
+                d2h_gbps=prog.pcie_bytes / d2h_s / 1e9, dequantize_s=deq_s,
+                worst_err_in_steps=worst, pcie_bytes=prog.pcie_bytes, peak_device_gb=peak / 1e9)
+
+
+def free_pinned_cache() -> None:
+    """Return the pinned host blocks PyTorch caches after a staged fetch
+    (where this PyTorch build exposes the call)."""
+    import torch
+
+    fn = getattr(torch._C, "_host_emptyCache", None) or getattr(torch._C, "_accelerator_emptyHostCache", None)
+    if fn is not None:
+        fn()
+
+
+def device_tier_path(state, layout, mesh) -> tuple[dict, list[dict]]:
+    """The llama3.2-1b train state on the card through every run of
+    MAIN_RUNS and the compressed copy run; returns the kernels' launch
+    counts over this path alone."""
+    import torch
+
+    from repro_torch.kernels import ops
+
     runs = []
-    ops.reset_launch_counts()  # the main path's counts start here
+    ops.reset_launch_counts()  # this path's counts start here
     for codec, g, m, kill in MAIN_RUNS:
         before = ops.launch_counts()
         run = main_run(state, layout, mesh, codec, g, m, kill)
         after = ops.launch_counts()
         run["launches"] = {k: after[k] - before[k] for k in after}
         runs.append(run)
-        log(f"main {codec} g={g} m={m} kill {list(kill)}: " + json.dumps(run))
         torch.cuda.empty_cache()
+        free_pinned_cache()
+        run["host_free_after_gib"] = host_free_gib()
+        log(f"main {codec} g={g} m={m} kill {list(kill)}: " + json.dumps(run))
+    before = ops.launch_counts()
+    run = compressed_run(state, layout, mesh)
+    after = ops.launch_counts()
+    run["launches"] = {k: after[k] - before[k] for k in after}
+    runs.append(run)
+    log("main copy compress=True: " + json.dumps(run))
     counts = ops.launch_counts()
     for name, n in counts.items():
-        check(n > 0, f"kernel {name} was launched no time on the main path")
+        check(n > 0, f"kernel {name} was launched no time on the device-tier path")
+    return counts, runs
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the host-tier checkpoint engine at full width
+# ---------------------------------------------------------------------------
+
+ENGINE_RANKS = 4  # the quickstart's virtual failure-domain hosts
+HOST_HEADROOM_GIB = 6.0
+
+
+def engine_host_need_gib(layout, plan) -> float:
+    """Host RAM one engine cycle holds at its peak: the own arenas of all
+    ranks, the exchange arenas, the compressed copies, the full-state host
+    copy the capture takes, and ``np_checksum``'s weight table (uint32, a
+    power of two at least the largest own buffer's words)."""
+    from repro_torch.utils.pytree import tree_flatten
+
+    sizes = [int(math.prod(sd.shape)) * sd.dtype.itemsize for sd in tree_flatten(layout.sds)[1]]
+    split = sum(b for i, b in enumerate(sizes) if plan.split_dim(i, ENGINE_RANKS) is not None)
+    repl = sum(sizes) - split
+    own_max_words = (repl + split // ENGINE_RANKS) // 4
+    weights = 4 * (1 << max(own_max_words - 1, 1).bit_length())
+    need = ENGINE_RANKS * repl + split + split + split // 4 + sum(sizes) + weights
+    return need / 2**30
+
+
+def _int_view(t):
+    import torch
+
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def engine_cycle(state, originals, plan, compress: bool) -> dict:
+    """checkpoint → overwrite the live state → wipe rank 2's host store →
+    restore, then every leaf checked against the originals: byte-exact,
+    except rank 2's quantized leaves under compress, which must equal the
+    plain dequantize(quantize(x)) of the originals bit for bit."""
+    import resource
+
+    import torch
+
+    from repro_torch.core.checkpoint import CheckpointEngine, EngineConfig
+    from repro_torch.core.integrity import np_checksum
+    from repro_torch.kernels import ref
+    from repro_torch.obs.trace import tracer
+    from repro_torch.runtime.state import RngEntity, ShardedStateEntity
+    from repro_torch.utils.pytree import tree_flatten
+
+    class TimedEntity(ShardedStateEntity):
+        """The entity, with the time its capture (the device-to-host copy of
+        every leaf and the split) takes."""
+
+        snapshot_s = 0.0
+
+        def snapshot_shards(self, n_ranks):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            shards = super().snapshot_shards(n_ranks)
+            self.snapshot_s += time.perf_counter() - t0
+            return shards
+
+    eng = CheckpointEngine(ENGINE_RANKS, EngineConfig(compress=compress, restore_mode="sync"))
+    rng = RngEntity()
+    rng.seed, rng.counter = SEED, 17
+    entity = TimedEntity(lambda: state, plan)
+    eng.register("state", entity)
+    eng.register("rng", rng)
+    tr = tracer()
+    tr.reset()
+    tr.enable()
+    free0 = host_free_gib()
+    check(eng.checkpoint({"step": 1}), "checkpoint: the handshake failed")
+    free1 = host_free_gib()
+    # the host checksum's rate on this machine, over rank 0's own buffer
+    own0 = eng.stores[0].buffer.read_only.own["state"][0]
+    t0 = time.perf_counter()
+    np_checksum(own0.numpy())
+    checksum_gbps = own0.numel() / (time.perf_counter() - t0) / 1e9
+    live = tree_flatten(state)[1]
+    for leaf in live:  # the live state moves on: every byte overwritten
+        leaf.fill_(7)
+    rng.seed = rng.counter = 0
+    eng.stores[2].wipe()
+    meta = eng.restore()
+    torch.cuda.synchronize()
+    tr.disable()
+    spans: dict[str, float] = {}
+    for ev in tr.events():
+        spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"]
+    tr.reset()
+    check(meta["step"] == 1 and (rng.seed, rng.counter) == (SEED, 17), "restore: meta or rng entity")
+    quantized = exact = 0
+    for i, (x, o) in enumerate(zip(live, tree_flatten(originals)[1])):
+        d = plan.split_dim(i, ENGINE_RANKS)
+        if d is None:
+            check(torch.equal(_int_view(x), _int_view(o)), f"leaf {i} (replicated) differs after restore")
+            exact += 1
+            continue
+        for r, (xs, os) in enumerate(zip(x.chunk(ENGINE_RANKS, d), o.chunk(ENGINE_RANKS, d))):
+            if r == 2 and compress and o.is_floating_point() and os.numel() >= 256:
+                flat = os.reshape(-1)
+                pad = torch.zeros(-(-flat.numel() // 8192) * 8192, dtype=flat.dtype, device=flat.device)
+                pad[: flat.numel()] = flat
+                want = ref.dequantize_blockwise(*ref.quantize_blockwise(pad))[: flat.numel()].to(o.dtype)
+                check(torch.equal(_int_view(xs.reshape(-1)), _int_view(want)),
+                      f"leaf {i} rank 2: not the plain dequantize(quantize(x))")
+                quantized += 1
+            else:
+                check(torch.equal(_int_view(xs), _int_view(os)), f"leaf {i} rank {r} differs after restore")
+                exact += 1
+    stats = eng.stats
+    out = dict(compress=compress, create_s=stats.last_create_s, capture_s=stats.last_capture_s,
+               drain_s=stats.last_finalize_wait_s, restore_s=stats.last_restore_s,
+               bytes_staged=stats.last_bytes_staged, bytes_exchanged=stats.last_bytes_exchanged,
+               snapshot_shards_s=entity.snapshot_s, checksum_gbps=checksum_gbps,
+               span_s={k: round(v, 6) for k, v in sorted(spans.items())},
+               adopted=stats.adopted_restores, zero_comm=stats.zero_comm_restores,
+               exact_pieces=exact, quantized_pieces=quantized,
+               host_free_before_gib=free0, host_free_after_create_gib=free1,
+               host_peak_rss_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
+               peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del eng
+    return out
+
+
+def engine_path(state, cfg) -> tuple[dict, list[dict]]:
+    """The host-tier engine over 4 ranks, compressed then not; returns the
+    kernels' launch counts over this path alone."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import init_train_state, train_state_layout
+    from repro_torch.runtime.state import ShardPlan
+    from repro_torch.sharding.mesh import make_mesh
+    from repro_torch.utils.pytree import tree_flatten, tree_map
+
+    mesh4 = make_mesh((ENGINE_RANKS, 1), ("data", "model"))
+    layout = train_state_layout(cfg, mesh4)
+    plan = ShardPlan.from_pspecs(layout.sds, layout.pspecs)
+    free = host_free_gib()
+    need = engine_host_need_gib(layout, plan)
+    layers = cfg.num_layers
+    while need + HOST_HEADROOM_GIB > free and layers > 1:
+        layers //= 2
+        cut = replace(cfg, num_layers=layers)
+        layout = train_state_layout(cut, mesh4)
+        plan = ShardPlan.from_pspecs(layout.sds, layout.pspecs)
+        need = engine_host_need_gib(layout, plan)
+    check(need + HOST_HEADROOM_GIB <= free, f"engine path: {need:.1f} GiB of host RAM needed, {free:.1f} free")
+    if layers != cfg.num_layers:
+        log(f"engine: depth cut to {layers} of {cfg.num_layers} layers (width kept): "
+            f"{free:.1f} GiB host RAM free, {need:.1f} GiB needed")
+        state = init_train_state(layout, mesh4, torch.Generator(device="cuda").manual_seed(SEED))
+    split = sum(plan.split_dim(i, ENGINE_RANKS) is not None for i in range(len(plan.dims)))
+    log(f"engine: {layers} layers, {len(plan.dims)} leaves ({split} split over {ENGINE_RANKS} ranks), "
+        f"host RAM {free:.1f} GiB free, about {need:.1f} GiB needed")
+    originals = tree_map(lambda t: t.clone(), state)
+    runs = []
+    ops.reset_launch_counts()  # this path's counts start here
+    for compress in (True, False):
+        for x, o in zip(tree_flatten(state)[1], tree_flatten(originals)[1]):
+            x.copy_(o)
+        torch.cuda.reset_peak_memory_stats()
+        before = ops.launch_counts()
+        run = engine_cycle(state, originals, plan, compress)
+        after = ops.launch_counts()
+        run["launches"] = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        runs.append(run)
+        log(f"engine compress={compress}: " + json.dumps(run))
+        gc.collect()
+        torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    for name in ("quantize_blockwise", "dequantize_blockwise"):
+        check(counts[name] > 0, f"kernel {name} was launched no time on the engine path")
     return counts, runs
 
 
@@ -440,17 +784,32 @@ def main() -> int:
     kernel_tests_phase()
     from repro_torch.configs import get_config
     from repro_torch.core.device_tier import build_snapshot_program
-    from repro_torch.launch.steps import train_state_layout
+    from repro_torch.launch.steps import init_train_state, train_state_layout
     from repro_torch.sharding.mesh import make_mesh
+    from repro_torch.utils.pytree import tree_flatten
 
-    layout = train_state_layout(get_config(ARCH), make_mesh((8, 1), ("data", "model")))
-    words = build_snapshot_program(make_mesh((8, 1), ("data", "model")), layout.sds, layout.pspecs,
-                                   codec="rs", parity_group=4).buckets[0].words
+    cfg = get_config(ARCH)
+    mesh = make_mesh((8, 1), ("data", "model"))
+    layout = train_state_layout(cfg, mesh)
+    words = build_snapshot_program(mesh, layout.sds, layout.pspecs, codec="rs", parity_group=4).buckets[0].words
     log(f"main path bucket data:float32: (8, {words}) uint32 words")
     kernels = kernel_phase_main(words, torch.Generator(device="cuda").manual_seed(SEED))
-    counts, runs = main_path()
+
+    t0 = time.perf_counter()
+    state = init_train_state(layout, mesh, torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_flatten(state["params"])[1])
+    state_bytes = sum(x.numel() * x.element_size() for x in tree_flatten(state)[1])
+    log(f"main: {ARCH} state {n_params} params, {state_bytes / 1e9:.3f} GB on the card "
+        f"({time.perf_counter() - t0:.1f} s to make)")
+    # the engine path first: it needs the most host RAM, and the device-tier
+    # path's staged fetches leave pinned host blocks in PyTorch's cache
+    counts5, runs5 = engine_path(state, cfg)
+    log(f"engine path launches: {json.dumps(counts5)}")
+    counts4, runs4 = device_tier_path(state, layout, mesh)
+    log(f"device-tier path launches: {json.dumps(counts4)}")
     for k in kernels:
-        k["launches"] = counts[k["name"]]
+        k["launches"] = counts4[k["name"]] + counts5[k["name"]]
         k["route"] = "cuda"
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -20,9 +20,15 @@ Payloads have the global shapes and bytes of ``np.asarray`` of the
 reference's payloads. Leaf order, bucket ``leaf_idx`` and ``word_offsets``
 and the checksum mix follow ``jax.tree.flatten``'s order: dict keys sorted.
 
-What waits (ROADMAP): ``compress=True``, ``emit_full_blobs=True``,
-``codec="lrc"``, ``build_mirror_program`` and the copy codec's
-``restore_fn``.
+With ``compress=True`` (copy codec only) each bucket's partner copy is
+int8: every coordinate's local leaves, in the bucket's dtype, are laid end
+to end in one row padded to a multiple of 256 elements, and one launch of
+the quantize kernel (B5a) covers all rows (blocks never cross a row). The
+codes and scales travel along the same permutation as the uncompressed
+copy.
+
+What waits (ROADMAP): ``emit_full_blobs=True``, ``codec="lrc"``,
+``build_mirror_program`` and the copy codec's ``restore_fn``.
 """
 
 from __future__ import annotations
@@ -38,9 +44,11 @@ import torch
 
 from repro_torch.core import distribution as dist
 from repro_torch.core import gf256
+from repro_torch.core.serialization import dtype_name
 from repro_torch.kernels import _build
 from repro_torch.kernels import checksum as _checksum_k
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import quantize as _quantize_k
 from repro_torch.kernels import rs_decode as _rsd_k
 from repro_torch.kernels import rs_encode as _rs_k
 from repro_torch.kernels import xor_parity as _xor_k
@@ -54,6 +62,8 @@ log = get_logger("core.device_tier")
 _TR = tracer()
 
 _CODECS = ("copy", "xor", "rs")
+# bucket dtypes the quantize kernel reads as they are; others are cast to f32
+_QUANT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _traced(phase: str):
@@ -70,11 +80,6 @@ def _traced(phase: str):
 # ---------------------------------------------------------------------------
 # Layout helpers
 # ---------------------------------------------------------------------------
-
-def dtype_name(dt: torch.dtype) -> str:
-    """numpy/ml_dtypes name of a torch dtype (``torch.bfloat16`` -> ``bfloat16``)."""
-    return str(dt).removeprefix("torch.")
-
 
 def _uses_axis(pspec, ndim: int, axes: tuple[str, ...]) -> bool:
     return any(a in axes for e in full_rank(pspec, ndim) for a in axes_of(e))
@@ -200,32 +205,58 @@ def _i32(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.int32)
 
 
+def _bucket_view(x: torch.Tensor, leaf: _Leaf, mesh: VirtualMesh, bucket_axes) -> torch.Tensor:
+    """A leaf (zero-padded to its layout) viewed as ``(*bucket coords,
+    *local)``, with size-1 dims for the bucket axes it does not vary on (to
+    broadcast: a replicated leaf is not materialised per coordinate)."""
+    if tuple(x.shape) != leaf.padded:
+        xp = x.new_zeros(leaf.padded)
+        xp[tuple(slice(0, s) for s in x.shape)] = x
+        x = xp
+    v, leaf_axes = _block_view(x.contiguous(), leaf, mesh, bucket_axes)
+    for p, a in enumerate(bucket_axes):
+        if a not in leaf_axes:
+            v = v.unsqueeze(p)
+    return v
+
+
 def _pack_bucket(leaves: list[torch.Tensor], bucket: FusedBucket, meta: dict[int, _Leaf], mesh: VirtualMesh) -> torch.Tensor:
     """The fused ``(n_coords, words)`` uint32 buffer of a bucket: one strided
-    copy per leaf straight into its segment (a leaf replicated over a bucket
-    axis is broadcast, not materialised first)."""
+    copy per leaf straight into its segment."""
     n_coords = _axes_size(mesh, bucket.axes)
     buf = kops.empty_u32((n_coords, bucket.words), mesh.device)
     end = 0
     for i, off in zip(bucket.leaf_idx, bucket.word_offsets):
         leaf = meta[i]
-        x = leaves[i]
-        if tuple(x.shape) != leaf.padded:
-            xp = x.new_zeros(leaf.padded)
-            xp[tuple(slice(0, s) for s in x.shape)] = x
-            x = xp
-        v, leaf_axes = _block_view(x.contiguous(), leaf, mesh, bucket.axes)
-        for p, a in enumerate(bucket.axes):
-            if a not in leaf_axes:
-                v = v.unsqueeze(p)
         dst = _leaf_slot(buf, bucket, off, leaf, mesh)
         if leaf.words * 4 != int(np.prod(leaf.local, dtype=np.int64)) * leaf.dtype.itemsize:
             _i32(buf)[:, off + leaf.words - 1] = 0  # as_u32's zero tail
-        dst.copy_(v.expand(dst.shape))
+        dst.copy_(_bucket_view(leaves[i], leaf, mesh, bucket.axes).expand(dst.shape))
         end = off + leaf.words
     if end < bucket.words:
         _i32(buf)[:, end:] = 0  # stripe-divisible padding
     return buf
+
+
+def _pack_rows(leaves: list[torch.Tensor], bucket: FusedBucket, meta: dict[int, _Leaf], mesh: VirtualMesh,
+               dtype: torch.dtype) -> torch.Tensor:
+    """The compress path's ``(n_coords, L_pad)`` rows of ``dtype``: each
+    coordinate's local leaf shards end to end (``L`` elements, padded leaves
+    included), zero-padded to a multiple of 256 elements."""
+    n_coords = _axes_size(mesh, bucket.axes)
+    sizes = [mesh.shape[a] for a in bucket.axes]
+    numels = [int(np.prod(meta[i].local, dtype=np.int64)) for i in bucket.leaf_idx]
+    length = sum(numels)
+    rows = torch.empty((n_coords, -(-length // _quantize_k.QBLOCK) * _quantize_k.QBLOCK),
+                       dtype=dtype, device=mesh.device)
+    off = 0
+    for i, numel in zip(bucket.leaf_idx, numels):
+        leaf = meta[i]
+        dst = rows[:, off : off + numel].unflatten(0, sizes).unflatten(-1, leaf.local)
+        dst.copy_(_bucket_view(leaves[i], leaf, mesh, bucket.axes).expand(dst.shape))
+        off += numel
+    rows[:, length:] = 0
+    return rows
 
 
 def _unpack_bucket(buf: torch.Tensor, leaves: list[torch.Tensor], bucket: FusedBucket, meta: dict[int, _Leaf], mesh: VirtualMesh) -> None:
@@ -304,9 +335,12 @@ def build_snapshot_program(
     codec: str = "copy",       # "copy" | "xor" | "rs"
     parity_group: int = 0,     # group size g for the striped codecs
     rs_parity: int = 2,        # m parity blobs for "rs"
+    compress: bool = False,    # int8 partner copies (copy codec only)
 ) -> SnapshotProgram:
     if codec not in _CODECS:
         raise ValueError(f"codec {codec!r}: this port runs {_CODECS}")
+    if compress and codec != "copy":
+        raise ValueError("compress applies to the full-copy codec only")
     fail_axes = (redundancy_axis,) if redundancy_axis != "data" else ("data", "pod")
     striped = codec != "copy"
     if striped and parity_group < 1:
@@ -374,21 +408,33 @@ def build_snapshot_program(
         )
     else:
         exchanged_bytes = fused_bytes
-        pcie_payload = fused_bytes
+        pcie_payload = fused_bytes if not compress else fused_bytes // 4
     pcie_bytes = (own_bytes if include_own_copy else 0) + pcie_payload
 
     gen = gf256.cauchy_matrix(rs_parity, g) if codec == "rs" else None
 
-    def _partner(bucket: FusedBucket, buf: torch.Tensor) -> torch.Tensor:
-        """The copy codec: coordinate ``dst`` receives ``src``'s buffer for
-        every (src, dst) pair of the scheme; coordinates no pair reaches get
-        zeros, as under ``ppermute``."""
+    def _permuted(bucket: FusedBucket, x: torch.Tensor) -> torch.Tensor:
+        """The copy codec: rows of ``x`` (one per bucket coordinate) moved
+        along the scheme's pairs, coordinate ``dst`` receiving ``src``'s row,
+        flattened — the reference's ``ppermute`` of each coordinate's local
+        array (coordinates no pair reaches get zeros)."""
         pre, A, post = _split_axis(mesh, bucket)
-        B = _i32(buf).view(pre, A, post, bucket.words)
+        B = x.view(pre, A, post, -1)
         out = torch.zeros_like(B)
         for src, dst in dist.perm_pairs(A, scheme):
             out[:, dst] = B[:, src]
-        return out.view(-1).view(torch.uint32)
+        return out.view(-1)
+
+    def _compressed(bucket: FusedBucket, leaves: list[torch.Tensor]) -> dict[str, torch.Tensor]:
+        """int8 codes and f32 scales of every coordinate's row, one quantize
+        launch for the whole bucket, then moved to the partners."""
+        dt = meta[bucket.leaf_idx[0]].dtype
+        rows = _pack_rows(leaves, bucket, meta, mesh, dt if dt in _QUANT_DTYPES else torch.float32)
+        q = torch.empty(rows.numel(), dtype=torch.int8, device=mesh.device)
+        scale = torch.empty(rows.numel() // _quantize_k.QBLOCK, dtype=torch.float32, device=mesh.device)
+        _quantize_k.quantize_into(rows.view(-1), q, scale)
+        del rows
+        return {"q": _permuted(bucket, q), "scale": _permuted(bucket, scale)}
 
     def _parity(bucket: FusedBucket, buf: torch.Tensor) -> torch.Tensor:
         """Encode each parity group's blobs once and slice them into the
@@ -439,7 +485,7 @@ def build_snapshot_program(
     def _encode(bucket: FusedBucket, buf: torch.Tensor) -> tuple[str, torch.Tensor]:
         if striped:
             return "parity", _parity(bucket, buf)
-        return "partner", _partner(bucket, buf)
+        return "partner", _permuted(bucket, _i32(buf)).view(torch.uint32)
 
     def _check_state(state) -> list[torch.Tensor]:
         st_paths, leaves = tree_flatten(state)
@@ -454,6 +500,14 @@ def build_snapshot_program(
         out: dict[str, Any] = {}
         sums = []
         for bucket in sub_buckets:
+            if compress:
+                # the checksum still covers the uncompressed fused buffer
+                if with_checksum:
+                    buf = _pack_bucket(leaves, bucket, meta, mesh)
+                    sums.append(_psum_u32(_checksum_k.checksum_rows(buf)))
+                    del buf
+                out.setdefault("partner", {})[bucket.tag] = _compressed(bucket, leaves)
+                continue
             buf = _pack_bucket(leaves, bucket, meta, mesh)
             if with_checksum:
                 sums.append(_psum_u32(_checksum_k.checksum_rows(buf)))

@@ -1,17 +1,25 @@
-"""Snapshot distribution primitives (paper Algorithm 1) and parity groups.
+"""Snapshot distribution and recovery assignment (paper Algorithms 1 and 4)
+and parity groups.
 
-The subset of ``repro.core.distribution`` the device tier needs, copied:
-the scheme registry with ``pairwise``/``neighbor``/``mirror``, ``perm_pairs``
-and ``inverse_perm`` (the rank permutations a partner copy travels along),
-``parity_groups``/``group_of`` (the striped codecs' group partition) and
-``blob_holder_group`` (where each group's redundancy blobs live). "Rank" is
-an index along the redundancy axis of the virtual mesh.
+The subset of ``repro.core.distribution`` the device tier and the host
+engine need, copied: the scheme registry with ``pairwise``/``neighbor``/
+``mirror``, ``multi_copy_shifts``, ``perm_pairs`` and ``inverse_perm`` (the
+rank permutations a partner copy travels along), Algorithm 4's
+``recovery_plan`` with ``DataLostError``, ``parity_groups``/``group_of``
+(the striped codecs' group partition) and ``blob_holder_group`` (where each
+group's redundancy blobs live). "Rank" is a failure-domain index: a host of
+the engine, or a coordinate of the virtual mesh's redundancy axis.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable
+
+
+class DataLostError(RuntimeError):
+    """All ranks holding a given block's backup failed (paper: 'Checkpoint not
+    restorable as only one copy was made')."""
 
 
 def pairwise_schedule(n_ranks: int, rank: int) -> tuple[int, int]:
@@ -50,8 +58,28 @@ _SCHEMES: dict[str, SchemeFn] = {
 }
 
 
+def register_scheme(name: str, fn: SchemeFn) -> None:
+    _SCHEMES[name] = fn
+
+
 def get_scheme(name: str) -> SchemeFn:
     return _SCHEMES[name]
+
+
+def multi_copy_shifts(n_ranks: int, n_copies: int) -> list[int]:
+    """R evenly spaced shifts; shift 0 excluded. R=1 reduces to pairwise."""
+    if n_ranks <= 1:
+        return []
+    if n_copies == 1:
+        return [n_ranks // 2]
+    shifts = []
+    for j in range(1, n_copies + 1):
+        s = max(1, round(j * n_ranks / (n_copies + 1))) % n_ranks
+        if s == 0:
+            s = 1
+        if s not in shifts:
+            shifts.append(s)
+    return shifts
 
 
 def perm_pairs(n_ranks: int, scheme: str = "pairwise", shift: int | None = None) -> list[tuple[int, int]]:
@@ -67,6 +95,69 @@ def perm_pairs(n_ranks: int, scheme: str = "pairwise", shift: int | None = None)
 def inverse_perm(pairs: list[tuple[int, int]]) -> list[tuple[int, int]]:
     return [(dst, src) for src, dst in pairs]
 
+
+# ---------------------------------------------------------------------------
+# Algorithm 4 — pair-wise snapshot recovery distribution
+# ---------------------------------------------------------------------------
+
+def pairwise_recovery(
+    rank_prev: int,
+    n_prev: int,
+    reassignment: Callable[[int], int],
+    survived: Callable[[int], bool],
+) -> int:
+    """Verbatim Algorithm 4: the *new* rank that must restore the block whose
+    origin is the pre-fault rank ``rank_prev``."""
+    if not survived(rank_prev):
+        shift = n_prev // 2
+        rank_backup_prev = (rank_prev + shift) % n_prev
+        if not survived(rank_backup_prev):
+            raise DataLostError(
+                f"rank {rank_prev} and its backup {rank_backup_prev} both failed"
+            )
+        return reassignment(rank_backup_prev)
+    return reassignment(rank_prev)
+
+
+def shrink_reassignment(n_prev: int, failed: set[int]) -> dict[int, int]:
+    """Survivors densely renumbered in old-rank order (MPI_Comm_shrink)."""
+    new = {}
+    nxt = 0
+    for r in range(n_prev):
+        if r not in failed:
+            new[r] = nxt
+            nxt += 1
+    return new
+
+
+def recovery_plan(n_prev: int, failed: set[int], scheme: str = "pairwise") -> dict[int, int]:
+    """origin_prev_rank -> new_rank responsible for restoring its blocks.
+
+    Applies Algorithm 4 for every pre-fault rank; raises DataLostError if any
+    block is unrecoverable under the given scheme.
+    """
+    reassign_map = shrink_reassignment(n_prev, failed)
+    survived = lambda r: r not in failed
+    reassign = lambda r: reassign_map[r]
+    plan = {}
+    for origin in range(n_prev):
+        if scheme == "pairwise":
+            plan[origin] = pairwise_recovery(origin, n_prev, reassign, survived)
+        else:
+            fn = get_scheme(scheme)
+            if survived(origin):
+                plan[origin] = reassign(origin)
+            else:
+                backup = fn(n_prev, origin)[0]
+                if not survived(backup):
+                    raise DataLostError(f"rank {origin} and backup {backup} both failed")
+                plan[origin] = reassign(backup)
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# Parity groups
+# ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
 class ParityGroup:

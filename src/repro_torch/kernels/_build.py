@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("checksum", "xor_parity", "rs_encode", "rs_decode")
+KERNELS = ("checksum", "xor_parity", "rs_encode", "rs_decode", "quantize")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -36,11 +36,14 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I = ctypes.c_int
 _U64P = ctypes.POINTER(ctypes.c_uint64)
+# call name -> (library, C function, argument types)
 _SIGNATURES = {
-    "checksum": ("repro_checksum", [_P, _I64, _I64, _I64, _P, _P]),
-    "xor_parity": ("repro_xor_reduce", [_U64P, _I, _P, _I64, _P]),
-    "rs_encode": ("repro_rs_encode", [_U64P, _I, _U64P, _I, ctypes.POINTER(ctypes.c_uint8), _I64, _P]),
-    "rs_decode": ("repro_rs_decode", [_U64P, _I, _U64P, _I, _P, _I64, _P]),
+    "checksum": ("checksum", "repro_checksum", [_P, _I64, _I64, _I64, _P, _P]),
+    "xor_parity": ("xor_parity", "repro_xor_reduce", [_U64P, _I, _P, _I64, _P]),
+    "rs_encode": ("rs_encode", "repro_rs_encode", [_U64P, _I, _U64P, _I, ctypes.POINTER(ctypes.c_uint8), _I64, _P]),
+    "rs_decode": ("rs_decode", "repro_rs_decode", [_U64P, _I, _U64P, _I, _P, _I64, _P]),
+    "quantize": ("quantize", "repro_quantize", [_P, _I, _I64, _I64, _P, _P, _P]),
+    "dequantize": ("quantize", "repro_dequantize", [_P, _P, _I64, _P, _P]),
 }
 
 _lock = threading.Lock()
@@ -95,7 +98,8 @@ def build(names: Sequence[str] = KERNELS) -> dict[str, str]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library built from ``csrc/<name>.cu`` (built first if
+    needed), with every C function it exports bound."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -103,10 +107,11 @@ def library(name: str) -> ctypes.CDLL:
             if not path.exists():
                 build([name])
             lib = ctypes.CDLL(str(path))
-            fn_name, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for lib_name, fn_name, argtypes in _SIGNATURES.values():
+                if lib_name == name:
+                    fn = getattr(lib, fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib
 
@@ -114,8 +119,8 @@ def library(name: str) -> ctypes.CDLL:
 def call(name: str, *args) -> None:
     """Launch kernel ``name`` on the current stream; raise if the launch was
     refused (the C function returns ``cudaGetLastError()``)."""
-    fn_name, _ = _SIGNATURES[name]
-    rc = getattr(library(name), fn_name)(*args)
+    lib_name, fn_name, _ = _SIGNATURES[name]
+    rc = getattr(library(lib_name), fn_name)(*args)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch (status {rc})")
 

@@ -1,5 +1,4 @@
-"""Public wrappers around the device-tier kernels (counterpart of
-``repro.kernels.ops``).
+"""Public wrappers around the kernels (counterpart of ``repro.kernels.ops``).
 
 They take whole tensors in the JAX package's shapes: ``(k, n)`` uint32
 stacks, any-dtype arrays viewed as packed uint32 words. A CPU tensor runs
@@ -16,28 +15,32 @@ from typing import Any, Sequence
 import torch
 
 from repro_torch.kernels import checksum as _checksum_k
+from repro_torch.kernels import quantize as _quantize_k
 from repro_torch.kernels import ref
 from repro_torch.kernels import rs_decode as _rsd_k
 from repro_torch.kernels import rs_encode as _rs_k
 from repro_torch.kernels import xor_parity as _xor_k
 from repro_torch.utils.pytree import tree_leaves
 
-_KERNEL_MODULES = {
-    "checksum": _checksum_k,
-    "xor_reduce": _xor_k,
-    "gf256_matmul": _rs_k,
-    "gf256_matmul_dyn": _rsd_k,
+# kernel name -> (wrapper module, its launch counter)
+_COUNTERS = {
+    "checksum": (_checksum_k, "launches"),
+    "xor_reduce": (_xor_k, "launches"),
+    "gf256_matmul": (_rs_k, "launches"),
+    "gf256_matmul_dyn": (_rsd_k, "launches"),
+    "quantize_blockwise": (_quantize_k, "quantize_launches"),
+    "dequantize_blockwise": (_quantize_k, "dequantize_launches"),
 }
 
 
 def launch_counts() -> dict[str, int]:
     """CUDA launches per kernel since the last reset."""
-    return {name: mod.launches for name, mod in _KERNEL_MODULES.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _KERNEL_MODULES.values():
-        mod.launches = 0
+    for mod, attr in _COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -162,3 +165,39 @@ def mix_checksums(parts: Sequence[torch.Tensor]) -> torch.Tensor:
 def tree_checksum(tree: Any) -> torch.Tensor:
     """Combined (2,) uint32 checksum over all leaves (order-dependent mix)."""
     return mix_checksums([checksum(leaf) for leaf in tree_leaves(tree)])
+
+
+# ---------------------------------------------------------------------------
+# Quantization
+# ---------------------------------------------------------------------------
+
+def quantize_blockwise(x: torch.Tensor, block: int = 256) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (n,) float -> (q (n_pad,) int8, scales (n_pad/block,) f32).
+
+    As in the reference, n is padded with zeros up to a multiple of
+    ``block * ROWS_PER_TILE`` (8192) elements, and ``dequantize_blockwise``
+    returns the padded length; callers slice back to the original size.
+    f32, bf16 and f16 go to the kernel as they are (it widens on load);
+    other float types are cast to f32 first, as the reference's kernel
+    does with ``astype(float32)``."""
+    if x.ndim != 1:
+        raise ValueError(f"quantize_blockwise: expected a 1-D tensor, got {tuple(x.shape)}")
+    if block != _quantize_k.QBLOCK:
+        raise ValueError(f"quantize_blockwise: the kernel is specialized to block={_quantize_k.QBLOCK}")
+    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        x = x.to(torch.float32)
+    tile = block * _quantize_k.ROWS_PER_TILE
+    n_pad = -(-x.numel() // tile) * tile
+    q = torch.empty(n_pad, dtype=torch.int8, device=x.device)
+    scale = torch.empty(n_pad // block, dtype=torch.float32, device=x.device)
+    _quantize_k.quantize_into(x.contiguous(), q, scale)
+    return q, scale
+
+
+def dequantize_blockwise(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """(q (n,) int8, scales (n/256,) f32) -> (n,) f32."""
+    if q.numel() != scale.numel() * _quantize_k.QBLOCK:
+        raise ValueError(f"dequantize_blockwise: {q.numel()} codes for {scale.numel()} scales")
+    out = torch.empty(q.numel(), dtype=torch.float32, device=q.device)
+    _quantize_k.dequantize_into(q.contiguous(), scale.contiguous(), out)
+    return out

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the four device-tier kernels.
+"""Plain PyTorch versions of the device-tier kernels: checksum, XOR
+parity, GF(2^8) encode/decode, blockwise int8 quantize/dequantize.
 
 Each function repeats its CUDA kernel's arithmetic with no tiling. The
 wrappers take them for CPU tensors only; ``chip_smoke.py`` holds each
@@ -102,3 +103,34 @@ def checksum_rows(x: torch.Tensor) -> torch.Tensor:
 def u32_from_i64(x: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2^32) -> the same values as uint32."""
     return (x - ((x >> 31) & 1) * (1 << 32)).to(torch.int32).view(torch.uint32)
+
+
+#: fl(1/127) in f32 (0x3c010204): the reference's ``max|x| / 127.0`` runs
+#: under ``jax.jit``, where XLA rewrites the division by a constant into a
+#: multiplication by this reciprocal (the true quotient differs in the last
+#: bit on some blocks).
+INV_127 = 0.007874015718698502
+
+
+def quantize_blockwise(x: torch.Tensor, block: int = 256) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization with per-block max-abs scales
+    (``repro.kernels.ref.quantize_blockwise`` as the reference runs it,
+    jitted): x (n,) float with n % block == 0 -> (q (n,) int8, scales
+    (n/block,) f32), ``scale = max(max|x| · fl(1/127), 1e-30)``,
+    ``q = clamp(round(x / scale), ±127)``.
+
+    The codes are true divisions by a tensor: PyTorch's CUDA division by a
+    Python scalar would multiply by its reciprocal instead. ``torch.round``
+    rounds half to even, like ``jnp.round``."""
+    assert x.ndim == 1 and x.shape[0] % block == 0, (tuple(x.shape), block)
+    xb = x.reshape(-1, block).to(torch.float32)
+    amax = xb.abs().amax(dim=1)
+    scale = torch.clamp_min(amax * INV_127, 1e-30)
+    q = torch.clamp(torch.round(xb / scale[:, None]), -127, 127).to(torch.int8)
+    return q.reshape(-1), scale
+
+
+def dequantize_blockwise(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """(q (n,) int8, scales (n/block,) f32) -> (n,) f32: ``q * scale``."""
+    block = q.shape[0] // scale.shape[0]
+    return (q.reshape(-1, block).to(torch.float32) * scale[:, None]).reshape(-1)

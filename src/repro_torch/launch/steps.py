@@ -5,6 +5,10 @@ specs of the state that ``repro.launch.steps.build_step(cfg, "train_4k",
 mesh)`` builds: ``params`` in ``cfg.param_dtype`` (f32 norms), the AdamW
 ``opt.master``/``opt.m``/``opt.v`` in f32 with ZeRO-1 specs, and an int32
 ``step`` scalar. The model's forward pass is not part of this slice.
+
+``state_from_numpy``/``state_to_numpy`` carry numpy trees (the JAX
+package's state) across bit for bit, and ``numpy_entity`` adapts an entity
+with numpy payloads to the port's checkpoint engine.
 """
 
 from __future__ import annotations
@@ -133,7 +137,9 @@ def init_train_state(layout: StateLayout, mesh: VirtualMesh, generator: torch.Ge
         return draw(s.shape, std, s.dtype)
 
     params = tree_map(param, layout.params)
-    master = tree_map(lambda p: p.to(torch.float32), params)
+    # copies even of f32 params: leaves never share storage (restores write
+    # them in place)
+    master = tree_map(lambda p: p.to(torch.float32, copy=True), params)
     m = tree_map(lambda s: draw(s.shape, 1e-3, s.dtype), layout.sds["opt"]["m"])
     v = tree_map(lambda s: draw(s.shape, 1e-3, s.dtype).abs_(), layout.sds["opt"]["v"])
     return {
@@ -179,3 +185,51 @@ def state_to_numpy(tree: Any) -> Any:
     """The reverse of :func:`state_from_numpy`: numpy arrays, bf16 leaves as
     ml_dtypes ``bfloat16``."""
     return tree_map(_leaf_to_numpy, tree)
+
+
+def numpy_entity(entity: Any) -> Any:
+    """A checkpoint entity whose payloads are numpy trees (the JAX package's
+    form: a ``DistributedEntity`` with ``snapshot_shards``/``restore_shards``
+    and optionally ``partner_payload``/``merge_payload``, or a plain
+    ``snapshot``/``restore`` one) as an entity of the port's engine: payloads
+    cross as CPU tensors, bit for bit, in both directions. It exposes exactly
+    the methods the wrapped entity has, since the engine dispatches on them."""
+    if not hasattr(entity, "snapshot_shards"):
+        return _NumpySnapshottable(entity)
+    if hasattr(entity, "partner_payload"):
+        return _NumpySubsetShards(entity)
+    return _NumpyShards(entity)
+
+
+def _cpu(tree: Any) -> Any:
+    return state_from_numpy(tree, device="cpu")
+
+
+class _NumpySnapshottable:
+    def __init__(self, entity: Any) -> None:
+        self.entity = entity
+
+    def snapshot(self) -> Any:
+        return _cpu(self.entity.snapshot())
+
+    def restore(self, snap: Any) -> None:
+        self.entity.restore(state_to_numpy(snap))
+
+
+class _NumpyShards:
+    def __init__(self, entity: Any) -> None:
+        self.entity = entity
+
+    def snapshot_shards(self, n_ranks: int) -> list[Any]:
+        return [_cpu(s) for s in self.entity.snapshot_shards(n_ranks)]
+
+    def restore_shards(self, shards: dict[int, Any]) -> None:
+        self.entity.restore_shards({o: state_to_numpy(p) for o, p in shards.items()})
+
+
+class _NumpySubsetShards(_NumpyShards):
+    def partner_payload(self, shard: Any, n_ranks: int) -> Any:
+        return _cpu(self.entity.partner_payload(state_to_numpy(shard), n_ranks))
+
+    def merge_payload(self, partner_subset: Any, survivor_full: Any, n_ranks: int) -> Any:
+        return _cpu(self.entity.merge_payload(state_to_numpy(partner_subset), state_to_numpy(survivor_full), n_ranks))

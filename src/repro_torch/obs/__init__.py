@@ -1,1 +1,2 @@
-"""Observability: the span tracer (copied from ``repro.obs``)."""
+"""Observability: the span tracer, the metrics registry and the event
+journal (copied from ``repro.obs``)."""

@@ -2,8 +2,13 @@
 virtual CPU devices (``XLA_FLAGS=--xla_force_host_platform_device_count=8``).
 
 ``python tests/_torch_jax_oracle.py device_tier OUT.npz`` runs the device-tier
-cases; ``... state OUT.npz`` runs the llama3.2-1b layout and slice cases. The
+cases; ``... state OUT.npz`` runs the llama3.2-1b layout and slice cases;
+``... engine OUT.npz`` runs the host-tier checkpoint engine's cases. The
 arrays go to the ``.npz``, the metadata to ``OUT.npz.json``.
+
+The engine cases' entities (``ShardedVec``, ``Counter``, ``engine_state``)
+and the dump of an engine's committed stores (``dump_engine``) are shared
+with the port's tests, which run the same code on the port's engine.
 """
 
 from __future__ import annotations
@@ -117,6 +122,17 @@ def run_device_tier(out_path: str) -> None:
                 outs = rest.restore_fn(bad, payload["parity"], {"data": rows}, {"data": mask})
                 for idx, leaf in outs.items():
                     arrays[f"{name}/restored/{tag}/{idx}"] = np.asarray(leaf)
+    # compress=True (copy codec): int8 codes + f32 scales per bucket
+    prog = build_snapshot_program(mesh, sds, ps, compress=True)
+    payload = jax.jit(prog.snapshot_fn)(state)
+    meta["compressed"] = {"buckets": _bucket_meta(prog), "own_bytes": prog.own_bytes,
+                          "exchanged_bytes": prog.exchanged_bytes, "pcie_bytes": prog.pcie_bytes}
+    arrays["compressed/checksum"] = np.asarray(payload["checksum"])
+    staged = staged_snapshot_fetch(prog, state, double_buffer=True)
+    for tag, val in payload["partner"].items():
+        for part in ("q", "scale"):
+            arrays[f"compressed/partner/{tag}/{part}"] = np.asarray(val[part])
+            arrays[f"compressed/staged/{tag}/{part}"] = np.asarray(staged["partner"][tag][part])
     _save(out_path, arrays, meta)
 
 
@@ -170,6 +186,191 @@ def run_state(out_path: str) -> None:
     _save(out_path, arrays, meta)
 
 
+# ---------------------------------------------------------------------------
+# Host-tier checkpoint engine
+# ---------------------------------------------------------------------------
+
+# tests/test_engine.py's MODES with the copy codec, restored by the serial
+# "sync" path (the port's restore)
+ENGINE_MODES = {
+    "pairwise": {},
+    "neighbor": {"scheme": "neighbor"},
+    "two_copies": {"n_copies": 2},
+    "compressed": {"compress": True},
+}
+ENGINE_RANKS = 8
+ENGINE_DIM = 1000  # >= 256, so compress_tree quantizes the vector (padded to 8192)
+
+
+class ShardedVec:
+    """tests/test_engine.py's sharded entity (per-rank unique contents)."""
+
+    def __init__(self, n, dim=ENGINE_DIM):
+        self.n = n
+        self.data = [np.arange(dim, dtype=np.float32) + 1000 * r for r in range(n)]
+
+    def snapshot_shards(self, n):
+        return [{"v": self.data[r].copy(), "origin": np.int64(r)} for r in range(n)]
+
+    def restore_shards(self, shards):
+        for origin, payload in shards.items():
+            assert int(payload["origin"]) == origin
+            self.data[origin] = np.asarray(payload["v"]).copy()
+
+
+class Counter:
+    def __init__(self):
+        self.step = 0
+
+    def snapshot(self):
+        return {"step": np.int64(self.step)}
+
+    def restore(self, snap):
+        self.step = int(snap["step"])
+
+
+def engine_state():
+    """A train-state-like tree for ShardedStateEntity over 4 ranks: f32 and
+    bf16 leaves split on the data dim (quantized under compress), a bf16
+    leaf replicated, an int32 step; with its specs."""
+    import ml_dtypes
+
+    rng = np.random.default_rng(11)
+    state = {
+        "opt": {"m": rng.standard_normal((8, 300)).astype(np.float32),
+                "w16": rng.standard_normal((4, 512)).astype(ml_dtypes.bfloat16)},
+        "params": {"embed": rng.standard_normal((6, 40)).astype(ml_dtypes.bfloat16)},
+        "step": np.asarray(5, np.int32),
+    }
+    specs = {"opt": {"m": ("data", None), "w16": ("data", None)},
+             "params": {"embed": (None, "model")}, "step": ()}
+    return state, specs
+
+
+def man_json(man) -> dict:
+    """A manifest (or the engine's ("compressed", manifest) tag) as JSON."""
+    if isinstance(man, tuple):
+        return {"tag": man[0], **man_json(man[1])}
+    coords = None if man.coords is None else [
+        [list(c.global_shape), c.axis, c.start, c.stop] for c in man.coords
+    ]
+    return {"names": list(man.names), "shapes": [list(x) for x in man.shapes],
+            "dtypes": list(man.dtypes), "offsets": list(man.offsets), "total": int(man.total),
+            "coords": coords}
+
+
+def dump_engine(eng, as_np) -> tuple[dict, dict]:
+    """Every committed store of an engine: own arenas and held copies (bytes)
+    and their manifests, the handshake and exchange checksums, the
+    replicated manifest table. ``as_np`` turns a flat buffer into numpy."""
+    arrays, stores = {}, {}
+    for r, st in sorted(eng.stores.items()):
+        ro = st.buffer.read_only
+        if ro is None:
+            continue
+        d = {"own": {}, "parity": [], "meta_keys": sorted(ro.meta),
+             "step": ro.meta.get("step"), "codecs": ro.meta.get("codecs")}
+        for name, (flat, man) in sorted(ro.own.items()):
+            arrays[f"{r}/own/{name}"] = as_np(flat)
+            d["own"][name] = man_json(man)
+        for gi, held in sorted(ro.parity.items()):
+            for (name, b, j), piece in sorted(held.items()):
+                arrays[f"{r}/parity/{gi}/{name}/{b}/{j}"] = as_np(piece)
+                d["parity"].append([gi, name, b, j])
+        d["checksums"] = {k: list(v) for k, v in sorted(ro.meta.get("checksums", {}).items())}
+        d["exch_checksums"] = sorted([o, n, *v] for (o, n), v in ro.meta.get("exch_checksums", {}).items())
+        d["manifests"] = sorted([o, n, man_json(m)] for (o, n), m in ro.meta["manifests"].items())
+        stores[str(r)] = d
+    return arrays, {"stores": stores}
+
+
+def _holders(cfg, n: int, origin: int) -> list[int]:
+    from repro.core.distribution import get_scheme, multi_copy_shifts
+
+    if cfg.get("n_copies", 1) == 1:
+        return [get_scheme(cfg.get("scheme", "pairwise"))(n, origin)[0]]
+    return [(origin + s) % n for s in multi_copy_shifts(n, cfg["n_copies"])]
+
+
+def engine_vec_cases(make_engine, wrap, as_np, vec_data) -> tuple[dict, dict]:
+    """Per mode: commit a checkpoint of ShardedVec + Counter over 8 ranks
+    and dump it; wipe rank 3 and restore; wipe rank 2 with rank 6, and rank 2
+    with every holder of its copies, and record whether the data is lost.
+    ``make_engine(n, **cfg)`` builds an engine, ``wrap`` adapts an entity,
+    ``vec_data`` reads an entity's vector as numpy."""
+    arrays, meta = {}, {}
+    for mode, cfg in ENGINE_MODES.items():
+        eng = make_engine(ENGINE_RANKS, **cfg)
+        vec, cnt = ShardedVec(ENGINE_RANKS), Counter()
+        eng.register("state", wrap(vec))
+        eng.register("counter", wrap(cnt))
+        cnt.step = 42
+        assert eng.checkpoint({"step": 42})
+        a, m = dump_engine(eng, as_np)
+        arrays.update({f"{mode}/{k}": v for k, v in a.items()})
+        for d in vec.data:
+            d += 999.0
+        cnt.step = 99
+        eng.stores[3].wipe()
+        got = eng.restore()
+        m["restore"] = {"meta_step": int(got["step"]), "counter": cnt.step,
+                        "zero_comm": eng.stats.zero_comm_restores, "adopted": eng.stats.adopted_restores}
+        for r in range(ENGINE_RANKS):
+            arrays[f"{mode}/restored/{r}"] = vec_data(vec, r)
+        m["lost"] = {}
+        for tag, kill in (("2+6", [2, 6]), ("2+holders", [2, *_holders(cfg, ENGINE_RANKS, 2)])):
+            eng = make_engine(ENGINE_RANKS, **cfg)
+            eng.register("state", wrap(ShardedVec(ENGINE_RANKS)))
+            eng.checkpoint({"step": 1})
+            for r in kill:
+                eng.stores[r].wipe()
+            try:
+                eng.restore()
+                m["lost"][tag] = False
+            except Exception as e:  # noqa: BLE001 - the class name is the result
+                m["lost"][tag] = type(e).__name__
+        meta[mode] = m
+    return arrays, meta
+
+
+def run_engine(out_path: str) -> None:
+    import jax.tree_util as jtu
+
+    from repro.core.checkpoint import CheckpointEngine, EngineConfig
+    from repro.runtime.state import RngEntity, ShardedStateEntity, ShardPlan
+
+    def make_engine(n, **cfg):
+        return CheckpointEngine(n, EngineConfig(restore_mode="sync", **cfg))
+
+    arrays, meta = engine_vec_cases(make_engine, lambda e: e, np.asarray, lambda vec, r: vec.data[r])
+
+    # ShardedStateEntity + RngEntity over 4 ranks, compressed and not
+    state_np, specs = engine_state()
+    sds = jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), state_np)
+    ps = jtu.tree_map(lambda t: P(*t), specs, is_leaf=lambda x: isinstance(x, tuple))
+    plan = ShardPlan.from_pspecs(sds, ps)
+    for compress in (False, True):
+        tag = f"state{int(compress)}"
+        box = {"s": jax.tree.map(np.copy, state_np)}
+        eng = make_engine(4, compress=compress)
+        rng = RngEntity()
+        rng.seed, rng.counter = 7, 3
+        eng.register("state", ShardedStateEntity(lambda: box["s"], lambda s: box.update(s=s), plan))
+        eng.register("rng", rng)
+        assert eng.checkpoint({"step": 1})
+        a, m = dump_engine(eng, np.asarray)
+        arrays.update({f"{tag}/{k}": v for k, v in a.items()})
+        box["s"] = jax.tree.map(lambda a: (a + 1).astype(a.dtype), box["s"])
+        rng.seed, rng.counter = 0, 0
+        eng.stores[2].wipe()
+        eng.restore()
+        m["rng"] = [rng.seed, rng.counter]
+        for path, leaf in jtu.tree_flatten_with_path(box["s"])[0]:
+            arrays[f"{tag}/restored/" + "/".join(k.key for k in path)] = np.asarray(leaf)
+        meta[tag] = m
+    _save(out_path, arrays, meta)
+
+
 def _save(out_path: str, arrays: dict, meta: dict) -> None:
     # bf16 leaves travel as their 16-bit patterns (npz has no bf16)
     enc = {}
@@ -200,4 +401,4 @@ def load(out_path: str) -> tuple[dict, dict]:
 
 
 if __name__ == "__main__":
-    {"device_tier": run_device_tier, "state": run_state}[sys.argv[1]](sys.argv[2])
+    {"device_tier": run_device_tier, "state": run_state, "engine": run_engine}[sys.argv[1]](sys.argv[2])

@@ -1,6 +1,6 @@
-"""The four CUDA kernels and the device tier on the card, against their plain
-PyTorch versions and the CPU path, bit for bit. Each test needs a CUDA card
-and ``nvcc`` and skips without them; on the GPU run
+"""The CUDA kernels, the device tier and the host engine on the card, against
+their plain PyTorch versions and the CPU path, bit for bit. Each test needs a
+CUDA card and ``nvcc`` and skips without them; on the GPU run
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``."""
 
 from __future__ import annotations
@@ -19,12 +19,16 @@ from repro_torch.core.device_tier import (
     staged_snapshot_fetch,
     striped_decode_rows,
 )
+from repro_torch.core.checkpoint import CheckpointEngine, EngineConfig
 from repro_torch.kernels import checksum as ck
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import quantize as qk
 from repro_torch.kernels import rs_decode as rd
 from repro_torch.kernels import rs_encode as re
 from repro_torch.kernels import xor_parity as xp
+from repro_torch.runtime.state import RngEntity, ShardedStateEntity, ShardPlan
 from repro_torch.sharding.mesh import make_mesh
+from repro_torch.utils.pytree import tree_flatten
 
 pytestmark = pytest.mark.cuda
 
@@ -73,7 +77,7 @@ def test_kernels_match_plain_versions(cuda, n, offset):
     assert _same(torch.stack([o.view(torch.int32) for o in outs]), ref.gf256_matmul_dyn(x, coefs))
     torch.cuda.synchronize()
     after = ops.launch_counts()
-    assert all(after[k] == before[k] + 1 for k in after)
+    assert all(after[k] == before[k] + 1 for k in ("checksum", "xor_reduce", "gf256_matmul", "gf256_matmul_dyn"))
 
 
 def test_every_coefficient_and_all_ones_generator(cuda):
@@ -131,3 +135,113 @@ def test_device_tier_on_the_card_matches_the_cpu(cuda, codec, g, m):
             rest.restore_fn(bad, staged[key], {"data": rows}, {"data": mask})
             for k in cpu_state:
                 assert torch.equal(bad[k].cpu().view(torch.uint8), cpu_state[k].view(torch.uint8)), (failed, k)
+
+
+def _quant_input(n: int, dtype, device) -> torch.Tensor:
+    """Normal values at a few scales, with an all-zero block and a block
+    whose values sit on the round-half-even boundaries (max 127: scale 1,
+    codes k + 0.5)."""
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal(n).astype(np.float32) * np.repeat(10.0 ** rng.integers(-3, 4, -(-n // 256)), 256)[:n]
+    if n >= 768:
+        x[256:512] = 0.0
+        x[512] = 127.0
+        x[513:768] = np.arange(255, dtype=np.float32) % 127 - 63 + 0.5
+    return torch.from_numpy(x).to(dtype).to(device)
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 769, 8193, 70_001])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("offset", [0, 1])  # 1: x one element past a 16-byte boundary
+def test_quantize_kernels_match_plain_versions(cuda, n, dtype, offset):
+    base = _quant_input(n + 1, dtype, cuda)
+    x = base[offset : offset + n]
+    before = ops.launch_counts()
+    q, s = ops.quantize_blockwise(x)
+    xp = torch.zeros(q.numel(), dtype=dtype, device=cuda)
+    xp[:n] = x
+    rq, rs = ref.quantize_blockwise(xp)
+    assert _same(q.view(torch.int32), rq.view(torch.int32)) and _same(s.view(torch.int32), rs.view(torch.int32))
+    out = ops.dequantize_blockwise(q, s)
+    assert _same(out.view(torch.int32), ref.dequantize_blockwise(rq, rs).view(torch.int32))
+    # codes one byte past a 4-byte boundary take the kernel's byte-wise loads
+    qs = torch.empty(q.numel() + 1, dtype=torch.int8, device=cuda)
+    qs[1:] = q
+    out2 = torch.empty_like(out)
+    qk.dequantize_into(qs[1:], s, out2)
+    assert _same(out2.view(torch.int32), out.view(torch.int32))
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["quantize_blockwise"] == before["quantize_blockwise"] + 1
+    assert after["dequantize_blockwise"] == before["dequantize_blockwise"] + 2
+    if n >= 768 and dtype == torch.float32 and offset == 0:
+        assert float(s[1]) == np.float32(1e-30) and not q[256:512].any()
+        assert float(s[2]) == 1.0 and q[513:517].tolist() == [-62, -62, -60, -60]
+
+
+def test_device_tier_compressed_on_the_card_matches_the_cpu(cuda):
+    rng = np.random.default_rng(0)
+    cpu_state = {
+        "w": torch.from_numpy(rng.standard_normal((8, 300)).astype(np.float32)),
+        "v": torch.from_numpy(rng.standard_normal((8, 100)).astype(np.float32)).to(torch.bfloat16),
+        "b": torch.from_numpy(rng.integers(-100, 100, (16,)).astype(np.int8)),
+    }
+    specs = {"w": ("data", "model"), "v": ("data", None), "b": ("data",)}
+    out = {}
+    for dev in ("cpu", cuda):
+        mesh = make_mesh((4, 2), ("data", "model"), device=dev)
+        st = {k: v.to(dev) for k, v in cpu_state.items()}
+        prog = build_snapshot_program(mesh, st, specs, compress=True)
+        out[str(dev)] = (prog.snapshot_fn(st), staged_snapshot_fetch(prog, st, double_buffer=True))
+    (a, _), (b, staged) = out["cpu"], out["cuda"]
+    assert _same(a["checksum"], b["checksum"])
+    for tag in a["partner"]:
+        for part in ("q", "scale"):
+            x = a["partner"][tag][part]
+            for y in (b["partner"][tag][part], staged["partner"][tag][part]):
+                assert torch.equal(x.view(torch.uint8), y.cpu().view(torch.uint8)), (tag, part)
+
+
+@pytest.mark.parametrize("compress", [False, True])
+def test_engine_on_the_card_matches_the_cpu(cuda, compress):
+    """The host engine with a state on the card (compression and restore on
+    the card) commits the same arenas and restores the same state as with
+    the state on the CPU."""
+    rng = np.random.default_rng(5)
+    cpu_state = {
+        "opt": {"m": torch.from_numpy(rng.standard_normal((8, 1000)).astype(np.float32)),
+                "w16": torch.from_numpy(rng.standard_normal((4, 700)).astype(np.float32)).to(torch.bfloat16)},
+        "params": {"embed": torch.from_numpy(rng.standard_normal((6, 40)).astype(np.float32))},
+        "step": torch.tensor(3, dtype=torch.int32),
+    }
+    specs = {"opt": {"m": ("data", None), "w16": ("data", None)}, "params": {"embed": (None, None)}, "step": ()}
+    plan = ShardPlan.from_pspecs(cpu_state, specs)
+    results = {}
+    for dev in ("cpu", cuda):
+        state = {k: ({kk: vv.to(dev, copy=True) for kk, vv in v.items()} if isinstance(v, dict)
+                     else v.to(dev, copy=True))
+                 for k, v in cpu_state.items()}
+        eng = CheckpointEngine(4, EngineConfig(compress=compress, restore_mode="sync"), device=dev)
+        eng.register("state", ShardedStateEntity(lambda: state, plan))
+        eng.register("rng", RngEntity())
+        before = ops.launch_counts()
+        assert eng.checkpoint({"step": 1})
+        arenas = {(r, k): f.clone() for r, st in eng.stores.items() for k, (f, _) in st.buffer.read_only.own.items()}
+        held = {(r, gi, key): t.clone() for r, st in eng.stores.items()
+                for gi, d in st.buffer.read_only.parity.items() for key, t in d.items()}
+        for leaf in tree_flatten(state)[1]:
+            leaf.fill_(7)
+        eng.stores[2].wipe()
+        eng.restore()
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        results[str(dev)] = (arenas, held, [t.cpu() for t in tree_flatten(state)[1]])
+        if str(dev) != "cpu":
+            n = int(compress)
+            assert after["quantize_blockwise"] - before["quantize_blockwise"] == 2 * 4 * n  # 2 leaves x 4 ranks
+            assert after["dequantize_blockwise"] - before["dequantize_blockwise"] == 2 * n  # rank 2's leaves
+    (a_ar, a_held, a_st), (b_ar, b_held, b_st) = results["cpu"], results["cuda"]
+    assert a_ar.keys() == b_ar.keys() and all(torch.equal(a_ar[k], b_ar[k]) for k in a_ar)
+    assert a_held.keys() == b_held.keys() and all(torch.equal(a_held[k], b_held[k]) for k in a_held)
+    for x, y in zip(a_st, b_st):
+        assert torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))

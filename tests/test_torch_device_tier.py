@@ -132,6 +132,36 @@ def test_staged_fetch_matches_snapshot(jx, setup, double_buffer):
         assert staged["own"][k].data_ptr() != state[k].data_ptr()  # never aliases live state
 
 
+@pytest.mark.parametrize("double_buffer", [True, False])
+def test_compressed_snapshot_matches(jx, setup, double_buffer):
+    """compress=True: every bucket (f32, bf16, and int8 cast to f32) is
+    quantized on all coordinate rows at once; the partners' int8 codes and
+    f32 scales, the checksum, the own copy and the staged fetch equal the
+    reference's byte for byte, and the host traffic is own + fused/4."""
+    arrays, meta = jx
+    mesh, state_np, specs = setup
+    state = _port_state(state_np)
+    prog = build_snapshot_program(mesh, state, specs, compress=True)
+    want = meta["compressed"]
+    assert [b.tag for b in prog.buckets] == [b["tag"] for b in want["buckets"]]
+    assert (prog.own_bytes, prog.exchanged_bytes, prog.pcie_bytes) == (
+        want["own_bytes"], want["exchanged_bytes"], want["pcie_bytes"])
+    fused = sum(b.words * 4 * int(np.prod([mesh.shape[a] for a in b.axes])) for b in prog.buckets)
+    assert prog.pcie_bytes == prog.own_bytes + fused // 4
+    payload = prog.snapshot_fn(state)
+    assert _same(payload["checksum"], arrays["compressed/checksum"])
+    staged = staged_snapshot_fetch(prog, state, double_buffer=double_buffer)
+    assert set(payload["partner"]) == set(staged["partner"]) == {b.tag for b in prog.buckets}
+    for tag in payload["partner"]:
+        for part in ("q", "scale"):
+            assert _same(payload["partner"][tag][part], arrays[f"compressed/partner/{tag}/{part}"]), (tag, part)
+            assert _same(staged["partner"][tag][part], arrays[f"compressed/staged/{tag}/{part}"]), (tag, part)
+    for k in state_np:
+        assert _same(payload["own"][k], state_np[k]) and _same(staged["own"][k], state_np[k]), k
+    with pytest.raises(ValueError):
+        build_snapshot_program(mesh, state, specs, codec="xor", parity_group=2, compress=True)
+
+
 @pytest.mark.parametrize("name", STRIPED)
 def test_decode_rows_match(jx, name):
     arrays, meta = jx
@@ -210,8 +240,9 @@ def test_no_quiet_fallback_to_the_cpu(setup):
 
 @pytest.mark.parametrize("n", [1, 2, 5, 8])
 def test_distribution_matches(n):
-    """Rank permutations, parity groups and blob holders: the port's copy
-    of ``repro.core.distribution`` gives the reference's answers."""
+    """Rank permutations, parity groups, blob holders, copy shifts and
+    Algorithm 4's recovery plan: the port's copy of
+    ``repro.core.distribution`` gives the reference's answers."""
     from repro.core import distribution as jdist
     from repro_torch.core import distribution as tdist
 
@@ -227,3 +258,18 @@ def test_distribution_matches(n):
         ng = len(groups)
         assert [tdist.blob_holder_group(ng, gi, b) for gi in range(ng) for b in range(3)] == [
             jdist.blob_holder_group(ng, gi, b) for gi in range(ng) for b in range(3)]
+    for copies in range(1, 4):
+        assert tdist.multi_copy_shifts(n, copies) == jdist.multi_copy_shifts(n, copies)
+    # Algorithm 4: the same plan, or DataLostError on both sides
+    for scheme in ("pairwise", "neighbor"):
+        for failed in ({n - 1}, {0, n // 2}, {0, 1}):
+            got = want = None
+            try:
+                want = jdist.recovery_plan(n, failed, scheme)
+            except jdist.DataLostError:
+                want = "lost"
+            try:
+                got = tdist.recovery_plan(n, failed, scheme)
+            except tdist.DataLostError:
+                got = "lost"
+            assert got == want, (scheme, failed)

@@ -1,6 +1,8 @@
 """The port stands alone: importing every ``repro_torch`` module and the
 module-level code of ``chip_smoke.py`` loads neither ``jax`` nor the JAX
-package ``repro``, and no source of the port imports either."""
+package ``repro``, and no source of the port imports either. The host
+engine's path on the card needs no ``ml_dtypes`` either (the GPU machine
+has none)."""
 
 from __future__ import annotations
 
@@ -53,3 +55,18 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
 def test_no_source_imports_jax_or_repro(path):
     text = path.read_text()
     assert not [f for f in FORBIDDEN if f in text]
+
+
+_ENGINE_PROBE = r"""
+import json, sys
+import repro_torch.core.checkpoint, repro_torch.runtime.state, repro_torch.optim.grad_compress
+print(json.dumps([m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")]))
+"""
+
+
+def test_engine_path_loads_no_jax_repro_or_ml_dtypes():
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", _ENGINE_PROBE], capture_output=True, text=True,
+                          env=env, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
