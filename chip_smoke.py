@@ -11,12 +11,15 @@ printing no result, on any failure or without a card. Phases:
 1. build: one ``nvcc`` per kernel source, all at once; the card's name and
    power limit and the host's free memory;
 2. kernel tests: ``pytest -m cuda tests/test_torch_cuda.py`` in a child
-   process: B1-B5b against their plain versions at ragged small sizes
+   process: B1-B6 against their plain versions at ragged small sizes
    (quantize: f32/bf16/f16, unaligned inputs, all-zero blocks, values on the
-   round-half-even boundaries), the device tier on the card against the CPU
-   path (f32/bf16/int8 leaves, padded shards, ragged groups, every tolerated
-   failure combination, compress=True), and the host engine with its state
-   on the card against the same engine on the CPU;
+   round-half-even boundaries; gather: f32/bf16/int8/int32 rows of 1 byte to
+   512 KiB, unaligned rows, repeated and reversed indices, 0 and 1 output
+   rows), the device tier on the card against the CPU path (f32/bf16/int8
+   leaves, padded shards, ragged groups, every tolerated failure
+   combination, compress=True), and the host engine and its
+   ``restore_elastic`` with the state on the card against the same engine on
+   the CPU;
 3. kernels at the main path's shapes (the encode outputs are stripe-slot
    views of a payload tensor, the decode runs at both runs' shapes, the
    quantize pair at the device-tier bucket's): each bit-equal to its plain
@@ -38,11 +41,29 @@ printing no result, on any failure or without a card. Phases:
    survivors byte-exact, rank 2's split float leaves bit-equal to the plain
    dequantize(quantize(x)); then the same cycle uncompressed, byte-exact.
    If the host lacks the RAM this path needs, depth (layers) is cut, never
-   width, and the cut is printed.
+   width, and the cut is printed;
+6. elastic path: the same state and entities through
+   ``CheckpointEngine(4, EngineConfig(restore_mode="sync"))`` attached to a
+   ``VirtualCluster(4)``: checkpoint, overwrite the live state, kill rank 2,
+   ``stabilize("elastic")``, ``restore_elastic(2)``, ``resize(2)``; re-protect
+   with a checkpoint on 2 ranks, overwrite again, ``restore_elastic(8)``,
+   ``resize(8)``. After each restore every leaf is byte-equal to the seeded
+   original, and every leaf with a data axis of every new rank was built by
+   the row gather (B6): 33 x 2 and 33 x 8 launches. 4 -> 3 would hold every
+   split leaf whole on each of 3 new ranks (44.5 GB beside the live state
+   and the recovered payloads: more than the card has), so the drill goes
+   4 -> 2 -> 8, world sizes that divide every ZeRO-1 dim. Depth is cut, never
+   width, if the host lacks the RAM, and the cut is printed.
 
-Phase 5 runs before phase 4: it needs the most host RAM, and phase 4's
-staged fetches leave pinned host blocks in PyTorch's cache. The kernels'
-launch counts are set to 0 before each of the two paths and read after it;
+Phase 3 also runs B6 at the main path's largest gather (the w_up master
+leaf, 4 origins x 512 rows of 512 KiB, gathered for one new rank of the
+4 -> 2 plan), with the copies around it (the axis move and the stacking)
+timed on their own, and the host executor's result for that leaf held
+against the gather's.
+
+Phase 5 runs before phases 6 and 4: it needs the most host RAM, and phase
+4's staged fetches leave pinned host blocks in PyTorch's cache. The kernels'
+launch counts are set to 0 before each of the three paths and read after it;
 every kernel a path runs must have launched in it.
 
 The line before the last is the kernels' JSON; the last line is the result.
@@ -50,6 +71,7 @@ The line before the last is the kernels' JSON; the last line is the result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -61,6 +83,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 ARCH = "llama3.2-1b"
+# the largest leaf the elastic reshard gathers (phase 3's B6 shape)
+W_UP_MASTER = ("opt", "master", "layers", "slot0", "ffn", "w_up")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores, NVIDIA data sheet
 # Integer instruction issue: 4 schedulers per SM, each one 32-lane warp
@@ -69,6 +93,8 @@ F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores, NVIDIA d
 # x 1.98 GHz boost clock. The data sheet lists no integer rate.
 INT_OPS_PER_S = 128 * 132 * 1.98e9
 MAIN_RUNS = (("rs", 4, 2, (0, 2)), ("xor", 4, 1, (5,)))
+DEVICE_TIER_KERNELS = ("checksum", "xor_reduce", "gf256_matmul", "gf256_matmul_dyn", "quantize_blockwise",
+                       "dequantize_blockwise")
 
 
 def log(msg: str) -> None:
@@ -100,6 +126,31 @@ def host_free_gib() -> float:
             if line.startswith("MemAvailable:"):
                 return int(line.split()[1]) / 2**20
     return float("nan")
+
+
+def host_rss_gib() -> float:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+_HOST_START: list[float] = []  # (MemAvailable, this process's RSS) at start, GiB
+
+
+def host_free_settled_gib(max_wait_s: float = 30.0) -> float:
+    """MemAvailable once it accounts for the memory this process has freed.
+    On the GPU machine freed pages reach MemAvailable only seconds after the
+    process's resident set drops (``tools/memavailable_lag.py`` measures
+    it), so a reading right after a path under-reports what the next one
+    can use. Waits, at most ``max_wait_s``, until MemAvailable is within 2
+    GiB of the start reading less this process's growth since."""
+    want = _HOST_START[0] - max(host_rss_gib() - _HOST_START[1], 0.0) - 2.0
+    t0 = time.perf_counter()
+    while (free := host_free_gib()) < want and time.perf_counter() - t0 < max_wait_s:
+        time.sleep(1.0)
+    return free
 
 
 # ---------------------------------------------------------------------------
@@ -182,11 +233,12 @@ def max_value_err(a, b) -> float:
 # ---------------------------------------------------------------------------
 
 def kernel_tests_phase() -> None:
-    """tests/test_torch_cuda.py: B1-B5b against their plain versions at
+    """tests/test_torch_cuda.py: B1-B6 against their plain versions at
     ragged lengths, unaligned rows, all-ones words, every coefficient, zero
-    blocks and half steps; the device tier on the card against the CPU path
-    for every codec and failure combination and for compress=True; the host
-    engine on the card against the CPU. Its launches happen in its own
+    blocks, half steps and every row width of the reshard; the device tier
+    on the card against the CPU path for every codec and failure
+    combination and for compress=True; the host engine and its elastic
+    restore on the card against the CPU. Its launches happen in its own
     process."""
     import os
 
@@ -345,6 +397,85 @@ def kernel_phase_main(words: int, gen) -> list[dict]:
         log(f"kernel {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, "
             f"library {r['library_ms']}, bound {r['bound_ms']:.3f} ms by {r['bound_by']})")
     return results
+
+
+def layout_and_plan(cfg, n_ranks: int):
+    """The train-state layout over an (n_ranks, 1) ("data", "model") mesh on
+    the card, with its ShardPlan."""
+    from repro_torch.launch.steps import train_state_layout
+    from repro_torch.runtime.state import ShardPlan
+    from repro_torch.sharding.mesh import make_mesh
+
+    mesh = make_mesh((n_ranks, 1), ("data", "model"))
+    layout = train_state_layout(cfg, mesh)
+    return mesh, layout, ShardPlan.from_pspecs(layout.sds, layout.pspecs)
+
+
+def gather_kernel_main(cfg, gen) -> dict:
+    """B6 at the main path's largest gather: the w_up master leaf, four
+    origin shards of (16, 512, 8192) f32 (512 rows of 512 KiB along the
+    split dim), stacked as the card executor stacks them and gathered for
+    new rank 0 of the drill's 4 -> 2 plan (rank 2 killed). Bit-equal to the
+    plain version; the host executor gives the same bytes for every new
+    rank; the axis move and the stacking copies are timed on their own."""
+    import torch
+
+    from repro_torch.elastic.plan import plan_repartition
+    from repro_torch.elastic.reshard import reshard_leaves, reshard_leaves_device, segment_index, stack_rows
+    from repro_torch.kernels import _build, ref, reshard as rk
+
+    _, layout, plan = layout_and_plan(cfg, ENGINE_RANKS)
+    i = plan.treedef.index(W_UP_MASTER)
+    axis, shape = plan.dims[i], list(plan.shapes[i])
+    shape[axis] //= ENGINE_RANKS
+    sources = {o: torch.randn(shape, generator=gen, device="cuda") for o in range(ENGINE_RANKS)}
+    coords = [[c[i]] for c in plan.shard_coords(ENGINE_RANKS)]
+    row_bytes = sources[0].numel() * 4 // shape[axis]
+    # residency after killing rank 2: survivors 0, 1, 3 renumber to 0, 1, 2;
+    # rank 2's copy is adopted on its pairwise partner 0; dense rank 2 leaves
+    p = plan_repartition(coords, 2, {0: 0, 1: 1, 2: 0, 3: None}, [row_bytes])
+
+    stacked, base, tail = stack_rows(sources, axis)
+    idx_host = segment_index(p.segments[0], base)
+    idx = idx_host.to("cuda")
+    out = torch.empty((idx.numel(), stacked.shape[1]), dtype=stacked.dtype, device="cuda")
+    rk.gather_rows_into(stacked, idx_host, out)
+    err = max_abs_err([(out, ref.gather_rows(stacked, idx))])
+    check(err == 0, f"gather_rows: kernel differs from its plain version (max |err| {err})")
+
+    # the host executor on the same full-width leaf, every new rank
+    dev = reshard_leaves_device(p, {o: [t] for o, t in sources.items()}, [axis])
+    host = reshard_leaves(p, {o: [t.cpu()] for o, t in sources.items()}, [axis])
+    for j in range(2):
+        check(torch.equal(dev[j][0].cpu().view(torch.int32), host[j][0].view(torch.int32)),
+              f"gather_rows: new rank {j} differs from the host executor")
+    del dev, host
+
+    unit = rk.unit_bytes(row_bytes, stacked.data_ptr(), out.data_ptr())
+    stream = _build.stream_of(stacked.device)
+    ms = time_ms(lambda: _build.call("gather_rows", stacked.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                                     idx.numel(), row_bytes, unit, stream), reps=20)
+    plain_ms = time_ms(lambda: ref.gather_rows(stacked, idx))
+    idx64 = idx.long()
+    library_ms = time_ms(lambda: torch.index_select(stacked, 0, idx64))
+    moved = [sources[o].movedim(axis, 0).contiguous() for o in range(ENGINE_RANKS)]
+    copies = dict(
+        movedim_ms=time_ms(lambda: [sources[o].movedim(axis, 0).contiguous() for o in range(ENGINE_RANKS)]),
+        stack_ms=time_ms(lambda: torch.cat(moved)),
+        stack_rows_ms=time_ms(lambda: stack_rows(sources, axis)),  # the port's one copy: cat of moved views
+    )
+    # bytes: each selected source row read once, each output row written once, the indices
+    rows_read = int(torch.unique(idx).numel())
+    nbytes = (rows_read + idx.numel()) * row_bytes + 4 * idx.numel()
+    b_ms, b_by = bound(nbytes, 0)
+    log(f"kernel gather_rows at the w_up master leaf ({ENGINE_RANKS} x {shape[axis]} rows of {row_bytes} B "
+        f"-> {idx.numel()} rows, unit {unit} B): {ms:.3f} ms (plain {plain_ms:.3f}, index_select "
+        f"{library_ms:.3f}, bound {b_ms:.3f} ms by {b_by}); copies around it: " + json.dumps(copies))
+    del sources, stacked, out, moved
+    torch.cuda.empty_cache()
+    return dict(name="gather_rows", source="src/repro_torch/kernels/csrc/reshard.cu",
+                replaces="src/repro/kernels/reshard.py:48", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms, **copies)
 
 
 # ---------------------------------------------------------------------------
@@ -579,8 +710,8 @@ def device_tier_path(state, layout, mesh) -> tuple[dict, list[dict]]:
     runs.append(run)
     log("main copy compress=True: " + json.dumps(run))
     counts = ops.launch_counts()
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} was launched no time on the device-tier path")
+    for name in DEVICE_TIER_KERNELS:
+        check(counts[name] > 0, f"kernel {name} was launched no time on the device-tier path")
     return counts, runs
 
 
@@ -723,7 +854,7 @@ def engine_path(state, cfg) -> tuple[dict, list[dict]]:
     mesh4 = make_mesh((ENGINE_RANKS, 1), ("data", "model"))
     layout = train_state_layout(cfg, mesh4)
     plan = ShardPlan.from_pspecs(layout.sds, layout.pspecs)
-    free = host_free_gib()
+    free = host_free_settled_gib()
     need = engine_host_need_gib(layout, plan)
     layers = cfg.num_layers
     while need + HOST_HEADROOM_GIB > free and layers > 1:
@@ -761,6 +892,227 @@ def engine_path(state, cfg) -> tuple[dict, list[dict]]:
     return counts, runs
 
 
+# ---------------------------------------------------------------------------
+# phase 6: elastic N-to-M restore at full width
+# ---------------------------------------------------------------------------
+
+ELASTIC_WORLDS = (4, 2, 8)  # checkpoint on 4, restore on 2; re-protect on 2, restore on 8
+ELASTIC_KILL = 2
+
+
+def _pow2_words_bytes(nbytes: int) -> int:
+    """Bytes of ``np_checksum``'s weight table for a buffer of ``nbytes``."""
+    return 4 * (1 << max(-(-nbytes // 4) - 1, 1).bit_length())
+
+
+def elastic_host_need_gib(layout, plan) -> float:
+    """Host RAM the two checkpoints of the drill add at their peaks (4 and 2
+    ranks, plain copies): the own and exchange arenas, beside either the
+    full-state host copy the capture takes or ``np_checksum``'s weight table
+    growing to the largest own buffer (old and new table at once), less the
+    table already held."""
+    from repro_torch.core import integrity
+    from repro_torch.utils.pytree import tree_flatten
+
+    sizes = [int(math.prod(sd.shape)) * sd.dtype.itemsize for sd in tree_flatten(layout.sds)[1]]
+    split = sum(b for i, b in enumerate(sizes) if plan.split_dim(i, ENGINE_RANKS) is not None)
+    repl = sum(sizes) - split
+    held = integrity._WEIGHTS.nbytes
+    table, need = held, 0
+    for n in ELASTIC_WORLDS[:2]:
+        arenas = n * repl + 2 * split
+        grown = max(table, _pow2_words_bytes(repl + split // n))
+        need = max(need, arenas + table + sum(sizes), arenas + table + (grown if grown > table else 0))
+        table = grown
+    return (need - held) / 2**30
+
+
+def elastic_device_need_gb(layout, plan, n_old: int, n_new: int, failed: int) -> float:
+    """Card memory a restore_elastic holds at its peak: the live state, the
+    recovered payloads (survivors' full shards, adopted copies' split
+    leaves; replicated leaves of an adopted copy are shared), the new split
+    shards, and the largest stacked leaf."""
+    from repro_torch.utils.pytree import tree_flatten
+
+    sizes = [int(math.prod(sd.shape)) * sd.dtype.itemsize for sd in tree_flatten(layout.sds)[1]]
+    split = [b for i, b in enumerate(sizes) if plan.split_dim(i, n_old) is not None]
+    repl = sum(sizes) - sum(split)
+    recovered = (n_old - failed) * (repl + sum(split) // n_old) + failed * sum(split) // n_old
+    return (sum(sizes) + recovered + sum(split) + max(split)) / 1e9
+
+
+@contextlib.contextmanager
+def device_timers(*targets):
+    """CUDA events around every call of each (module, function name) while
+    the block runs, and the card memory allocated as each call starts;
+    yields {name: [(start, end, allocated bytes), ...]}."""
+    import torch
+
+    saved, events = [], {}
+    for mod, name in targets:
+        fn = getattr(mod, name)
+        events[name] = []
+
+        def timed(*args, _fn=fn, _ev=events[name], **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            allocated = torch.cuda.memory_allocated()
+            start.record()
+            out = _fn(*args, **kw)
+            end.record()
+            _ev.append((start, end, allocated))
+            return out
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, timed)
+    try:
+        yield events
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def elastic_transition(eng, cluster, state, layout, mesh, plan, n_new: int) -> dict:
+    """One restore_elastic onto ``n_new`` ranks and the cluster's resize,
+    then every leaf checked byte for byte against the seeded original (made
+    anew on the card: no copy of the state is kept beside it). The host peak
+    is the process's peak resident set so far."""
+    import resource
+
+    import torch
+
+    from repro_torch.elastic import reshard as reshard_mod
+    from repro_torch.kernels import ops, reshard as rk
+    from repro_torch.launch.steps import init_train_state
+    from repro_torch.obs.trace import tracer
+    from repro_torch.utils.pytree import tree_flatten
+
+    n_old = eng.n_ranks
+    failed = n_old - len(cluster.alive())
+    log(f"elastic {n_old} -> {n_new}: card memory expected at the peak about "
+        f"{elastic_device_need_gb(layout, plan, n_old, n_new, failed):.1f} GB "
+        f"(live state + recovered payloads + new split shards + the largest stacked leaf)")
+    tr = tracer()
+    tr.reset()
+    tr.enable()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    allocated0 = torch.cuda.memory_allocated()
+    before = ops.launch_counts()["gather_rows"]
+    t0 = time.perf_counter()
+    with device_timers((rk, "gather_rows_into"), (reshard_mod, "stack_rows")) as ev:
+        meta = eng.restore_elastic(n_new)
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    cluster.resize(n_new)
+    tr.disable()
+    launches = ops.launch_counts()["gather_rows"] - before
+    peak = torch.cuda.max_memory_allocated()
+    spans: dict[str, float] = {}
+    for e in tr.events():
+        spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"]
+    tr.reset()
+    gather_ms = sum(a.elapsed_time(b) for a, b, _ in ev["gather_rows_into"])
+    stack_ms = sum(a.elapsed_time(b) for a, b, _ in ev["stack_rows"])
+    allocated = dict(before_gb=allocated0 / 1e9, first_stack_gb=ev["stack_rows"][0][2] / 1e9,
+                     last_stack_gb=ev["stack_rows"][-1][2] / 1e9, after_gb=torch.cuda.memory_allocated() / 1e9)
+    rep = eng.last_elastic_report
+    axised = sum(d is not None for d in plan.dims)
+    check(launches == axised * n_new, f"elastic {n_old} -> {n_new}: {launches} gather launches, "
+          f"expected {axised} leaves with a data axis x {n_new} new ranks")
+    check(meta["step"] == 1 and eng.n_ranks == n_new and sorted(eng.stores) == list(range(n_new)),
+          "elastic: meta or new world")
+    check(rep.bytes_moved == rep.bytes_lower_bound, "elastic: movement above its lower bound")
+
+    original = init_train_state(layout, mesh, torch.Generator(device="cuda").manual_seed(SEED))
+    for i, (x, o) in enumerate(zip(tree_flatten(state)[1], tree_flatten(original)[1])):
+        check(torch.equal(_int_view(x), _int_view(o)), f"elastic {n_old} -> {n_new}: leaf {i} differs")
+    del original
+    torch.cuda.empty_cache()
+    return dict(n_old=n_old, n_new=n_new, failed=failed, restore_s=eng.stats.last_restore_s, wall_s=wall_s,
+                span_s={k: round(v, 6) for k, v in sorted(spans.items())},
+                bytes_total=rep.bytes_total, bytes_moved=rep.bytes_moved,
+                bytes_lower_bound=rep.bytes_lower_bound, movement_ratio=rep.movement_ratio,
+                gather_launches=launches, gather_ms=gather_ms,
+                gather_share=gather_ms / 1e3 / eng.stats.last_restore_s,
+                stack_ms=stack_ms, stack_share=stack_ms / 1e3 / eng.stats.last_restore_s,
+                adopted=eng.stats.adopted_restores, zero_comm=eng.stats.zero_comm_restores,
+                peak_device_gb=peak / 1e9, allocated=allocated, host_free_gib=host_free_gib(),
+                host_peak_rss_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20)
+
+
+def elastic_path(state, cfg) -> tuple[dict, list[dict]]:
+    """The drill of phase 6 on ``state`` (the seeded llama3.2-1b train state,
+    written back in place by every restore); returns the kernels' launch
+    counts over this path alone."""
+    import gc
+
+    import torch
+
+    from repro_torch.core.checkpoint import CheckpointEngine, EngineConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import init_train_state
+    from repro_torch.runtime.cluster import VirtualCluster
+    from repro_torch.runtime.state import RngEntity, ShardedStateEntity
+    from repro_torch.utils.pytree import tree_flatten
+
+    mesh, layout, plan = layout_and_plan(cfg, ELASTIC_WORLDS[0])
+    free = host_free_settled_gib()
+    need = elastic_host_need_gib(layout, plan)
+    layers = cfg.num_layers
+    while need + HOST_HEADROOM_GIB > free and layers > 1:
+        layers //= 2
+        mesh, layout, plan = layout_and_plan(replace(cfg, num_layers=layers), ELASTIC_WORLDS[0])
+        need = elastic_host_need_gib(layout, plan)
+    check(need + HOST_HEADROOM_GIB <= free, f"elastic path: {need:.1f} GiB of host RAM needed, {free:.1f} free")
+    if layers != cfg.num_layers:
+        log(f"elastic: depth cut to {layers} of {cfg.num_layers} layers (width kept): "
+            f"{free:.1f} GiB host RAM free, {need:.1f} GiB needed")
+        state = init_train_state(layout, mesh, torch.Generator(device="cuda").manual_seed(SEED))
+    log(f"elastic: {layers} layers, host RAM {free:.1f} GiB free, about {need:.1f} GiB needed")
+
+    eng = CheckpointEngine(ELASTIC_WORLDS[0], EngineConfig(restore_mode="sync"))
+    cluster = VirtualCluster(ELASTIC_WORLDS[0])
+    cluster.attach_engine(eng)
+    rng = RngEntity()
+    rng.seed, rng.counter = SEED, 17
+    eng.register("state", ShardedStateEntity(lambda: state, plan))
+    eng.register("rng", rng)
+    live = tree_flatten(state)[1]
+    runs = []
+    ops.reset_launch_counts()  # this path's counts start here
+    for n_new in ELASTIC_WORLDS[1:]:
+        n = eng.n_ranks
+        check(eng.checkpoint({"step": 1}), f"checkpoint on {n} ranks: the handshake failed")
+        create = dict(create_s=eng.stats.last_create_s, capture_s=eng.stats.last_capture_s,
+                      drain_s=eng.stats.last_finalize_wait_s, bytes_staged=eng.stats.last_bytes_staged,
+                      host_free_gib=host_free_gib())
+        log(f"elastic checkpoint on {n} ranks: " + json.dumps(create))
+        for leaf in live:  # the live state moves on: every byte overwritten
+            leaf.fill_(7)
+        rng.seed = rng.counter = 0
+        report = None
+        if n == ELASTIC_WORLDS[0]:  # the first transition follows a failure
+            cluster.kill(ELASTIC_KILL, cause="drill")
+            report = cluster.stabilize("elastic")
+            check(report.policy == "elastic" and report.n_ranks_after == n - 1, f"stabilize: {report}")
+        run = elastic_transition(eng, cluster, state, layout, mesh, plan, n_new)
+        check((rng.seed, rng.counter) == (SEED, 17), "elastic: rng entity")
+        run["checkpoint"] = create
+        if report is not None:
+            run["stabilize"] = dict(policy=report.policy, failed=report.failed,
+                                    n_ranks_after=report.n_ranks_after, load_factor=report.load_factor)
+        runs.append(run)
+        log(f"elastic restore {run['n_old']} -> {n_new}: " + json.dumps(run))
+    kinds = [e["kind"] for e in eng.journal.events()]
+    check(kinds.count("failure") == 1 and kinds.count("resize") == 2, f"elastic journal: {kinds}")
+    del eng, cluster
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    check(counts["gather_rows"] > 0, "kernel gather_rows was launched no time on the elastic path")
+    return counts, runs
+
+
 def main() -> int:
     import torch
 
@@ -779,7 +1131,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     card = gpu_line()
-    log(f"host free memory: {host_free_gib():.1f} GiB")
+    _HOST_START[:] = [host_free_gib(), host_rss_gib()]
+    log(f"host free memory: {_HOST_START[0]:.1f} GiB")
 
     kernel_tests_phase()
     from repro_torch.configs import get_config
@@ -794,6 +1147,7 @@ def main() -> int:
     words = build_snapshot_program(mesh, layout.sds, layout.pspecs, codec="rs", parity_group=4).buckets[0].words
     log(f"main path bucket data:float32: (8, {words}) uint32 words")
     kernels = kernel_phase_main(words, torch.Generator(device="cuda").manual_seed(SEED))
+    kernels.append(gather_kernel_main(cfg, torch.Generator(device="cuda").manual_seed(SEED)))
 
     t0 = time.perf_counter()
     state = init_train_state(layout, mesh, torch.Generator(device="cuda").manual_seed(SEED))
@@ -806,11 +1160,14 @@ def main() -> int:
     # path's staged fetches leave pinned host blocks in PyTorch's cache
     counts5, runs5 = engine_path(state, cfg)
     log(f"engine path launches: {json.dumps(counts5)}")
+    counts6, runs6 = elastic_path(state, cfg)
+    log(f"elastic path launches: {json.dumps(counts6)}")
     counts4, runs4 = device_tier_path(state, layout, mesh)
     log(f"device-tier path launches: {json.dumps(counts4)}")
     for k in kernels:
-        k["launches"] = counts4[k["name"]] + counts5[k["name"]]
+        k["launches"] = counts4[k["name"]] + counts5[k["name"]] + counts6[k["name"]]
         k["route"] = "cuda"
+        check(k["launches"] > 0, f"kernel {k['name']} was launched no time on the main paths")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -21,9 +21,12 @@ ROADMAP item instead of quietly running another path:
   reference's ``encode_chunk_bytes=-1`` shape; the copy codec has no GF
   matrix to chunk). Background drains (``checkpoint_async(background=True)``,
   ``async_workers > 1``) wait for A5.
-* restore: ``restore_mode="sync"`` (the serial per-origin decode). The
-  pipelined restore (the reference's default) waits for A5, storage tiers
-  and ``delta`` for A7, ``restore_elastic`` for A8, ``topology`` for A9.
+* restore: ``restore_mode="sync"`` (the serial per-origin decode), and
+  ``restore_elastic``, the N-to-M repartition onto a new world size (on the
+  card, every split leaf of every new rank is built by the row-gather
+  kernel B6). The pipelined restore (the reference's default) waits for A5,
+  storage tiers and ``delta`` for A7 (so for the cold N-to-M restart too),
+  ``topology`` for A9.
 
 Host stores hold ``torch.uint8`` CPU arenas; the handshake checksums them
 on the host with ``np_checksum``, as the reference does. Restored payloads
@@ -46,12 +49,15 @@ from repro_torch.core.hoststore import HostStore, StorePayload
 from repro_torch.core.integrity import np_checksum
 from repro_torch.core.serialization import Manifest, pack_bytes, unpack_bytes
 from repro_torch.core.snapshot import Snapshottable
+from repro_torch.elastic.plan import ElasticReport, plan_repartition
+from repro_torch.elastic.reshard import reshard_leaves, reshard_leaves_device
 from repro_torch.obs.journal import EventJournal
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import tracer
 from repro_torch.optim.grad_compress import compress_tree, decompress_tree
 from repro_torch.sharding.mesh import resolve_device
 from repro_torch.utils.logging import get_logger
+from repro_torch.utils.pytree import tree_flatten, tree_unflatten
 
 log = get_logger("core.checkpoint")
 
@@ -257,6 +263,7 @@ class CheckpointEngine:
         self.stats = CheckpointStats()
         self.registry = self.stats.registry
         self.journal = EventJournal(None, self.registry)
+        self.last_elastic_report: ElasticReport | None = None  # of the last N-to-M restore
         self.codec = codec_mod.make_codec(cfg)
         if self.codec.striped:
             raise NotImplementedError(
@@ -628,15 +635,137 @@ class CheckpointEngine:
         meta = self.checkpoint_step()
         self.stats.restored += 1
         self.stats.last_restore_s = time.perf_counter() - t0
+        # The reference's record, field for field. In the sync restore its
+        # rebuilt-bytes gauge stays 0 (only the pipelined restore, A5, sets
+        # it); tier escalations (A7) and failure-domain labels (A9) are
+        # not ported.
         self.journal.record(
             "recovery", mode=self.cfg.restore_mode, failed=len(failed),
             n_ranks=self.n_ranks, duration_s=self.stats.last_restore_s,
+            bytes_rebuilt=0, escalations=0,
             step=meta.get("step") if isinstance(meta, dict) else None,
+            domains="",
         )
         return meta
 
     def restore_elastic(self, new_n_ranks: int) -> dict[str, Any]:
-        raise NotImplementedError("elastic N-to-M restore waits for ROADMAP A8")
+        """Recover the last valid checkpoint (created on this engine's N
+        ranks, possibly with failures) and restore it onto ``new_n_ranks``
+        ranks — shrink after a failure without spares, or grow on scale-up.
+
+        Entities exposing a global-coordinate manifest (``shard_coords``) are
+        repartitioned with minimal data movement via elastic/plan.py; others
+        restore through their old-world shard map unchanged. On the card
+        every leaf with a data axis is built by the row gather (B6) from the
+        recovered payloads, which the recovery unpacked there; on the CPU by
+        host slicing. The engine's stores are rebuilt for the new world
+        (empty until the next checkpoint re-protects it). Returns the
+        checkpoint meta; movement accounting lands in
+        ``self.last_elastic_report``.
+
+        With nothing in memory the reference rehydrates the stores from its
+        storage tiers first (the cold N-to-M restart); the port has no tiers
+        yet (ROADMAP A7), so ``checkpoint_step()``'s "no valid checkpoint" is
+        what the caller sees.
+        """
+        if new_n_ranks < 1:
+            raise ValueError(f"new_n_ranks must be >= 1, got {new_n_ranks}")
+        self.discard_pending()
+        t0 = time.perf_counter()
+        alive = self._alive_fn()
+        failed = set(range(self.n_ranks)) - alive
+        meta = self.checkpoint_step()  # read before the stores are rebuilt
+
+        # Physical residency of every origin's recovered payload in the NEW
+        # world: survivors keep their own shard on-host under the dense
+        # renumbering; adopted shards materialize on the adopting host. Hosts
+        # renumbered past M leave the job (their data counts as movement if
+        # the plan still needs it).
+        reassign = dist.shrink_reassignment(self.n_ranks, failed)
+        residency: dict[int, int | None] = {}
+        for origin in range(self.n_ranks):
+            holder = self._recovery_host(origin, alive)
+            dense = reassign.get(holder) if holder is not None else None
+            residency[origin] = dense if dense is not None and dense < new_n_ranks else None
+
+        report = ElasticReport(n_old=self.n_ranks, n_new=new_n_ranks)
+        with _TR.span("restore", eng=self._obs_id, failed=len(failed),
+                      mode=self.cfg.restore_mode, elastic=new_n_ranks):
+            recovered = {
+                name: self._recover_entity_shards(name, ent, alive, failed)
+                for name, ent in self._entities.items()
+            }
+        with _TR.span("reshard", eng=self._obs_id, elastic=new_n_ranks):
+            for name, ent in self._entities.items():
+                plan = self._reshard_entity(name, ent, recovered.pop(name), residency, new_n_ranks)
+                if plan is not None:
+                    report.add(name, plan)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)  # the restore ends when the new shards are written
+
+        # Rebuild the engine for the new world. The consumed checkpoint dies
+        # with the old rank space; callers re-protect by checkpointing
+        # immediately.
+        self.n_ranks = new_n_ranks
+        self.stores = {r: HostStore(r) for r in range(new_n_ranks)}
+        self.last_elastic_report = report
+        self.stats.restored += 1
+        self.stats.last_restore_s = time.perf_counter() - t0
+        self.journal.record(
+            "resize", n_old=report.n_old, n_new=report.n_new,
+            failed=len(failed), bytes_moved=report.bytes_moved,
+            bytes_total=report.bytes_total,
+            duration_s=self.stats.last_restore_s,
+        )
+        log.info(
+            "elastic restore %d->%d ranks: %.1f MiB held, %.1f MiB moved (lower bound %.1f)",
+            report.n_old, report.n_new,
+            report.bytes_total / 2**20, report.bytes_moved / 2**20,
+            report.bytes_lower_bound / 2**20,
+        )
+        return meta
+
+    def _reshard_entity(self, name: str, ent: DistributedEntity, shards: dict[int, Any],
+                        residency: dict[int, int | None], new_n_ranks: int):
+        """Write one entity's recovered old-world shards back as
+        ``new_n_ranks`` new ones; returns its plan, or None for an entity
+        without global coordinates (it merges its old-world shard map and
+        re-shards at the next checkpoint). The recovered and new shards of
+        the entity are freed when this returns."""
+        coords = self._stored_coords(name)
+        if coords is None and hasattr(ent, "shard_coords"):
+            coords = ent.shard_coords(self.n_ranks)
+        if name in self._replicated or coords is None:
+            ent.restore_shards(shards)
+            return None
+        paths = tree_flatten(shards[min(shards)])[0]
+        leaves_by_origin = {o: tree_flatten(p)[1] for o, p in shards.items()}
+        axes = [ls.axis for ls in coords[0]]
+        row_nb = _row_nbytes(leaves_by_origin[min(leaves_by_origin)], coords[0])
+        plan = plan_repartition(coords, new_n_ranks, residency, row_nb)
+        reshard = reshard_leaves_device if self.device.type == "cuda" else reshard_leaves
+        new_leaves = reshard(plan, leaves_by_origin, axes)
+        ent.restore_shards({j: tree_unflatten(paths, new_leaves[j]) for j in range(new_n_ranks)})
+        return plan
+
+    def _recovery_host(self, origin: int, alive: set[int]) -> int | None:
+        """Old-world rank whose host ends up holding ``origin``'s recovered
+        payload (the survivor itself or the adopting copy holder — the codec
+        decides). An alive-but-empty origin (revived spare) holds nothing:
+        its shard is rebuilt elsewhere, and residency must say so or elastic
+        movement accounting undercounts."""
+        if origin in alive and self.stores[origin].buffer.valid:
+            return origin
+        return self.codec.rebuilder(self._groups(), self._group_of(origin), origin, alive)
+
+    def _stored_coords(self, name: str):
+        """Global-coordinate table recorded with the last valid checkpoint."""
+        for st in self.stores.values():
+            if st.alive and st.buffer.valid:
+                table = st.buffer.read_only.meta.get("coords", {}).get(name)
+                if table is not None:
+                    return table
+        return None
 
     def _recover_entity_shards(
         self, name: str, ent: DistributedEntity, alive: set[int], failed: set[int]
@@ -747,3 +876,13 @@ class CheckpointEngine:
                 if (origin, name) in mans:
                     return mans[(origin, name)]
         raise dist.DataLostError(f"manifest for rank {origin} entity {name!r} lost")
+
+
+def _row_nbytes(leaves: list[torch.Tensor], coords: list[Any]) -> list[int]:
+    """Bytes per planner row for each leaf: a slice along the leaf's data
+    axis, or the full leaf for replicated ones (one logical row)."""
+    out = []
+    for leaf, ls in zip(leaves, coords):
+        nbytes = leaf.numel() * leaf.element_size()
+        out.append(nbytes if ls.axis is None else nbytes // max(leaf.shape[ls.axis], 1))
+    return out

@@ -44,10 +44,13 @@ class RedundancyCodec:
                           the surviving set is insufficient.
     tolerance()           max len(missing) per group guaranteed decodable
                           when the blob holders are intact.
+    rebuilder(groups, gi, origin, alive)
+                          the rank whose host ends up holding ``origin``'s
+                          rebuilt shard (elastic residency).
 
-    The arena-aware ``encode_into``/``decode_into``, ``encode_matrix``,
-    ``blobs_needed`` and ``rebuilder`` come with the striped codecs and the
-    pipelined and elastic paths that use them (ROADMAP A4, A5, A8).
+    The arena-aware ``encode_into``/``decode_into``, ``encode_matrix`` and
+    ``blobs_needed`` come with the striped codecs and the pipelined path that
+    use them (ROADMAP A4, A5).
     """
 
     name: str = "?"
@@ -77,6 +80,20 @@ class RedundancyCodec:
         missing: list[int],
     ) -> dict[int, torch.Tensor]:
         raise NotImplementedError
+
+    def rebuilder(
+        self, groups: list[dist.ParityGroup], gi: int, origin: int, alive: set[int]
+    ) -> int | None:
+        """Default: lowest surviving group member, else lowest surviving
+        stripe holder (singleton groups: the blob IS the snapshot)."""
+        for m in groups[gi].members:
+            if m != origin and m in alive:
+                return m
+        for holders in self.placement(groups, gi, max(g.members[-1] for g in groups) + 1):
+            for h in holders:
+                if h in alive:
+                    return h
+        return None
 
 
 # ---------------------------------------------------------------------------
@@ -123,6 +140,12 @@ class CopyCodec(RedundancyCodec):
         if missing and not blobs:
             raise CodecDecodeError("origin and every holder of its copies failed")
         return {i: blobs[min(blobs)] for i in missing}
+
+    def rebuilder(self, groups, gi, origin, alive):
+        for holders in self.placement(groups, gi, max(g.members[-1] for g in groups) + 1):
+            if holders[0] in alive:
+                return holders[0]  # first alive holder, scheme order
+        return None
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("checksum", "xor_parity", "rs_encode", "rs_decode", "quantize")
+KERNELS = ("checksum", "xor_parity", "rs_encode", "rs_decode", "quantize", "reshard")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -44,6 +44,7 @@ _SIGNATURES = {
     "rs_decode": ("rs_decode", "repro_rs_decode", [_U64P, _I, _U64P, _I, _P, _I64, _P]),
     "quantize": ("quantize", "repro_quantize", [_P, _I, _I64, _I64, _P, _P, _P]),
     "dequantize": ("quantize", "repro_dequantize", [_P, _P, _I64, _P, _P]),
+    "gather_rows": ("reshard", "repro_gather_rows", [_P, _P, _P, _I64, _I64, _I, _P]),
 }
 
 _lock = threading.Lock()

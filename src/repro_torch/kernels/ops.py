@@ -17,6 +17,7 @@ import torch
 from repro_torch.kernels import checksum as _checksum_k
 from repro_torch.kernels import quantize as _quantize_k
 from repro_torch.kernels import ref
+from repro_torch.kernels import reshard as _reshard_k
 from repro_torch.kernels import rs_decode as _rsd_k
 from repro_torch.kernels import rs_encode as _rs_k
 from repro_torch.kernels import xor_parity as _xor_k
@@ -30,6 +31,7 @@ _COUNTERS = {
     "gf256_matmul_dyn": (_rsd_k, "launches"),
     "quantize_blockwise": (_quantize_k, "quantize_launches"),
     "dequantize_blockwise": (_quantize_k, "dequantize_launches"),
+    "gather_rows": (_reshard_k, "launches"),
 }
 
 
@@ -137,6 +139,25 @@ def rs_decode_arrays(arrays: Sequence[torch.Tensor], coefs: torch.Tensor) -> tor
     """Erasure decode of arrays of any dtype/length -> (m, n) uint32 rebuilt
     shards: stack [survivors ‖ intact blobs] and apply the decode matrix."""
     return gf256_matmul_dyn(_stack([as_u32(a) for a in arrays]), coefs)
+
+
+# ---------------------------------------------------------------------------
+# Reshard row gather (elastic N-to-M recovery)
+# ---------------------------------------------------------------------------
+
+def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out[i] = src[idx[i]] for src (rows, cols) of any dtype, idx (rows_out,)
+    int32 (on the CPU or on ``src``'s device).
+
+    The move of the elastic reshard on the card: the repartition plan's row
+    segments flatten into ``idx`` and one gather builds the new shard. No
+    column padding: the kernel copies each row in the widest units that
+    divide it. An index outside ``[0, rows)`` raises."""
+    if src.ndim != 2 or idx.ndim != 1:
+        raise ValueError(f"gather_rows: expected (rows, cols) and (rows_out,), got "
+                         f"{tuple(src.shape)} and {tuple(idx.shape)}")
+    out = torch.empty((idx.shape[0], src.shape[1]), dtype=src.dtype, device=src.device)
+    return _reshard_k.gather_rows_into(src.contiguous(), idx, out)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the device-tier kernels: checksum, XOR
-parity, GF(2^8) encode/decode, blockwise int8 quantize/dequantize.
+"""Plain PyTorch versions of the kernels: checksum, XOR parity, GF(2^8)
+encode/decode, blockwise int8 quantize/dequantize, the reshard row gather.
 
 Each function repeats its CUDA kernel's arithmetic with no tiling. The
 wrappers take them for CPU tensors only; ``chip_smoke.py`` holds each
@@ -134,3 +134,10 @@ def dequantize_blockwise(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """(q (n,) int8, scales (n/block,) f32) -> (n,) f32: ``q * scale``."""
     block = q.shape[0] // scale.shape[0]
     return (q.reshape(-1, block).to(torch.float32) * scale[:, None]).reshape(-1)
+
+
+def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row gather for the elastic reshard: out[i] = src[idx[i]] (the
+    reference's ``jnp.take(src, idx, axis=0)``)."""
+    assert src.ndim == 2 and idx.ndim == 1
+    return src.index_select(0, idx.long())

@@ -1,1 +1,2 @@
-"""Distributed runtime: train state as checkpoint entities (``state``)."""
+"""Distributed runtime: train state as checkpoint entities (``state``), the
+virtual cluster (``cluster``) and fault injection (``failures``)."""

@@ -19,17 +19,21 @@ def tree_flatten(tree: Any) -> tuple[list[Path], list[Any]]:
     """(paths, leaves) of a nested dict, keys sorted at every level."""
     paths: list[Path] = []
     leaves: list[Any] = []
-
-    def walk(node: Any, path: Path) -> None:
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], path + (k,))
-        else:
-            paths.append(path)
-            leaves.append(node)
-
-    walk(tree, ())
+    _walk(tree, (), paths, leaves)
     return paths, leaves
+
+
+def _walk(node: Any, path: Path, paths: list[Path], leaves: list[Any]) -> None:
+    # A module-level function, not a closure that calls itself: such a
+    # closure is a reference cycle holding ``leaves``, so every flattened
+    # tensor (gigabytes of card memory) would live until the cyclic garbage
+    # collector happened to run.
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _walk(node[k], path + (k,), paths, leaves)
+    else:
+        paths.append(path)
+        leaves.append(node)
 
 
 def tree_leaves(tree: Any) -> list[Any]:

@@ -3,11 +3,14 @@ virtual CPU devices (``XLA_FLAGS=--xla_force_host_platform_device_count=8``).
 
 ``python tests/_torch_jax_oracle.py device_tier OUT.npz`` runs the device-tier
 cases; ``... state OUT.npz`` runs the llama3.2-1b layout and slice cases;
-``... engine OUT.npz`` runs the host-tier checkpoint engine's cases. The
-arrays go to the ``.npz``, the metadata to ``OUT.npz.json``.
+``... engine OUT.npz`` runs the host-tier checkpoint engine's cases;
+``... elastic OUT.npz`` the elastic N-to-M planner, reshard executors and
+``restore_elastic`` cases. The arrays go to the ``.npz``, the metadata to
+``OUT.npz.json``.
 
-The engine cases' entities (``ShardedVec``, ``Counter``, ``engine_state``)
-and the dump of an engine's committed stores (``dump_engine``) are shared
+The engine cases' entities (``ShardedVec``, ``Counter``, ``engine_state``),
+the dump of an engine's committed stores (``dump_engine``) and the elastic
+cases' runners (``elastic_plan_cases``, ``elastic_engine_cases``) are shared
 with the port's tests, which run the same code on the port's engine.
 """
 
@@ -371,6 +374,234 @@ def run_engine(out_path: str) -> None:
     _save(out_path, arrays, meta)
 
 
+# ---------------------------------------------------------------------------
+# Elastic N-to-M restore
+# ---------------------------------------------------------------------------
+
+# tests/test_elastic.py's grids
+PLAN_OLD, PLAN_NEW = (1, 2, 3, 4, 6, 8), (1, 2, 3, 5, 6, 8, 12)
+ROUNDTRIP_OLD, ROUNDTRIP_NEW = (1, 2, 4, 6, 8), (1, 3, 5, 6, 8, 12)
+EXEC_PAIRS = ((4, 2), (4, 6), (3, 4), (8, 6))
+EXEC_DTYPES = ("float32", "bfloat16", "int32")
+ROW_NBYTES = [8, 20, 63, 8]  # tests/test_elastic.py's movement accounting
+
+
+def elastic_global():
+    """tests/test_elastic.py's fixture: a split leaf, a replicated one, a
+    7-row leaf (7 divides almost no world size) and a 0-d one; with specs."""
+    state = {
+        "a": np.arange(48, dtype=np.float32).reshape(24, 2),
+        "b": np.arange(5, dtype=np.float32),
+        "c": np.arange(21, dtype=np.float32).reshape(7, 3),
+        "step": np.asarray(11, np.int64),
+    }
+    specs = {"a": ("data", None), "b": (), "c": ("data", None), "step": ()}
+    return state, specs
+
+
+def elastic_exec_state(dtype: str):
+    """The fixture in ``dtype`` (random values) plus a leaf split on its
+    middle dim, for the executors."""
+    import ml_dtypes
+
+    rng = np.random.default_rng(13)
+    dt = ml_dtypes.bfloat16 if dtype == "bfloat16" else np.dtype(dtype)
+
+    def draw(shape):
+        if dtype == "int32":
+            return rng.integers(-2**31, 2**31, shape).astype(np.int32)
+        return rng.standard_normal(shape).astype(dt)
+
+    state, specs = elastic_global()
+    state = {**{k: draw(state[k].shape) for k in ("a", "b", "c")}, "e": draw((2, 12, 3)), "step": state["step"]}
+    return state, {**specs, "e": (None, "data", None)}
+
+
+def elastic_engine_state():
+    """The fixture plus an f32 leaf whose shards are quantized under
+    compress (at least 256 elements on every world size up to 12) and a
+    bf16 leaf split on its middle dim."""
+    import ml_dtypes
+
+    rng = np.random.default_rng(17)
+    state, specs = elastic_global()
+    state = {**state, "d": rng.standard_normal((24, 256)).astype(np.float32),
+             "e": rng.standard_normal((2, 24, 16)).astype(ml_dtypes.bfloat16)}
+    return state, {**specs, "d": ("data", None), "e": (None, "data", None)}
+
+
+def coords_json(coords) -> list:
+    return [[[list(c.global_shape), c.axis, c.start, c.stop] for c in per_leaf] for per_leaf in coords]
+
+
+def plan_json(p) -> dict:
+    return {
+        "n_old": p.n_old, "n_new": p.n_new,
+        "targets": [sorted([i, t.start, t.stop, t.split] for i, t in tj.items()) for tj in p.targets],
+        "segments": [[[s.leaf, s.origin, s.src_start, s.dst_start, s.rows, s.local] for s in sj]
+                     for sj in p.segments],
+        "bytes": [p.bytes_total, p.bytes_moved, p.bytes_lower_bound, p.movement_ratio],
+        "notes": list(p.notes),
+    }
+
+
+def elastic_plan_cases(coords_for, plan_repartition, leaf_slice) -> dict:
+    """The planner on tests/test_elastic.py's grid (residency: origin o
+    stays resident on new rank o where it exists), its minimal-movement case
+    and its missing-rows case. ``coords_for(n)`` gives the fixture's shard
+    coordinates over n ranks."""
+    out: dict = {"grid": {}, "minimal": {}}
+    for n_old in PLAN_OLD:
+        coords = coords_for(n_old)
+        out["grid"][f"coords{n_old}"] = coords_json(coords)
+        for n_new in PLAN_NEW:
+            residency = {o: o if o < n_new else None for o in range(n_old)}
+            out["grid"][f"{n_old}-{n_new}"] = plan_json(plan_repartition(coords, n_new, residency, ROW_NBYTES))
+    for n_new in (2, 3, 4, 6, 12):
+        residency = {0: 0, 1: 1, 2: None, 3: 2}  # rank 2's payload resident nowhere
+        out["minimal"][str(n_new)] = plan_json(plan_repartition(coords_for(4), n_new, residency, ROW_NBYTES))
+    try:
+        plan_repartition([[leaf_slice((8, 2), 0, 0, 4)]], 1, {0: 0})  # rows [4, 8) held by nobody
+        out["missing_rows"] = None
+    except ValueError as e:
+        out["missing_rows"] = type(e).__name__
+    return out
+
+
+def elastic_cases() -> list[tuple[str, int, int, int | None, bool]]:
+    """(tag, n_old, n_new, killed rank, compress) of every engine case:
+    tests/test_elastic.py's round trips, one failed rank 8 -> 6, grow after
+    a failure 4 -> 12; each plain and compressed."""
+    base = [(f"rt{a}-{b}", a, b, None) for a in ROUNDTRIP_OLD for b in ROUNDTRIP_NEW]
+    base += [(f"kill{k}-8-6", 8, 6, k) for k in (0, 3, 7)]
+    base += [("grow-4-12", 4, 12, 2)]
+    return [(f"{tag}/c{int(c)}", a, b, k, c) for c in (False, True) for tag, a, b, k in base]
+
+
+def elastic_engine_cases(setup, as_np) -> tuple[dict, dict]:
+    """Every case of ``elastic_cases``: checkpoint on N (state + rng
+    entities), zero the live state, wipe the killed rank, restore_elastic(M);
+    record the restored state, the meta step, the world, the ElasticReport
+    with its plans, the restore counters and the journal's "resize" record;
+    then re-protect with a checkpoint on M and dump its committed stores.
+    ``setup(n, compress)`` returns (engine, live) where ``live`` has
+    ``zero()``, ``leaves()`` (path -> numpy) and ``rng()``. Also records
+    whether losing rank 2 and its pairwise partner raises."""
+    arrays, meta = {}, {}
+    for tag, n_old, n_new, kill, compress in elastic_cases():
+        eng, live = setup(n_old, compress)
+        assert eng.checkpoint({"step": 7})
+        live.zero()
+        if kill is not None:
+            eng.stores[kill].wipe()
+        got = eng.restore_elastic(n_new)
+        rep = eng.last_elastic_report
+        m = {
+            "meta_step": int(got["step"]), "n_ranks": eng.n_ranks, "stores": sorted(eng.stores),
+            "report": [rep.n_old, rep.n_new, rep.bytes_total, rep.bytes_moved, rep.bytes_lower_bound,
+                       rep.movement_ratio],
+            "plans": {name: plan_json(p) for name, p in sorted(rep.plans.items())},
+            "adopted": eng.stats.adopted_restores, "zero_comm": eng.stats.zero_comm_restores,
+            "resize": [{k: v for k, v in ev.items() if k not in ("ts", "duration_s")}
+                       for ev in eng.journal.events("resize")],
+            "rng": live.rng(),
+        }
+        for path, leaf in live.leaves().items():
+            arrays[f"{tag}/restored/{path}"] = leaf
+        assert eng.checkpoint({"step": 8})  # the new world re-protects itself
+        a, d = dump_engine(eng, as_np)
+        arrays.update({f"{tag}/{k}": v for k, v in a.items()})
+        m.update(d)
+        meta[tag] = m
+    eng, _ = setup(8, False)
+    assert eng.checkpoint({"step": 1})
+    for r in (2, 6):
+        eng.stores[r].wipe()
+    try:
+        eng.restore_elastic(6)
+        meta["lost"] = None
+    except Exception as e:  # noqa: BLE001 - the class name is the result
+        meta["lost"] = type(e).__name__
+    return arrays, meta
+
+
+def run_elastic(out_path: str) -> None:
+    import jax.tree_util as jtu
+
+    from repro.core.checkpoint import CheckpointEngine, EngineConfig
+    from repro.core.serialization import LeafSlice
+    from repro.elastic import plan_repartition, reshard_leaf_device, reshard_leaves
+    from repro.runtime.state import RngEntity, ShardedStateEntity, ShardPlan
+
+    def plan_for(state, specs):
+        sds = jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), state)
+        ps = jtu.tree_map(lambda t: P(*t), specs, is_leaf=lambda x: isinstance(x, tuple))
+        return ShardPlan.from_pspecs(sds, ps)
+
+    def paths(tree):
+        return ["/".join(k.key for k in path) for path, _ in jtu.tree_flatten_with_path(tree)[0]]
+
+    state0, specs0 = elastic_global()
+    plan0 = plan_for(state0, specs0)
+    meta: dict = {"plans": elastic_plan_cases(plan0.shard_coords, plan_repartition, LeafSlice)}
+    arrays: dict = {}
+
+    # the executors: host and Pallas gather (interpret mode), leaf by leaf
+    meta["exec"] = {}
+    for dtype in EXEC_DTYPES:
+        state, specs = elastic_exec_state(dtype)
+        plan = plan_for(state, specs)
+        names = paths(state)
+        for n_old, n_new in EXEC_PAIRS:
+            ent = ShardedStateEntity(lambda: state, lambda s: None, plan)
+            coords = plan.shard_coords(n_old)
+            leaves = {o: jax.tree.leaves(s) for o, s in enumerate(ent.snapshot_shards(n_old))}
+            axes = [ls.axis for ls in coords[0]]
+            p = plan_repartition(coords, n_new, {o: o if o < n_new else None for o in range(n_old)})
+            key = f"exec/{dtype}/{n_old}-{n_new}"
+            meta["exec"][key] = plan_json(p)
+            for j, new in enumerate(reshard_leaves(p, leaves, axes)):
+                for i, leaf in enumerate(new):
+                    arrays[f"{key}/host/{j}/{names[i]}"] = np.asarray(leaf)
+                    if axes[i] is None:
+                        continue
+                    segs = [s for s in p.segments[j] if s.leaf == i]
+                    dev = reshard_leaf_device({o: leaves[o][i] for o in range(n_old)}, segs, axes[i])
+                    arrays[f"{key}/device/{j}/{names[i]}"] = np.asarray(dev)
+
+    # the engine: restore_elastic round trips, plain and compressed
+    state_e, specs_e = elastic_engine_state()
+    plan_e = plan_for(state_e, specs_e)
+
+    class Live:
+        def __init__(self, box, rng):
+            self.box, self.rng_ent = box, rng
+
+        def zero(self):
+            self.box["s"] = jax.tree.map(np.zeros_like, self.box["s"])
+            self.rng_ent.seed = self.rng_ent.counter = 0
+
+        def leaves(self):
+            return dict(zip(paths(self.box["s"]), (np.asarray(x) for x in jax.tree.leaves(self.box["s"]))))
+
+        def rng(self):
+            return [self.rng_ent.seed, self.rng_ent.counter]
+
+    def setup(n, compress):
+        box = {"s": jax.tree.map(np.copy, state_e)}
+        rng = RngEntity()
+        rng.seed, rng.counter = 7, 3
+        eng = CheckpointEngine(n, EngineConfig(restore_mode="sync", compress=compress))
+        eng.register("state", ShardedStateEntity(lambda: box["s"], lambda s: box.update(s=s), plan_e))
+        eng.register("rng", rng)
+        return eng, Live(box, rng)
+
+    a, m = elastic_engine_cases(setup, np.asarray)
+    arrays.update(a)
+    meta["engine"] = m
+    _save(out_path, arrays, meta)
+
+
 def _save(out_path: str, arrays: dict, meta: dict) -> None:
     # bf16 leaves travel as their 16-bit patterns (npz has no bf16)
     enc = {}
@@ -401,4 +632,5 @@ def load(out_path: str) -> tuple[dict, dict]:
 
 
 if __name__ == "__main__":
-    {"device_tier": run_device_tier, "state": run_state, "engine": run_engine}[sys.argv[1]](sys.argv[2])
+    {"device_tier": run_device_tier, "state": run_state, "engine": run_engine,
+     "elastic": run_elastic}[sys.argv[1]](sys.argv[2])

@@ -1,5 +1,6 @@
-"""The CUDA kernels, the device tier and the host engine on the card, against
-their plain PyTorch versions and the CPU path, bit for bit. Each test needs a
+"""The CUDA kernels, the device tier, the host engine and its elastic N-to-M
+restore on the card, against their plain PyTorch versions and the CPU path,
+bit for bit. Each test needs a
 CUDA card and ``nvcc`` and skips without them; on the GPU run
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``."""
 
@@ -23,6 +24,7 @@ from repro_torch.core.checkpoint import CheckpointEngine, EngineConfig
 from repro_torch.kernels import checksum as ck
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import quantize as qk
+from repro_torch.kernels import reshard as rk
 from repro_torch.kernels import rs_decode as rd
 from repro_torch.kernels import rs_encode as re
 from repro_torch.kernels import xor_parity as xp
@@ -245,3 +247,114 @@ def test_engine_on_the_card_matches_the_cpu(cuda, compress):
     assert a_held.keys() == b_held.keys() and all(torch.equal(a_held[k], b_held[k]) for k in a_held)
     for x, y in zip(a_st, b_st):
         assert torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+
+
+_GATHER_DTYPES = (torch.float32, torch.bfloat16, torch.int8, torch.int32)
+_ROW_BYTES = (1, 2, 3, 4, 6, 64, 4100, 513_024)
+
+
+def _rows(rng, rows: int, row_bytes: int, device, offset: int = 0) -> torch.Tensor:
+    """A (rows, row_bytes) byte matrix of random bytes, ``offset`` bytes into
+    its allocation."""
+    raw = torch.from_numpy(rng.integers(0, 256, rows * row_bytes + offset, dtype=np.uint8)).to(device)
+    return raw[offset:].view(rows, row_bytes)
+
+
+@pytest.mark.parametrize("dtype,row_bytes", [(d, b) for d in _GATHER_DTYPES for b in _ROW_BYTES
+                                             if b % torch.empty(0, dtype=d).element_size() == 0])
+def test_gather_rows_matches_its_plain_version(cuda, dtype, row_bytes):
+    """B6 for every row width of the shapes it meets (4-byte norm rows to
+    half-megabyte MLP rows) and the odd ones between: repeated and reversed
+    indices, one launch per call."""
+    rng = np.random.default_rng(row_bytes)
+    rows = 9 if row_bytes > 4096 else 37
+    src = _rows(rng, rows, row_bytes, cuda).view(dtype)
+    for idx in (torch.arange(rows - 1, -1, -1), torch.tensor([3, 3, 0, rows - 1, 3]),
+                torch.from_numpy(rng.integers(0, rows, 2 * rows))):
+        idx = idx.to(torch.int32)
+        before = ops.launch_counts()["gather_rows"]
+        got = ops.gather_rows(src, idx.to(cuda))
+        got_host_idx = ops.gather_rows(src, idx)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["gather_rows"] == before + 2
+        want = ref.gather_rows(src, idx.to(cuda))
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+        assert torch.equal(got_host_idx.view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4, 8])  # f32 elements past a 16-byte boundary
+def test_gather_rows_off_a_16_byte_boundary(cuda, offset):
+    """Source and output ``offset`` elements into their allocations: the
+    kernel copies in the widest unit the addresses allow (4, 8 or 16 bytes)."""
+    rng = np.random.default_rng(offset)
+    base = torch.from_numpy(rng.standard_normal(11 * 96 + offset).astype(np.float32)).to(cuda)
+    src = base[offset:].view(11, 96)
+    out = torch.empty(5 * 96 + offset, dtype=torch.float32, device=cuda)[offset:].view(5, 96)
+    idx = torch.tensor([10, 0, 5, 5, 1], dtype=torch.int32)
+    rk.gather_rows_into(src, idx, out)
+    assert torch.equal(out.view(torch.int32), ref.gather_rows(src, idx.to(cuda)).view(torch.int32))
+    assert rk.unit_bytes(96 * 4, src.data_ptr(), out.data_ptr()) == min(16, 4 * offset)
+
+
+@pytest.mark.parametrize("rows_out", [0, 1])
+def test_gather_rows_with_no_or_one_output_row(cuda, rows_out):
+    src = _rows(np.random.default_rng(0), 5, 64, cuda)
+    idx = torch.full((rows_out,), 4, dtype=torch.int32, device=cuda)
+    before = ops.launch_counts()["gather_rows"]
+    got = ops.gather_rows(src, idx)
+    torch.cuda.synchronize()
+    assert got.shape == (rows_out, 64) and torch.equal(got, src[4:5].expand(rows_out, 64))
+    assert ops.launch_counts()["gather_rows"] == before + rows_out  # nothing to copy: no launch
+
+
+def test_gather_rows_raises_on_an_index_out_of_range_on_the_card(cuda):
+    src = torch.zeros((4, 8), device=cuda)
+    for bad in ([0, 4], [-1]):
+        with pytest.raises(IndexError):
+            ops.gather_rows(src, torch.tensor(bad, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("n_old,n_new,kill", [(4, 2, None), (4, 6, 1), (2, 8, None), (8, 3, 5)])
+def test_restore_elastic_on_the_card_matches_the_cpu(cuda, n_old, n_new, kill):
+    """restore_elastic with the state on the card (every split leaf of every
+    new rank built by B6) restores the same bytes, with the same report, as
+    the same engine on the CPU (host slicing)."""
+    rng = np.random.default_rng(9)
+    cpu_state = {
+        "opt": {"m": torch.from_numpy(rng.standard_normal((2, 24, 300)).astype(np.float32)),
+                "w16": torch.from_numpy(rng.standard_normal((24, 70)).astype(np.float32)).to(torch.bfloat16),
+                "n": torch.from_numpy(rng.standard_normal(24).astype(np.float32)),
+                "odd": torch.from_numpy(rng.integers(-9, 9, (7, 5)).astype(np.int32))},
+        "params": {"embed": torch.from_numpy(rng.standard_normal((6, 40)).astype(np.float32))},
+        "step": torch.tensor(3, dtype=torch.int32),
+    }
+    specs = {"opt": {"m": (None, "data", None), "w16": ("data", None), "n": ("data",), "odd": ("data", None)},
+             "params": {"embed": (None, None)}, "step": ()}
+    plan = ShardPlan.from_pspecs(cpu_state, specs)
+    results = {}
+    for dev in ("cpu", cuda):
+        state = {k: ({kk: vv.to(dev, copy=True) for kk, vv in v.items()} if isinstance(v, dict)
+                     else v.to(dev, copy=True))
+                 for k, v in cpu_state.items()}
+        eng = CheckpointEngine(n_old, EngineConfig(restore_mode="sync"), device=dev)
+        eng.register("state", ShardedStateEntity(lambda: state, plan))
+        eng.register("rng", RngEntity())
+        assert eng.checkpoint({"step": 1})
+        for leaf in tree_flatten(state)[1]:
+            leaf.fill_(7)
+        if kill is not None:
+            eng.stores[kill].wipe()
+        before = ops.launch_counts()["gather_rows"]
+        eng.restore_elastic(n_new)
+        launches = ops.launch_counts()["gather_rows"] - before
+        rep = eng.last_elastic_report
+        results[str(dev)] = ([t.cpu() for t in tree_flatten(state)[1]], launches,
+                             (rep.bytes_total, rep.bytes_moved, rep.bytes_lower_bound))
+        assert eng.checkpoint({"step": 2})
+    (a, la, ra), (b, lb, rb) = results["cpu"], results["cuda"]
+    assert ra == rb and la == 0
+    axised = sum(d is not None for d in plan.dims)  # every leaf with a data axis, per new rank
+    assert lb == axised * n_new
+    for x, y, o in zip(a, b, tree_flatten(cpu_state)[1]):
+        assert torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+        assert torch.equal(x.reshape(-1).view(torch.uint8), o.reshape(-1).view(torch.uint8))

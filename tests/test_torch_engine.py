@@ -217,12 +217,10 @@ def test_unported_settings_raise_naming_their_roadmap_item(cfg, item):
         CheckpointEngine(4, cfg, device="cpu")
 
 
-def test_background_drain_and_elastic_restore_raise():
+def test_background_drain_raises():
     eng = _engine(4)
     with pytest.raises(NotImplementedError, match="A5"):
         eng.checkpoint_async(background=True)
-    with pytest.raises(NotImplementedError, match="A8"):
-        eng.restore_elastic(3)
 
 
 def test_the_engine_runs_on_cuda_unless_asked_for_the_cpu(monkeypatch):
