@@ -8,8 +8,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and the CUDA toolkit (``nvcc``); it exits non-zero,
 printing no result, on any failure or without a card. Phases:
 
-1. build: one ``nvcc`` per kernel source, all at once; the card's name and
-   power limit and the host's free memory;
+1. build: one ``nvcc`` per kernel source, all at once (the two GF(2^8)
+   sources in parts, see ``kernels/_build.py``), timed; the card's
+   name and power limit and the host's free memory; the GF(2^8) kernels'
+   issued instructions per word by pipe, read from their SASS
+   (``tools/sass_mix.py``);
 2. kernel tests: ``pytest -m cuda tests/test_torch_cuda.py`` in a child
    process: B1-B6 against their plain versions at ragged small sizes
    (quantize: f32/bf16/f16, unaligned inputs, all-zero blocks, values on the
@@ -24,7 +27,9 @@ printing no result, on any failure or without a card. Phases:
    views of a payload tensor, the decode runs at both runs' shapes, the
    quantize pair at the device-tier bucket's): each bit-equal to its plain
    version, with its time, its plain version's, a PyTorch call's where one
-   computes the same function, and its bound;
+   computes the same function, and its bound (the largest of the bytes over
+   HBM, the integer work on the ALU and FMA pipes and through dispatch, and
+   f32 work), each resource's time printed;
 4. device-tier path: the llama3.2-1b train state (~17.3 GB, seeded) on a
    virtual (8, 1) ("data", "model") mesh, with rs g=4 m=2 and with xor g=4:
    snapshot with the device checksum (held against ``np_checksum`` of the
@@ -74,6 +79,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -87,11 +93,16 @@ ARCH = "llama3.2-1b"
 W_UP_MASTER = ("opt", "master", "layers", "slot0", "ffn", "w_up")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores, NVIDIA data sheet
-# Integer instruction issue: 4 schedulers per SM, each one 32-lane warp
-# instruction per clock, so 128 lanes per SM (64 on the INT32 pipe, 64 on
-# the FMA pipe, which runs IMAD; Hopper architecture white paper) x 132 SMs
-# x 1.98 GHz boost clock. The data sheet lists no integer rate.
-INT_OPS_PER_S = 128 * 132 * 1.98e9
+# Integer work per pipe (CUDA C++ Programming Guide, "Arithmetic
+# Instructions" throughput table, compute capability 9.0: 64 results per
+# clock per SM for 32-bit integer add, logical and shift operations (the ALU
+# pipe) and 64 for 32-bit integer multiply and multiply-add (IMAD, on the FMA
+# pipe)); dispatch is one warp instruction per clock in each of the SM's 4
+# sub-partitions, 128 lanes per clock per SM. x 132 SMs x 1.98 GHz boost
+# clock. The data sheet lists no integer rate.
+ALU_OPS_PER_S = 64 * 132 * 1.98e9
+FMA_OPS_PER_S = 64 * 132 * 1.98e9
+DISPATCH_PER_S = 128 * 132 * 1.98e9
 MAIN_RUNS = (("rs", 4, 2, (0, 2)), ("xor", 4, 1, (5,)))
 DEVICE_TIER_KERNELS = ("checksum", "xor_reduce", "gf256_matmul", "gf256_matmul_dyn", "quantize_blockwise",
                        "dequantize_blockwise")
@@ -172,26 +183,37 @@ def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def gf_ops(coefs, n_words: int) -> float:
-    """Integer instructions the GF(2^8) product needs for these coefficients,
-    per uint32 word of 4 field bytes: per input column, 4 per xtime step up
-    to its highest set bit (the top-bit mask, a LOP3; the reduction
-    multiply-high by 0x1D << 25, an IMAD.HI; the doubling, an IMAD.SHL; the
-    masked XOR that joins them, a LOP3), plus half a LOP3 per set
-    coefficient bit (a three-input XOR folds two terms into an accumulator).
-    This counts what the function needs, not what the compiled kernel issues
-    (``tools/sass_mix.py`` reads that)."""
-    ops = 0.0
+def gf_ops(coefs, n_words: int) -> tuple[float, float]:
+    """(ALU-pipe, FMA-pipe) instructions the GF(2^8) product needs for these
+    coefficients: per input column, one xtime step per bit below its highest
+    set bit (2 on the ALU pipe: the top-bit mask and the masked XOR, both
+    LOP3; 2 on the FMA pipe: the reduction multiply-high by 0x1D << 25,
+    IMAD.HI, and the doubling, IMAD.SHL), plus half a LOP3 per set
+    coefficient bit (a three-input XOR folds two terms into an
+    accumulator). This counts what the function needs for these
+    coefficients, not what the compiled kernel issues (``tools/sass_mix.py``
+    reads that)."""
+    alu = fma = 0.0
     for i in range(len(coefs[0])):
         col = [int(row[i]) for row in coefs]
-        top = max(col).bit_length()
-        ops += 4 * max(top - 1, 0) + 0.5 * sum(bin(c).count("1") for c in col)
-    return ops * n_words
+        steps = max(max(col).bit_length() - 1, 0)
+        alu += 2 * steps + 0.5 * sum(bin(c).count("1") for c in col)
+        fma += 2 * steps
+    return alu * n_words, fma * n_words
 
 
-def bound(nbytes: int, ops: float, ops_per_s: float = INT_OPS_PER_S) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+def bound_times(nbytes: int, alu: float = 0.0, fma: float = 0.0, flops: float = 0.0) -> dict[str, float]:
+    """The least time in ms the card needs for each resource: the bytes over
+    HBM, the integer work on the ALU and FMA pipes and through dispatch,
+    f32 work outside the tensor cores."""
+    return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "alu": alu / ALU_OPS_PER_S * 1e3,
+            "fma": fma / FMA_OPS_PER_S * 1e3, "dispatch": (alu + fma) / DISPATCH_PER_S * 1e3,
+            "f32": flops / F32_FLOPS * 1e3}
+
+
+def bound(nbytes: int, alu: float = 0.0, fma: float = 0.0, flops: float = 0.0) -> tuple[float, str]:
+    t = bound_times(nbytes, alu, fma, flops)
+    return max(t.values()), ("bytes" if t["bytes"] >= max(t.values()) else "operations")
 
 
 def max_abs_err(pairs) -> int:
@@ -226,6 +248,37 @@ def max_value_err(a, b) -> float:
         d = float((x.to(torch.float64) - y.to(torch.float64)).abs().max())
         err = max(err, d if d > 0 else float("inf"))
     return err
+
+
+def ptxas_summary(name: str, text: str) -> None:
+    """One line per library from its ``-Xptxas -v`` report: the kernels
+    compiled, the most registers any uses, and every spill (the GF(2^8)
+    libraries hold 128 instantiations each)."""
+    regs = [int(w) for w in re.findall(r"Used (\d+) registers", text)]
+    spills = [ln.strip() for ln in text.splitlines()
+              if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    log(f"  ptxas {name}: {len(regs)} kernels, registers {min(regs, default=0)}-{max(regs, default=0)}, "
+        f"{len(spills)} with spills" + "".join(f"\n    {ln}" for ln in spills[:8]))
+
+
+def sass_phase() -> None:
+    """The GF(2^8) kernels' issued instructions per uint32 word of each row,
+    read from their SASS (``tools/sass_mix.py``): the grid-stride loop of the
+    (K=4, M=2) instantiation (the rs encode and decode) and of (K=4, M=1)
+    (the xor decode)."""
+    import os
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    import sass_mix
+    from repro_torch.kernels import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    for name in ("rs_encode", "rs_decode"):
+        sass = subprocess.run([cuobjdump, "-sass", str(_build.lib_path(name))], capture_output=True, text=True,
+                              check=True, timeout=300).stdout
+        for k, m in ((4, 2), (4, 1)):
+            c = sass_mix.gf_word_mix(sass, k, m)
+            log(f"sass {name} (K={k}, M={m}) loop, per word: " + ", ".join(f"{p} {v:.2f}" for p, v in c.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -272,16 +325,17 @@ def kernel_phase_main(words: int, gen) -> list[dict]:
 
     from repro_torch.core import gf256
     from repro_torch.core.device_tier import striped_decode_rows
-    from repro_torch.kernels import checksum as ck, quantize as qk, ref, rs_decode as rd, rs_encode as re
+    from repro_torch.kernels import checksum as ck, quantize as qk, ref, rs_decode as rd, rs_encode as rse
     from repro_torch.kernels import xor_parity as xp
 
     results = []
 
-    def record(name, source, replaces, err, ms, plain, nbytes, ops, lib=None, ops_per_s=INT_OPS_PER_S):
+    def record(name, source, replaces, err, ms, plain, nbytes, alu=0.0, fma=0.0, flops=0.0, lib=None):
         check(err == 0, f"{name}: kernel differs from its plain version (max |err| {err})")
-        b_ms, b_by = bound(nbytes, ops, ops_per_s)
+        b_ms, b_by = bound(nbytes, alu, fma, flops)
         results.append(dict(name=name, source=source, replaces=replaces, max_abs_err=err, ms=ms,
-                            plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+                            plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                            bounds=bound_times(nbytes, alu, fma, flops)))
 
     def empty():
         return torch.empty(words, dtype=torch.int32, device="cuda").view(torch.uint32)
@@ -296,7 +350,7 @@ def kernel_phase_main(words: int, gen) -> list[dict]:
     err = max_abs_err([(ck.checksum_rows(buf), plain_checksum())])
     record("checksum", "src/repro_torch/kernels/csrc/checksum.cu", "src/repro/kernels/checksum.py:42", err,
            time_ms(lambda: ck.checksum_rows(buf)), time_ms(plain_checksum, reps=1),
-           buf.numel() * 4 + 8 * 8, 3 * buf.numel())
+           buf.numel() * 4 + 8 * 8, alu=2 * buf.numel(), fma=buf.numel())
     del buf
     torch.cuda.empty_cache()
 
@@ -316,16 +370,16 @@ def kernel_phase_main(words: int, gen) -> list[dict]:
     xi = x.view(torch.int32)
     record("xor_reduce", "src/repro_torch/kernels/csrc/xor_parity.cu", "src/repro/kernels/xor_parity.py:42", err,
            time_ms(lambda: xp.xor_reduce_into(rows, blobs[0])), time_ms(lambda: ref.xor_reduce(x), reps=2),
-           5 * words * 4, 3 * words,
-           time_ms(lambda: torch.bitwise_xor(torch.bitwise_xor(xi[0], xi[1]), torch.bitwise_xor(xi[2], xi[3]))))
+           5 * words * 4, alu=2 * words,
+           lib=time_ms(lambda: torch.bitwise_xor(torch.bitwise_xor(xi[0], xi[1]), torch.bitwise_xor(xi[2], xi[3]))))
 
     # B3: rs g=4 m=2 (the Cauchy generator)
     gen_c = gf256.cauchy_matrix(2, 4).tolist()
-    re.rs_encode_into(rows, gen_c, blobs)
+    rse.rs_encode_into(rows, gen_c, blobs)
     err = max_abs_err(zip(blobs, ref.gf256_matmul(x, gen_c)))
     record("gf256_matmul", "src/repro_torch/kernels/csrc/rs_encode.cu", "src/repro/kernels/rs_encode.py:83", err,
-           time_ms(lambda: re.rs_encode_into(rows, gen_c, blobs)), time_ms(lambda: ref.gf256_matmul(x, gen_c), reps=1),
-           6 * words * 4, gf_ops(gen_c, words))
+           time_ms(lambda: rse.rs_encode_into(rows, gen_c, blobs)), time_ms(lambda: ref.gf256_matmul(x, gen_c), reps=1),
+           6 * words * 4, *gf_ops(gen_c, words))
 
     def decode_case(codec: str, m: int, killed: list[int], cols: list[int], inputs: list, lost: list):
         """B4 at one run's decode shape: the killed members of group 0/1
@@ -342,9 +396,10 @@ def kernel_phase_main(words: int, gen) -> list[dict]:
         ms = time_ms(lambda: rd.rs_decode_into(inputs, cdev, outs))
         plain = time_ms(lambda: ref.gf256_matmul_dyn(stacked, cdev), reps=1)
         nbytes, ops = (len(inputs) + len(outs)) * words * 4, gf_ops(coef.tolist(), words)
-        b_ms, b_by = bound(nbytes, ops)
-        log(f"rs_decode at the {codec} run's shape ({len(inputs)} -> {len(outs)}): {ms:.3f} ms "
-            f"(plain {plain:.3f} ms, bound {b_ms:.3f} ms by {b_by}), max |err| {err}")
+        b_ms, b_by = bound(nbytes, *ops)
+        log(f"rs_decode at the {codec} run's shape ({len(inputs)} -> {len(outs)}, coefficients "
+            f"{coef.tolist()}): {ms:.3f} ms, bound {b_ms:.3f} ms by {b_by}, {100 * b_ms / ms:.1f}% of the bound "
+            f"(plain {plain:.3f} ms), max |err| {err}")
         return err, ms, plain, nbytes, ops
 
     # B4, rs run: ranks {0, 2} from survivors 1, 3 and blobs 0, 1
@@ -354,7 +409,7 @@ def kernel_phase_main(words: int, gen) -> list[dict]:
     xor_err = decode_case("xor", 1, [5], [0, 2, 3, 4], [rows[0], rows[2], rows[3], blobs[0]], [rows[1]])[0]
     err, ms, plain, nbytes, ops = rs_case
     record("gf256_matmul_dyn", "src/repro_torch/kernels/csrc/rs_decode.cu", "src/repro/kernels/rs_decode.py:77",
-           max(err, xor_err), ms, plain, nbytes, ops)
+           max(err, xor_err), ms, plain, nbytes, *ops)
     del x, rows, xi, slots, blobs
     torch.cuda.empty_cache()
 
@@ -378,7 +433,7 @@ def kernel_phase_main(words: int, gen) -> list[dict]:
     record("quantize_blockwise", "src/repro_torch/kernels/csrc/quantize.cu", "src/repro/kernels/quantize.py:40",
            err, time_ms(lambda: qk.quantize_into(xf.view(-1), q, sc)),
            time_ms(lambda: [ref.quantize_blockwise(xf[r]) for r in range(8)], reps=1),
-           4 * n + n + 4 * (n // 256), 5 * n, ops_per_s=F32_FLOPS)
+           4 * n + n + 4 * (n // 256), flops=5 * n)
     del xf
     out = torch.empty(n, dtype=torch.float32, device="cuda")
     qk.dequantize_into(q, sc, out)
@@ -390,12 +445,14 @@ def kernel_phase_main(words: int, gen) -> list[dict]:
            err, time_ms(lambda: qk.dequantize_into(q, sc, out)),
            time_ms(lambda: [ref.dequantize_blockwise(q[r * row : (r + 1) * row], sc[r * row // 256 : (r + 1) * row // 256])
                             for r in range(8)], reps=1),
-           n + 4 * (n // 256) + 4 * n, 2 * n, ops_per_s=F32_FLOPS)
+           n + 4 * (n // 256) + 4 * n, flops=2 * n)
     del q, sc, out
     torch.cuda.empty_cache()
     for r in results:
-        log(f"kernel {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, "
-            f"library {r['library_ms']}, bound {r['bound_ms']:.3f} ms by {r['bound_by']})")
+        per = ", ".join(f"{k} {v:.3f}" for k, v in r.pop("bounds").items() if v)
+        log(f"kernel {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, library {r['library_ms']}, "
+            f"bound {r['bound_ms']:.3f} ms by {r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f}% of it; "
+            f"ms per resource: {per})")
     return results
 
 
@@ -1125,11 +1182,12 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.perf_counter()
     logs = _build.build()
-    log(f"build: {len(_build.KERNELS)} kernels in {time.perf_counter() - t0:.1f} s")
+    build_s = time.perf_counter() - t0
+    log(f"build: {len(_build.KERNELS)} libraries in {build_s:.1f} s (each until done: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in _build.build_seconds.items()) + ")")
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        ptxas_summary(name, text)
+    sass_phase()
     card = gpu_line()
     _HOST_START[:] = [host_free_gib(), host_rss_gib()]
     log(f"host free memory: {_HOST_START[0]:.1f} GiB")

@@ -3,7 +3,11 @@ plain C interface, loaded with ``ctypes``.
 
 Each ``csrc/<name>.cu`` compiles on its own (all started together) into
 ``build/kernels/lib<name>-<hash>.so`` at the repository root, at first use.
-The hash covers the sources and flags, so a stale library never loads. No
+The GF(2^8) sources (``PARTS``) compile as several objects at once, one
+holding the C entry point and each of the others a share of the 128
+(K, M) instantiations (``-DGF_PART=p``, see ``csrc/gf256.cuh``), then link.
+The hash covers the source, every shared header (``csrc/*.cuh``) and the
+flags, so a stale library never loads. No
 source includes PyTorch's headers: tensors cross as ``data_ptr()`` integers
 and the stream as ``torch.cuda.current_stream().cuda_stream``. Importing this
 module builds nothing; a CPU-only process never calls it.
@@ -17,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Sequence
 
@@ -27,8 +32,11 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("checksum", "xor_parity", "rs_encode", "rs_decode", "quantize", "reshard")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+#: libraries built in parts: name -> objects holding instantiations
+#: (passed to csrc/gf256.cuh as -DGF_PARTS)
+PARTS = {"rs_encode": 4, "rs_decode": 4}
 MAX_K = 16  # kMaxK in csrc/common.cuh
 MAX_M = 8   # kMaxM
 
@@ -40,7 +48,7 @@ _U64P = ctypes.POINTER(ctypes.c_uint64)
 _SIGNATURES = {
     "checksum": ("checksum", "repro_checksum", [_P, _I64, _I64, _I64, _P, _P]),
     "xor_parity": ("xor_parity", "repro_xor_reduce", [_U64P, _I, _P, _I64, _P]),
-    "rs_encode": ("rs_encode", "repro_rs_encode", [_U64P, _I, _U64P, _I, ctypes.POINTER(ctypes.c_uint8), _I64, _P]),
+    "rs_encode": ("rs_encode", "repro_rs_encode", [_U64P, _I, _U64P, _I, ctypes.POINTER(ctypes.c_uint32), _I64, _P]),
     "rs_decode": ("rs_decode", "repro_rs_decode", [_U64P, _I, _U64P, _I, _P, _I64, _P]),
     "quantize": ("quantize", "repro_quantize", [_P, _I, _I64, _I64, _P, _P, _P]),
     "dequantize": ("quantize", "repro_dequantize", [_P, _P, _I64, _P, _P]),
@@ -51,6 +59,9 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 #: ptxas report (registers, shared memory, spills) of each library built here
 build_logs: dict[str, str] = {}
+#: seconds from the start of its ``build`` call until each library built
+#: here was done (the ``nvcc`` runs overlap)
+build_seconds: dict[str, float] = {}
 
 
 def nvcc() -> str:
@@ -65,9 +76,11 @@ def nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for src in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+    for src in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(str(PARTS.get(name, 0)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -77,19 +90,37 @@ def build(names: Sequence[str] = KERNELS) -> dict[str, str]:
     raises ``RuntimeError`` with the compiler's output if one fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
+    t0 = time.perf_counter()
     for name in names:
         out = lib_path(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
+        base = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC)]
+        src = str(CSRC / f"{name}.cu")
+        if name in PARTS:
+            objs = [tmp.with_name(f"{tmp.name}.{p}.o") for p in ("entry", *range(PARTS[name]))]
+            cmds = [[*base, "-c", "-o", str(objs[0]), src]]
+            cmds += [[*base, f"-DGF_PARTS={PARTS[name]}", f"-DGF_PART={p}", "-c", "-o", str(o), src]
+                     for p, o in enumerate(objs[1:])]
+        else:
+            objs, cmds = [], [[*base, "-shared", "-o", str(tmp), src]]
+        started = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+        procs[name] = (started, objs, tmp, out)
     failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
+    for name, (started, objs, tmp, out) in procs.items():
+        log = "".join(p.communicate()[0] for p in started)
+        rc = max(p.returncode for p in started)
+        if rc == 0 and objs:
+            link = subprocess.run([nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            log, rc = log + link.stdout, link.returncode
+        for o in objs:
+            o.unlink(missing_ok=True)
         build_logs[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+        build_seconds[name] = time.perf_counter() - t0
+        if rc != 0:
+            failed.append(f"{name}: nvcc exited {rc}\n{log}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)

@@ -26,30 +26,9 @@ struct Rows {
   uint32_t* out[kMaxM];
 };
 
-__device__ __forceinline__ uint32_t xtime(uint32_t x) {
-  // multiply 4 packed GF(2^8) bytes by alpha: shift every byte left, reduce
-  // the bytes that overflowed by 0x11D, inter-byte carries masked off
-  return ((x & 0x7F7F7F7Fu) << 1) ^ (((x >> 7) & 0x01010101u) * 0x1Du);
-}
-
-__device__ __forceinline__ uint4 xtime(uint4 v) {
-  return make_uint4(xtime(v.x), xtime(v.y), xtime(v.z), xtime(v.w));
-}
-
 __device__ __forceinline__ uint4 operator^(uint4 a, uint4 b) {
   return make_uint4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w);
 }
-
-__device__ __forceinline__ uint4 operator&(uint4 a, uint32_t m) {
-  return make_uint4(a.x & m, a.y & m, a.z & m, a.w & m);
-}
-
-template <typename W>
-__device__ __forceinline__ W zero_word();
-template <>
-__device__ __forceinline__ uint32_t zero_word<uint32_t>() { return 0u; }
-template <>
-__device__ __forceinline__ uint4 zero_word<uint4>() { return make_uint4(0u, 0u, 0u, 0u); }
 
 template <typename W>
 __device__ __forceinline__ W load_word(const uint32_t* p, int64_t i) {

@@ -6,9 +6,10 @@ wrappers take them for CPU tensors only; ``chip_smoke.py`` holds each
 kernel against them on the card.
 
 This CPU build of PyTorch has no ``<<``/``>>`` for ``uint32`` and widens
-``uint32`` sums to int64 without wrapping, so the SWAR maths runs on int32
-views of the same words: the arithmetic ``>> 7`` is exact under the
-``& 0x01010101`` mask, and every sum keeps only its low 32 bits.
+``uint32`` sums to int64 without wrapping, so the word maths runs on int32
+views of the same words (XOR) or on int64 holding them (the GF(2^8)
+products, whose plane products reach 2^32 - 1; the checksum sums), keeping
+only the low 32 bits.
 """
 
 from __future__ import annotations
@@ -17,20 +18,13 @@ from typing import Sequence
 
 import torch
 
-_LOW7 = 0x7F7F7F7F
-_HIGH = 0x01010101
-_POLY_LOW8 = 0x1D  # 0x11D with the (shifted-out) x^8 term dropped
+_PLANE = 0x01010101  # bit 0 of each packed byte
 _MASK32 = 0xFFFFFFFF
 
 
 def _i32(x: torch.Tensor) -> torch.Tensor:
     assert x.dtype == torch.uint32, x.dtype
     return x.view(torch.int32)
-
-
-def _xtime(x: torch.Tensor) -> torch.Tensor:
-    """Multiply 4 packed GF(2^8) bytes (int32 view) by α in one SWAR step."""
-    return ((x & _LOW7) << 1) ^ (((x >> 7) & _HIGH) * _POLY_LOW8)
 
 
 def xor_reduce(stacked: torch.Tensor) -> torch.Tensor:
@@ -42,49 +36,58 @@ def xor_reduce(stacked: torch.Tensor) -> torch.Tensor:
     return acc.view(torch.uint32)
 
 
+def gf_mul_alpha_pow(c: int, s: int) -> int:
+    """c · α^s in GF(2^8) (polynomial 0x11D) for one field element: s
+    xtime steps."""
+    for _ in range(s):
+        c = ((c << 1) ^ ((c >> 7) * 0x11D)) & 0xFF
+    return c
+
+
+def gf_terms(coefs: torch.Tensor) -> torch.Tensor:
+    """(m, k) field elements (their low byte) -> the (m, k, 8) int64 per-term
+    multipliers c · α^s of the bit-plane product."""
+    c = coefs.to(torch.int64) & 0xFF
+    terms = [c]
+    for _ in range(7):
+        c = ((c << 1) ^ ((c >> 7) * 0x11D)) & 0xFF
+        terms.append(c)
+    return torch.stack(terms, dim=-1)
+
+
+def _gf_product(stacked: torch.Tensor, terms: torch.Tensor) -> torch.Tensor:
+    """The kernels' bit-plane product: out[j] = ⊕_i ⊕_s plane_s(x[i]) ·
+    terms[j, i, s], plane_s(x) = (x >> s) & 0x01010101 (a 0/1 byte per
+    field byte, so each product is carry-free). Runs on int64 holding the
+    uint32 words."""
+    x = _i32(stacked).to(torch.int64) & _MASK32
+    k = x.shape[0]
+    m = terms.shape[0]
+    assert tuple(terms.shape) == (m, k, 8), (tuple(terms.shape), k)
+    out = torch.zeros((m, x.shape[1]), dtype=torch.int64, device=x.device)
+    for i in range(k):
+        for s in range(8):
+            out ^= ((x[i] >> s) & _PLANE)[None, :] * terms[:, i, s][:, None]
+    return u32_from_i64(out)
+
+
 def gf256_matmul(stacked: torch.Tensor, coefs: Sequence[Sequence[int]]) -> torch.Tensor:
     """out[j] = ⊕_i coefs[j][i] · x[i] over GF(2^8), 4 bytes per uint32 word.
 
-    stacked: (k, n) uint32, coefs a static (m, k) generator -> (m, n) uint32.
-    Multiplication by a constant c is the xtime chain over c's set bits,
-    pruned after its highest bit (the encode kernel's form).
+    stacked: (k, n) uint32, coefs a static (m, k) generator -> (m, n) uint32,
+    by the encode kernel's bit-plane product (its multipliers expanded on
+    the host).
     """
-    x = _i32(stacked)
-    k, n = x.shape
-    out = torch.zeros((len(coefs), n), dtype=torch.int32, device=x.device)
-    for j, row in enumerate(coefs):
-        assert len(row) == k, (row, k)
-        for i, c in enumerate(row):
-            c = int(c)
-            t = x[i]
-            for bit in range(8):
-                if c >> bit & 1:
-                    out[j] ^= t
-                if c >> (bit + 1) == 0:
-                    break
-                t = _xtime(t)
-    return out.view(torch.uint32)
+    c = torch.tensor([[int(v) for v in row] for row in coefs], dtype=torch.int64, device=stacked.device)
+    return _gf_product(stacked, gf_terms(c))
 
 
 def gf256_matmul_dyn(stacked: torch.Tensor, coefs: torch.Tensor) -> torch.Tensor:
     """Erasure decode: the same product with a runtime (m, k) uint32
-    coefficient matrix. All 8 xtime steps run, each masked by one bit of the
-    coefficient (the decode kernel's branch-free form)."""
-    x = _i32(stacked)
-    k, n = x.shape
-    c = coefs.to(torch.int64)
-    assert c.ndim == 2 and c.shape[1] == k, (tuple(c.shape), k)
-    m = c.shape[0]
-    out = torch.zeros((m, n), dtype=torch.int32, device=x.device)
-    for i in range(k):
-        t = x[i]
-        for bit in range(8):
-            # per output row: an all-ones or all-zeros int32 mask
-            sel = -((c[:, i] >> bit) & 1).to(torch.int32)       # (m,)
-            out ^= t[None, :] & sel[:, None]
-            if bit < 7:
-                t = _xtime(t)
-    return out.view(torch.uint32)
+    coefficient matrix, expanded into its multipliers on its device (the
+    decode kernel's form)."""
+    assert coefs.ndim == 2 and coefs.shape[1] == stacked.shape[0], (tuple(coefs.shape), stacked.shape[0])
+    return _gf_product(stacked, gf_terms(coefs))
 
 
 def checksum_rows(x: torch.Tensor) -> torch.Tensor:

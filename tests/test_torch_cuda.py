@@ -101,6 +101,88 @@ def test_every_coefficient_and_all_ones_generator(cuda):
     assert _same(ones[0], out)
 
 
+def _gf_both(rows, coefs: np.ndarray, device) -> tuple[list, list]:
+    """B3 with ``coefs`` as its static generator and B4 with it as a device
+    matrix, each into fresh outputs."""
+    n = rows[0].numel()
+    enc = [_empty(n, device) for _ in range(coefs.shape[0])]
+    re.rs_encode_into(rows, coefs.tolist(), enc)
+    dec = [_empty(n, device) for _ in range(coefs.shape[0])]
+    rd.rs_decode_into(rows, torch.from_numpy(coefs.astype(np.int32)).to(device).view(torch.uint32), dec)
+    return enc, dec
+
+
+@pytest.mark.parametrize("k", range(1, 17))
+def test_every_gf_instantiation_matches_plain_version(cuda, k):
+    """Each (K, M) instantiation of B3 and B4 launched once, 4 bytes off a
+    16-byte boundary for odd M (the word tail loop) and aligned otherwise."""
+    rng = np.random.default_rng(k)
+    x = _words(rng, (k, 1031), cuda)
+    for m in range(1, 9):
+        rows = [x[i, m % 2 :] for i in range(k)]
+        stacked = torch.stack([r.view(torch.int32) for r in rows]).view(torch.uint32)
+        coefs = rng.integers(0, 256, (m, k))
+        before = ops.launch_counts()
+        enc, dec = _gf_both(rows, coefs, cuda)
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        assert after["gf256_matmul"] == before["gf256_matmul"] + 1
+        assert after["gf256_matmul_dyn"] == before["gf256_matmul_dyn"] + 1
+        want = ref.gf256_matmul(stacked, coefs.tolist())
+        for j in range(m):
+            assert _same(enc[j], want[j]) and _same(dec[j], want[j]), (k, m, j)
+
+
+_SPECIAL = {
+    "zero_column": np.array([[0, 7, 142, 1], [0, 244, 1, 255]]),
+    "all_ones": np.ones((1, 4), np.int64),
+    "zeros_and_ones": np.array([[1, 0, 1, 1], [0, 1, 1, 0], [1, 1, 0, 0]]),
+    "all_zeros": np.zeros((2, 4), np.int64),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_SPECIAL))
+@pytest.mark.parametrize("n", [1, 5, 1027, 70_001])
+@pytest.mark.parametrize("offset", [0, 1])  # 1: rows 4 bytes past a 16-byte boundary
+def test_gf_special_matrices_match_plain_versions(cuda, name, n, offset):
+    """A zero column, the all-ones row (the xor decode), a 0/1 matrix and
+    all zeros, through B3 and B4 at ragged lengths."""
+    coefs = _SPECIAL[name]
+    base = _words(np.random.default_rng(n + offset), (4, n + 1), cuda)
+    rows = [base[i, offset : offset + n] for i in range(4)]
+    stacked = torch.stack([r.view(torch.int32) for r in rows]).view(torch.uint32)
+    enc, dec = _gf_both(rows, coefs, cuda)
+    want = ref.gf256_matmul(stacked, coefs.tolist())
+    for j in range(coefs.shape[0]):
+        assert _same(enc[j], want[j]) and _same(dec[j], want[j])
+    if name == "all_ones":
+        out = _empty(n, cuda)
+        xp.xor_reduce_into(rows, out)
+        assert _same(dec[0], out)
+
+
+def test_decode_matrix_overwritten_between_launches(cuda):
+    """B4 twice on one stream with the device matrix overwritten in between
+    (a general pattern, then an all-0/1 one) and no host sync: each launch reads the matrix it was queued after."""
+    n = 70_001
+    x = _words(np.random.default_rng(11), (4, n), cuda)
+    rows = list(x.unbind(0))
+    first = np.array([[123, 224, 4, 5], [1, 123, 12, 10]])
+    second = np.array([[1, 0, 1, 1], [0, 1, 1, 1]])
+    coefs = torch.from_numpy(first.astype(np.int32)).to(cuda).view(torch.uint32)
+    nxt = torch.from_numpy(second.astype(np.int32)).to(cuda).view(torch.uint32)
+    outs1 = [_empty(n, cuda) for _ in range(2)]
+    outs2 = [_empty(n, cuda) for _ in range(2)]
+    rd.rs_decode_into(rows, coefs, outs1)
+    coefs.copy_(nxt)
+    rd.rs_decode_into(rows, coefs, outs2)
+    torch.cuda.synchronize()
+    for outs, c in ((outs1, first), (outs2, second)):
+        want = ref.gf256_matmul(x, c.tolist())
+        for j in range(2):
+            assert _same(outs[j], want[j])
+
+
 @pytest.mark.parametrize("codec,g,m", [("copy", 0, 2), ("xor", 2, 1), ("rs", 2, 2), ("rs", 3, 2)])
 def test_device_tier_on_the_card_matches_the_cpu(cuda, codec, g, m):
     rng = np.random.default_rng(0)

@@ -16,6 +16,7 @@ from repro.kernels import ops as jops
 from repro_torch.core import gf256 as tgf256
 from repro_torch.core.integrity import np_checksum as port_np_checksum
 from repro_torch.kernels import ops
+from repro_torch.kernels import rs_encode as rse
 from repro_torch.launch.steps import state_from_numpy, state_to_numpy
 
 
@@ -78,6 +79,88 @@ def test_gf256_matmul_dyn_matches(m, k, n):
     w = _words(rng, (k, n))
     coefs = rng.integers(0, 256, (m, k)).astype(np.uint32)
     assert _eq(ops.gf256_matmul_dyn(_t(w), _t(coefs)), jops.gf256_matmul_dyn(jnp.asarray(w), jnp.asarray(coefs)))
+
+
+_SPECIAL = {
+    "zero_column": [[0, 7, 142, 1], [0, 244, 1, 255]],
+    "all_ones": [[1, 1, 1, 1]],
+    "zeros_and_ones": [[1, 0, 1, 1], [0, 1, 1, 0], [1, 1, 0, 0]],
+    "all_zeros": [[0, 0, 0, 0], [0, 0, 0, 0]],
+    "cauchy": [[142, 244, 71, 167], [244, 142, 167, 71]],
+}
+
+
+def _jax_ref_words(w: np.ndarray, coefs) -> np.ndarray:
+    """``repro.kernels.ref``'s table definition on the words' bytes."""
+    from repro.kernels import ref as jref
+
+    k, n = w.shape
+    out = jref.gf256_matmul(jnp.asarray(w.view(np.uint8).reshape(k, 4 * n)), tuple(map(tuple, coefs)))
+    return np.asarray(out).reshape(len(coefs), 4 * n).view(np.uint32)
+
+
+@pytest.mark.parametrize("name", sorted(_SPECIAL))
+def test_gf256_special_matrices_match(name):
+    """A zero column, 0/1 matrices, all zeros and the
+    rs generator through both plain versions, against the Pallas kernels in
+    interpret mode and ``repro.kernels.ref``."""
+    coefs = _SPECIAL[name]
+    w = _words(np.random.default_rng(len(name)), (4, 1027))
+    want = _jax_ref_words(w, coefs)
+    assert _eq(ops.gf256_matmul(_t(w), coefs), want)
+    assert _eq(ops.gf256_matmul_dyn(_t(w), _t(np.array(coefs, np.uint32))), want)
+    assert _eq(ops.gf256_matmul(_t(w), coefs), jops.gf256_matmul(jnp.asarray(w), tuple(map(tuple, coefs))))
+    assert _eq(ops.gf256_matmul_dyn(_t(w), _t(np.array(coefs, np.uint32))),
+               jops.gf256_matmul_dyn(jnp.asarray(w), jnp.asarray(np.array(coefs, np.uint32))))
+
+
+@pytest.mark.parametrize("name", sorted(_SPECIAL) + ["every_coefficient"])
+def test_encode_generator_expansion(name):
+    """B3's host-side operands: term (j, i, s) is coefs[j][i] · α^s (α^s =
+    EXP[s] in the reference's tables)."""
+    from repro.core.gf256 import EXP_TABLE, gf_mul
+
+    if name == "every_coefficient":  # four (8, 8) generators holding 0..255
+        blocks = np.arange(256).reshape(4, 8, 8).tolist()
+    else:
+        blocks = [_SPECIAL[name]]
+    for block in blocks:
+        terms = rse.expand_generator(tuple(map(tuple, block)))
+        m, k = len(block), len(block[0])
+        assert len(terms) == m * k * 8
+        for j in range(m):
+            for i in range(k):
+                for s in range(8):
+                    assert terms[(j * k + i) * 8 + s] == gf_mul(block[j][i], int(EXP_TABLE[s]))
+
+
+@pytest.mark.parametrize("shape,bad", [((9, 4), None), ((2, 17), None), ((2, 4), 256), ((2, 4), -1)])
+def test_encode_generator_expansion_rejects(shape, bad):
+    coefs = np.ones(shape, np.int64)
+    if bad is not None:
+        coefs[1, 2] = bad
+    with pytest.raises(ValueError):
+        rse.expand_generator(tuple(map(tuple, coefs.tolist())))
+
+
+@pytest.mark.parametrize("header", ["common.cuh", "gf256.cuh"])
+def test_library_path_follows_every_header(tmp_path, monkeypatch, header):
+    """A changed shared header gives the GF(2^8) libraries a new path, so a
+    stale build never loads; an unrelated source leaves it as it was."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build.lib_path(n) for n in ("rs_encode", "rs_decode")}
+    other = csrc / "xor_parity.cu"
+    other.write_bytes(other.read_bytes() + b"\n")
+    assert {n: _build.lib_path(n) for n in before} == before
+    (csrc / header).write_bytes((csrc / header).read_bytes() + b"\n// changed\n")
+    after = {n: _build.lib_path(n) for n in before}
+    assert all(after[n] != before[n] for n in before)
 
 
 def _leaves(rng):

@@ -10,6 +10,10 @@ each opcode over the whole function and over each loop body (the
 instructions from a backward branch's target up to the branch). A loop's
 counts are static: a forward branch inside it (a ``j < m`` test) still
 counts the instructions it skips.
+
+``gf_word_mix`` (used by ``chip_smoke.py``) reads one (K, M) instantiation
+of the GF(2^8) kernels and gives the instructions its grid-stride loops
+issue per uint32 word of each row, sorted by pipe.
 """
 
 from __future__ import annotations
@@ -78,6 +82,79 @@ def loops(body: list[tuple[int, str]]) -> list[tuple[int, int]]:
 
 def mix(body, lo: int = -1, hi: int = 1 << 62) -> Counter:
     return Counter(opcode(t) for a, t in body if not t.startswith(":") and lo <= a <= hi)
+
+
+# Hopper issue pipes by opcode (CUDA C++ Programming Guide, arithmetic
+# instruction throughput for compute capability 9.0: 64 results per clock
+# per SM for 32-bit integer multiply-add on the FMA pipe, and for 32-bit
+# logical, shift and add on the integer ALU pipe)
+FMA_PIPE = {"IMAD", "IMUL", "FFMA", "FMUL", "FADD", "HFMA2", "HMUL2", "HADD2", "IDP"}
+CONTROL = {"BRA", "EXIT", "BAR", "BSSY", "BSYNC", "NOP", "CALL", "RET", "WARPSYNC", "YIELD", "S2R", "S2UR",
+           "CS2R", "DEPBAR", "MEMBAR", "CCTL", "VOTE", "VOTEU", "R2UR", "ERRBAR"}
+
+
+def pipes(c: Counter) -> dict[str, int]:
+    """Opcode counts -> counts per pipe: ``alu`` (LOP3, SHF, IADD3, LEA,
+    ISETP, SEL, PRMT, MOV, ...), ``fma`` (IMAD and its MOV/SHL/HI/WIDE
+    forms, float arithmetic), ``uniform`` (the U* uniform datapath),
+    ``load``, ``store``, ``control``."""
+    out = dict.fromkeys(("alu", "fma", "uniform", "load", "store", "control"), 0)
+    for op, n in c.items():
+        if op in FMA_PIPE:
+            key = "fma"
+        elif op in CONTROL:
+            key = "control"
+        elif op.startswith("LD"):
+            key = "load"
+        elif op.startswith(("ST", "RED", "ATOM")):
+            key = "store"
+        elif op.startswith("U"):
+            key = "uniform"
+        else:
+            key = "alu"
+        out[key] += n
+    return out
+
+
+def blocks(body, lo: int, hi: int) -> list[list[str]]:
+    """The instructions of [lo, hi] cut into basic blocks: a new block at
+    every label and after every branch."""
+    out: list[list[str]] = [[]]
+    for a, t in body:
+        if not lo <= a <= hi:
+            continue
+        if t.startswith(":"):
+            out.append([])
+            continue
+        out[-1].append(t)
+        if opcode(t) == "BRA":
+            out.append([])
+    return [b for b in out if b]
+
+
+def gf_word_mix(sass: str, k: int, m: int) -> dict[str, float]:
+    """Per-word pipe counts of the (k, m) instantiation's grid-stride loop
+    in the SASS of ``rs_encode`` or ``rs_decode``, on the path of a whole
+    aligned quad of words: the blocks that load or store plain 4-byte words
+    (the ragged tail and unaligned rows) are left out. An iteration covers
+    4 words of each row: 4 x its 16-byte loads / k."""
+    tag = f"ILi{k}ELi{m}E"
+    funcs = [body for name, body in parse(sass).items() if tag in name]
+    if len(funcs) != 1:
+        raise ValueError(f"{len(funcs)} kernels match {tag}")
+    body = funcs[0]
+    vec = []
+    for lo, hi in loops(body):
+        kept = [t for b in blocks(body, lo, hi)
+                if not any(opcode(t) in ("LDG", "STG") and ".128" not in t for t in b) for t in b]
+        wide_loads = sum(1 for t in kept if opcode(t) == "LDG")
+        if wide_loads:
+            c = Counter(opcode(t) for t in kept)
+            words = 4 * wide_loads / k
+            vec.append({key: v / words for key, v in pipes(c).items()})
+    if len(vec) != 1:
+        raise ValueError(f"{tag}: {len(vec)} loops with 16-byte loads, expected 1")
+    return vec[0]
 
 
 def fmt(c: Counter) -> str:
