@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: build the kernels, hold
-each against its plain PyTorch version, then create and restore a full-width
-llama3.2-1b train state through the device tier and through the host-tier
-checkpoint engine.
+each against its plain PyTorch version, train full-width llama3.2-1b
+through a host failure with the fault-tolerant training loop, then create
+and restore its train state through the device tier and through the
+host-tier checkpoint engine.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and the CUDA toolkit (``nvcc``); it exits non-zero,
@@ -58,7 +59,23 @@ printing no result, on any failure or without a card. Phases:
    split leaf whole on each of 3 new ranks (44.5 GB beside the live state
    and the recovered payloads: more than the card has), so the drill goes
    4 -> 2 -> 8, world sizes that divide every ZeRO-1 dim. Depth is cut, never
-   width, if the host lacks the RAM, and the cut is printed.
+   width, if the host lacks the RAM, and the cut is printed;
+7. training loop (paper Algorithm 3): the port's ``Trainer`` on llama3.2-1b
+   at full width, bf16 params and compute with f32 master/m/v (batch 8, seq
+   128, lr 1e-3 as ``launch/train.py``'s defaults; 4 virtual hosts, one
+   spare, a checkpoint every 3 steps, host 2 killed at step 5: checkpoints
+   at 3 and 6, a rollback to 3, steps 3 and 4 replayed), 8 steps under
+   ``torch.use_deterministic_algorithms(True)`` (``main`` sets
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` before cuBLAS is first used). Prints
+   each step's loss and time (ending in ``torch.cuda.synchronize()``), both
+   checkpoints' create/capture/drain times, the restore time, the card and
+   host peaks; fails unless every loss is finite, there is one recovery, the
+   replayed losses are bit-equal to the first pass, and every state leaf
+   right after the restore is byte-equal to the state at the step-3
+   checkpoint (a host copy, or where the host has no room for one, each
+   leaf's ``np_checksum``). Its engine holds two committed generations at
+   once: depth is cut, never width, if the host lacks the RAM, and the cut
+   is printed.
 
 Phase 3 also runs B6 at the main path's largest gather (the w_up master
 leaf, 4 origins x 512 rows of 512 KiB, gathered for one new rank of the
@@ -66,10 +83,11 @@ leaf, 4 origins x 512 rows of 512 KiB, gathered for one new rank of the
 timed on their own, and the host executor's result for that leaf held
 against the gather's.
 
-Phase 5 runs before phases 6 and 4: it needs the most host RAM, and phase
-4's staged fetches leave pinned host blocks in PyTorch's cache. The kernels'
-launch counts are set to 0 before each of the three paths and read after it;
-every kernel a path runs must have launched in it.
+Phase 7 runs right after phase 3, then phases 5, 6 and 4: 7 and 5 need the
+most host RAM, and phase 4's staged fetches leave pinned host blocks in
+PyTorch's cache. The kernels' launch counts are set to 0 before each of the
+four paths and read after it; every kernel a path runs must have launched
+in it (phase 7's default engine launches none).
 
 The line before the last is the kernels' JSON; the last line is the result.
 """
@@ -1170,7 +1188,196 @@ def elastic_path(state, cfg) -> tuple[dict, list[dict]]:
     return counts, runs
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the fault-tolerant training loop (Algorithm 3) at full width
+# ---------------------------------------------------------------------------
+
+# launch/train.py's defaults (batch, seq, lr); a checkpoint every 3 steps,
+# host 2 killed at step 5: checkpoints at 3 and 6, a rollback to 3, steps 3
+# and 4 replayed
+TRAIN_PERIOD = 3
+TRAIN = dict(batch=8, seq=128, lr=1e-3, warmup_steps=2, n_virtual_hosts=ENGINE_RANKS, n_spares=1,
+             recovery_policy="spare", checkpoint_period=TRAIN_PERIOD)
+TRAIN_STEPS, TRAIN_KILLS = 8, {5: [2]}
+TRAIN_HISTORY = [0, 1, 2, 3, 4, 3, 4, 5, 6, 7]
+
+
+def trainer_host_need_gib(layout, plan) -> float:
+    """Host RAM the trainer's engine adds at its peak, the capture of its
+    second checkpoint: the committed generation (every rank's own arena and
+    the exchange arenas) beside the one being captured, the full-state host
+    copy the capture takes, and the growth of ``np_checksum``'s weight table
+    to the largest own buffer."""
+    from repro_torch.core import integrity
+    from repro_torch.utils.pytree import tree_flatten
+
+    sizes = [int(math.prod(sd.shape)) * sd.dtype.itemsize for sd in tree_flatten(layout.sds)[1]]
+    split = sum(b for i, b in enumerate(sizes) if plan.split_dim(i, ENGINE_RANKS) is not None)
+    repl = sum(sizes) - split
+    held = integrity._WEIGHTS.nbytes
+    generation = ENGINE_RANKS * repl + 2 * split
+    need = 2 * generation + sum(sizes) + max(_pow2_words_bytes(repl + split // ENGINE_RANKS) - held, 0)
+    return need / 2**30
+
+
+def _leaf_sums(leaves) -> list[tuple[int, int]]:
+    from repro_torch.core.integrity import np_checksum
+
+    return [np_checksum(_int_view(x.detach().reshape(-1)).cpu().numpy()) for x in leaves]
+
+
+def step_split_ms(trainer, reps: int = 3) -> dict:
+    """Where a step's time goes: ``reps`` more steps of the trainer's
+    arithmetic, timed with CUDA events at the split between the loss and its
+    gradient (forward, recomputed forward, backward) and the AdamW update;
+    means in ms."""
+    import torch
+
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update
+    from repro_torch.optim.schedule import warmup_cosine
+    from repro_torch.utils.pytree import tree_flatten, tree_unflatten
+
+    tc, st = trainer.tcfg, trainer.state
+    hp, sched = AdamWConfig(lr=tc.lr), warmup_cosine(tc.lr, tc.warmup_steps, tc.total_steps)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    grad_ms = update_ms = 0.0
+    for _ in range(reps):
+        batch = trainer.data.next()
+        paths, live = tree_flatten(st["params"])
+        leaves = [p.detach().requires_grad_() for p in live]
+        torch.cuda.synchronize()
+        ev[0].record()
+        loss, _ = trainer.model.loss(tree_unflatten(paths, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves)
+        ev[1].record()
+        adamw_update(tree_unflatten(paths, list(grads)), st["params"], st["opt"], st["step"], hp, sched)
+        ev[2].record()
+        torch.cuda.synchronize()
+        grad_ms += ev[0].elapsed_time(ev[1]) / reps
+        update_ms += ev[1].elapsed_time(ev[2]) / reps
+    return dict(loss_grad_ms=grad_ms, update_ms=update_ms)
+
+
+def trainer_path(cfg) -> tuple[dict, dict]:
+    """The port's Trainer on the card: TRAIN over TRAIN_STEPS steps through
+    TRAIN_KILLS under deterministic algorithms. Checks every loss finite, one
+    recovery, the replayed steps' losses bit-equal to their first pass, and
+    every state leaf right after the restore byte-equal to the state at the
+    step-3 checkpoint (a host copy where the host has room for it, else the
+    leaves' ``np_checksum``s). Returns the run's numbers and the kernels'
+    launch counts over it (the default engine launches none)."""
+    import gc
+    import resource
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import train_state_layout
+    from repro_torch.models import build_model
+    from repro_torch.runtime.failures import FailureInjector
+    from repro_torch.runtime.state import ShardPlan
+    from repro_torch.runtime.trainer import PROD_MESH, Trainer, TrainerConfig
+    from repro_torch.sharding.mesh import make_mesh
+    from repro_torch.utils.pytree import tree_flatten
+
+    def reckon(c):
+        layout = train_state_layout(c, make_mesh(*PROD_MESH))
+        return layout, trainer_host_need_gib(layout, ShardPlan.from_pspecs(layout.sds, layout.pspecs))
+
+    free = host_free_settled_gib()
+    layers = cfg.num_layers
+    layout, need = reckon(cfg)
+    while need + HOST_HEADROOM_GIB > free and layers > 1:
+        layers -= 1
+        layout, need = reckon(replace(cfg, num_layers=layers))
+    check(need + HOST_HEADROOM_GIB <= free, f"trainer path: {need:.1f} GiB of host RAM needed, {free:.1f} free")
+    if layers != cfg.num_layers:
+        log(f"trainer: depth cut to {layers} of {cfg.num_layers} layers (width kept): "
+            f"{free:.1f} GiB host RAM free, {need:.1f} GiB needed at {layers} layers")
+        cfg = replace(cfg, num_layers=layers)
+    state_gib = sum(int(math.prod(sd.shape)) * sd.dtype.itemsize for sd in tree_flatten(layout.sds)[1]) / 2**30
+    keep_copy = need + state_gib + HOST_HEADROOM_GIB <= free
+    log(f"trainer: {layers} layers, state {state_gib * 2**30 / 1e9:.3f} GB, host RAM {free:.1f} GiB free, "
+        f"about {need:.1f} GiB needed; the step-3 state kept as "
+        + ("a host copy" if keep_copy else "per-leaf np_checksums (no room for a host copy)"))
+
+    class CheckedTrainer(Trainer):
+        """The Trainer, holding its state right after the restore against
+        ``at_ckpt``, the state at the step-3 checkpoint."""
+
+        at_ckpt: list
+        restored: dict | None = None
+
+        def recover(self) -> None:
+            super().recover()
+            torch.cuda.synchronize()
+            leaves = tree_flatten(self.state)[1]
+            if keep_copy:
+                same = [torch.equal(_int_view(x.reshape(-1)).cpu(), _int_view(c.reshape(-1)))
+                        for x, c in zip(leaves, self.at_ckpt)]
+            else:
+                same = [a == b for a, b in zip(_leaf_sums(leaves), self.at_ckpt)]
+            self.restored = dict(step=int(self.state["step"]), restore_s=self.engine.stats.last_restore_s,
+                                 leaves=len(same), leaves_equal=sum(same),
+                                 compared="bytes" if keep_copy else "np_checksum")
+
+    tcfg = TrainerConfig(total_steps=TRAIN_STEPS, **TRAIN)
+    torch.use_deterministic_algorithms(True)
+    # every tensor the path allocates is written before it is read; filling
+    # fresh allocations (tens of GB of host arenas) would only slow the create
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = CheckedTrainer(build_model(cfg), tcfg, injector=FailureInjector(ENGINE_RANKS, schedule=TRAIN_KILLS))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_flatten(trainer.state["params"])[1])
+    ops.reset_launch_counts()  # this path's counts start here
+    trainer.run(TRAIN_PERIOD)
+    s = trainer.engine.stats
+    first_ckpt = dict(step=TRAIN_PERIOD, create_s=s.last_create_s, capture_s=s.last_capture_s,
+                      drain_s=s.last_finalize_wait_s, bytes_staged=s.last_bytes_staged)
+    t0 = time.perf_counter()
+    leaves = tree_flatten(trainer.state)[1]
+    trainer.at_ckpt = [x.detach().to("cpu", copy=True) for x in leaves] if keep_copy else _leaf_sums(leaves)
+    keep_s = time.perf_counter() - t0
+    hist = trainer.run(TRAIN_STEPS)
+    counts = ops.launch_counts()
+    split = step_split_ms(trainer)
+    torch.use_deterministic_algorithms(False)
+    torch.utils.deterministic.fill_uninitialized_memory = fill
+    s = trainer.engine.stats
+    for h in hist:
+        log(f"train step {h['step']}: loss {h['loss']!r} in {h['step_s']:.4f} s")
+    losses = [h["loss"] for h in hist]
+    check(all(math.isfinite(x) for x in losses), f"trainer: a loss is not finite: {losses}")
+    check([h["step"] for h in hist] == TRAIN_HISTORY, f"trainer: steps {[h['step'] for h in hist]}")
+    check(trainer.n_recoveries == 1, f"trainer: {trainer.n_recoveries} recoveries, want 1")
+    check(losses[3:5] == losses[5:7], f"trainer: replayed losses {losses[5:7]} differ from {losses[3:5]}")
+    r = trainer.restored
+    check(r is not None and r["step"] == TRAIN_PERIOD and r["leaves_equal"] == r["leaves"],
+          f"trainer: the restored state differs from the step-{TRAIN_PERIOD} checkpoint's: {r}")
+    run = dict(layers=layers, n_params=n_params, state_gb=state_gib * 2**30 / 1e9, setup_s=setup_s,
+               step_s=[h["step_s"] for h in hist], loss=losses, checkpoints=[first_ckpt, dict(
+                   step=2 * TRAIN_PERIOD, create_s=s.last_create_s, capture_s=s.last_capture_s,
+                   drain_s=s.last_finalize_wait_s, bytes_staged=s.last_bytes_staged)],
+               created=s.created, aborted=s.aborted, restore=r, keep_state_s=keep_s, step_split_ms=split,
+               peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+               host_peak_rss_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
+               host_free_before_gib=free)
+    del trainer, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run, counts
+
+
 def main() -> int:
+    import os
+
+    # before the first cuBLAS call: a fixed workspace makes cuBLAS
+    # deterministic, which phase 7's bitwise replay needs
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     import torch
 
     if not torch.cuda.is_available():
@@ -1206,6 +1413,13 @@ def main() -> int:
     log(f"main path bucket data:float32: (8, {words}) uint32 words")
     kernels = kernel_phase_main(words, torch.Generator(device="cuda").manual_seed(SEED))
     kernels.append(gather_kernel_main(cfg, torch.Generator(device="cuda").manual_seed(SEED)))
+    torch.cuda.empty_cache()
+
+    # the trainer first: it needs the most host RAM (two committed
+    # generations), and runs before any staged fetch caches pinned blocks
+    run7, counts7 = trainer_path(cfg)
+    log("trainer path: " + json.dumps(run7))
+    log(f"trainer path launches: {json.dumps(counts7)}")
 
     t0 = time.perf_counter()
     state = init_train_state(layout, mesh, torch.Generator(device="cuda").manual_seed(SEED))
@@ -1223,7 +1437,7 @@ def main() -> int:
     counts4, runs4 = device_tier_path(state, layout, mesh)
     log(f"device-tier path launches: {json.dumps(counts4)}")
     for k in kernels:
-        k["launches"] = counts4[k["name"]] + counts5[k["name"]] + counts6[k["name"]]
+        k["launches"] = counts4[k["name"]] + counts5[k["name"]] + counts6[k["name"]] + counts7[k["name"]]
         k["route"] = "cuda"
         check(k["launches"] > 0, f"kernel {k['name']} was launched no time on the main paths")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,5 +1,9 @@
 """ModelConfig: the fields of ``repro.configs.base.ModelConfig`` that the
-train-state layout needs, with torch dtypes."""
+train-state layout and the dense forward pass read, with torch dtypes.
+
+The MoE, SSM and modality fields are carried so that a config which sets
+them is recognised: the port's model declares dense decoders only, and
+raises for the rest (ROADMAP A10)."""
 
 from __future__ import annotations
 
@@ -24,9 +28,27 @@ class ModelConfig:
     head_dim: int = 0  # 0 -> d_model // num_heads
     layer_pattern: tuple[str, ...] = ("attn",)
     mlp_kind: str = "swiglu"  # swiglu | geglu | gelu
+    norm_eps: float = 1e-5
+    rope_theta: float = 500_000.0
+    sliding_window: int = 4096
+    attn_softcap: float | None = None    # gemma2: 50.0
+    final_softcap: float | None = None   # gemma2: 30.0, grok: 30.0
     tie_embeddings: bool = False
+    scale_embed: bool = False            # gemma: h *= sqrt(d_model)
+
+    # MoE, SSM and modality: 0 / False for the dense decoders the port runs
+    num_experts: int = 0
+    ssm_state: int = 0
+    is_encoder: bool = False
+    vision_tokens: int = 0
+    frontend_stub_dim: int = 0
+
     param_dtype: Any = torch.bfloat16
+    compute_dtype: Any = torch.bfloat16
     sharding_preset: str = "tp"       # tp | fsdp
+    remat: str = "full"               # none | full ("dots" is not ported)
+    attn_chunk: int = 1024            # blockwise-attention query/KV chunk
+    scan_layers: bool = True          # the reference's lax.scan; the port always loops
     optimizer_dtype: Any = torch.float32  # moments dtype
 
     def __post_init__(self) -> None:
@@ -55,6 +77,10 @@ class ModelConfig:
     def num_periods(self) -> int:
         return self.num_layers // self.period
 
+    @property
+    def has_moe(self) -> bool:
+        return self.num_experts > 0
+
     def reduced(self) -> "ModelConfig":
         """Tiny same-family config for CPU tests (the reference's reduced())."""
         return replace(
@@ -67,6 +93,14 @@ class ModelConfig:
             head_dim=16,
             d_ff=128,
             vocab_size=256,
+            num_experts=min(self.num_experts, 4),
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            vision_tokens=16 if self.vision_tokens else 0,
+            frontend_stub_dim=32 if self.frontend_stub_dim else 0,
+            sliding_window=32,
+            attn_chunk=32,
             param_dtype=torch.float32,
+            compute_dtype=torch.float32,
             sharding_preset="tp",
+            remat="none",
         )

@@ -14,6 +14,7 @@ CONFIG = ModelConfig(
     vocab_size=128_256,
     layer_pattern=("attn",),
     mlp_kind="swiglu",
+    rope_theta=500_000.0,
     tie_embeddings=True,
     sharding_preset="tp",
 )

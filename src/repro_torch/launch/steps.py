@@ -4,7 +4,7 @@
 specs of the state that ``repro.launch.steps.build_step(cfg, "train_4k",
 mesh)`` builds: ``params`` in ``cfg.param_dtype`` (f32 norms), the AdamW
 ``opt.master``/``opt.m``/``opt.v`` in f32 with ZeRO-1 specs, and an int32
-``step`` scalar. The model's forward pass is not part of this slice.
+``step`` scalar. The params' declaration is ``models/lm.py``'s.
 
 ``state_from_numpy``/``state_to_numpy`` carry numpy trees (the JAX
 package's state) across bit for bit, and ``numpy_entity`` adapts an entity
@@ -13,17 +13,18 @@ with numpy payloads to the port's checkpoint engine.
 
 from __future__ import annotations
 
-import math
-from dataclasses import dataclass, replace
+from dataclasses import dataclass
 from typing import Any
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.lm import abstract_params
+from repro_torch.optim.adamw import abstract_opt_state
 from repro_torch.sharding.axes import FSDP_RULES, TP_RULES, spec_to_pspec, zero1_pspec
 from repro_torch.sharding.mesh import VirtualMesh, resolve_device
-from repro_torch.sharding.spec import ParamSpec, stack_spec
+from repro_torch.sharding.spec import ParamSpec, draw_normal, init_std
 from repro_torch.utils.pytree import tree_map
 
 
@@ -42,63 +43,11 @@ class StateLayout:
     params: dict    # nested dict of the params' ParamSpec (init rules)
 
 
-def _attention_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
-    d, h, kv, hd, dt = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.param_dtype
-    return {
-        "wq": ParamSpec((d, h, hd), ("embed", "heads", "head_dim"), dt),
-        "wk": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim"), dt),
-        "wv": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim"), dt),
-        "wo": ParamSpec((h, hd, d), ("heads", "head_dim", "embed"), dt),
-    }
-
-
-def _mlp_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
-    d, f, dt = cfg.d_model, cfg.d_ff, cfg.param_dtype
-    if cfg.mlp_kind in ("swiglu", "geglu"):
-        return {
-            "w_gate": ParamSpec((d, f), ("embed", "mlp"), dt),
-            "w_up": ParamSpec((d, f), ("embed", "mlp"), dt),
-            "w_down": ParamSpec((f, d), ("mlp", "embed"), dt),
-        }
-    return {"w_in": ParamSpec((d, f), ("embed", "mlp"), dt), "w_out": ParamSpec((f, d), ("mlp", "embed"), dt)}
-
-
-def _norm_spec(d: int) -> ParamSpec:
-    return ParamSpec((d,), ("embed",), torch.float32, init="norm")
-
-
-def abstract_params(cfg: ModelConfig) -> dict[str, Any]:
-    """Parameter declarations of a dense decoder (``repro.models.lm``'s
-    ``abstract_params`` for attention layers with a dense MLP)."""
-    if cfg.family != "dense" or any(k == "mamba" for k in cfg.layer_pattern):
-        raise NotImplementedError(f"{cfg.name}: the port declares dense decoders only")
-    p: dict[str, Any] = {
-        "embed": ParamSpec((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"), cfg.param_dtype,
-                           init="normal", scale=0.02),
-        "final_norm": _norm_spec(cfg.d_model),
-    }
-    if not cfg.tie_embeddings:
-        p["head"] = ParamSpec((cfg.d_model, cfg.padded_vocab), ("embed", "vocab"), cfg.param_dtype)
-    layers = {}
-    for j in range(cfg.period):
-        block = {"ln1": _norm_spec(cfg.d_model), "mixer": _attention_specs(cfg)}
-        if cfg.d_ff > 0:
-            block["ln2"] = _norm_spec(cfg.d_model)
-            block["ffn"] = _mlp_specs(cfg)
-        layers[f"slot{j}"] = tree_map(lambda s: stack_spec(s, cfg.num_periods), block)
-    p["layers"] = layers
-    return p
-
-
 def train_state_layout(cfg: ModelConfig, mesh: VirtualMesh) -> StateLayout:
     """Leaf shapes, dtypes and specs of the train state; allocates nothing."""
     rules = FSDP_RULES if cfg.sharding_preset == "fsdp" else TP_RULES
     params = abstract_params(cfg)
-    opt = {
-        "master": tree_map(lambda s: replace(s, dtype=torch.float32), params),
-        "m": tree_map(lambda s: replace(s, dtype=cfg.optimizer_dtype), params),
-        "v": tree_map(lambda s: replace(s, dtype=cfg.optimizer_dtype), params),
-    }
+    opt = abstract_opt_state(params, cfg.optimizer_dtype)
 
     def sds(tree):
         return tree_map(lambda s: TensorSpec(tuple(s.shape), s.dtype), tree)
@@ -125,16 +74,12 @@ def init_train_state(layout: StateLayout, mesh: VirtualMesh, generator: torch.Ge
         raise ValueError(f"device {dev} differs from the mesh's {mesh.device}")
 
     def draw(shape, std: float, dtype) -> torch.Tensor:
-        x = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
-        return x.mul_(std).to(dtype)
+        return draw_normal(shape, std, dtype, generator, dev)
 
     def param(s: ParamSpec) -> torch.Tensor:
-        if s.init == "fan_in":
-            fan_in = max(int(np.prod(s.shape[:-1], dtype=np.int64)), 1) if len(s.shape) > 1 else s.shape[0]
-            std = s.scale / math.sqrt(fan_in)
-        else:  # "normal"; "norm" scales (zeros in the reference) get small noise
-            std = s.scale if s.init == "normal" else 0.1
-        return draw(s.shape, std, s.dtype)
+        # the model's init rule; constant norm scales get small noise instead
+        std = init_std(s)
+        return draw(s.shape, 0.1 if std is None else std, s.dtype)
 
     params = tree_map(param, layout.params)
     # copies even of f32 params: leaves never share storage (restores write

@@ -1,0 +1,202 @@
+"""Attention for the dense decoder: GQA/MQA, sliding window, softcap.
+
+Training runs the reference's blockwise (flash-style) formulation in plain
+tensor ops: a loop over query chunks, each an online softmax over its
+causally reachable KV chunks, with an f32 accumulator. Sliding-window
+layers skip KV chunks outside the window. The arithmetic (scores in f32
+from the compute dtype's products, ``NEG_INF`` masking, the running max and
+its correction) is the reference's, which the tests compare against; the
+JAX package has no Pallas kernel here, and the port adds none.
+
+Not ported yet: cross-attention (ROADMAP A10) and the KV-cache decode step
+(ROADMAP A9).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import apply_rope, einsum, softcap
+from repro_torch.sharding.spec import ParamSpec
+
+NEG_INF = -2.0e38
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+def abstract_params(cfg: ModelConfig, cross: bool = False) -> dict[str, ParamSpec]:
+    if cross:
+        raise NotImplementedError("cross-attention (VLM) waits for ROADMAP A10")
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    dt = cfg.param_dtype
+    return {
+        "wq": ParamSpec((d, h, hd), ("embed", "heads", "head_dim"), dtype=dt),
+        "wk": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim"), dtype=dt),
+        "wv": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim"), dtype=dt),
+        "wo": ParamSpec((h, hd, d), ("heads", "head_dim", "embed"), dtype=dt),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Blockwise attention core
+# ---------------------------------------------------------------------------
+
+def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, S, KV, D) -> (B, S, KV*n_rep, D). Head h reads kv head h // n_rep.
+    An expand and a reshape, so the backward is a plain sum over the copies
+    (``repeat_interleave``'s backward scatters)."""
+    if n_rep == 1:
+        return k
+    B, S, KV, D = k.shape
+    return k[:, :, :, None, :].expand(B, S, KV, n_rep, D).reshape(B, S, KV * n_rep, D)
+
+
+def _chunk_attn_scores(q, k, scale, cap):
+    # q: (B, Bq, H, D)  k: (B, Bk, H, D) -> scores (B, H, Bq, Bk) f32: the
+    # compute dtype's products, summed in f32 (preferred_element_type=f32)
+    s = torch.einsum("bqhd,bshd->bhqs", q.to(torch.float32), k.to(torch.float32))
+    return softcap(s * scale, cap)
+
+
+def _mask(q_pos, k_pos, causal: bool, window: int | None):
+    # (Bq, Bk) boolean validity mask.
+    m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool, device=q_pos.device)
+    if causal:
+        m &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        m &= (q_pos[:, None] - k_pos[None, :]) < window
+    return m
+
+
+def blockwise_attention(
+    q: torch.Tensor,          # (B, Sq, H, D)
+    k: torch.Tensor,          # (B, Sk, KV, D)
+    v: torch.Tensor,          # (B, Sk, KV, D)
+    *,
+    causal: bool,
+    window: int | None = None,
+    attn_cap: float | None = None,
+    q_offset: int = 0,
+    q_chunk: int = 1024,
+    k_chunk: int = 1024,
+) -> torch.Tensor:
+    """Online-softmax blockwise attention. Returns (B, Sq, H, D)."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    k = repeat_kv(k, H // KV)
+    v = repeat_kv(v, H // KV)
+    scale = 1.0 / math.sqrt(D)
+    dev = q.device
+
+    q_chunk = min(q_chunk, Sq)
+    k_chunk = min(k_chunk, Sk)
+    # Pad to chunk multiples.
+    sq_pad = (-Sq) % q_chunk
+    sk_pad = (-Sk) % k_chunk
+    if sq_pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, sq_pad))
+    if sk_pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, sk_pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, sk_pad))
+    nq, nk = (Sq + sq_pad) // q_chunk, (Sk + sk_pad) // k_chunk
+
+    k_ch = k.reshape(B, nk, k_chunk, H, D)
+    v_ch = v.reshape(B, nk, k_chunk, H, D)
+
+    outs = []
+    for i in range(nq):
+        qi = q[:, i * q_chunk : (i + 1) * q_chunk]
+        q_pos = q_offset + i * q_chunk + torch.arange(q_chunk, device=dev)
+        # Chunk range reachable from this query chunk.
+        if causal:
+            j_hi = min(nk, (q_offset + (i + 1) * q_chunk + k_chunk - 1) // k_chunk)
+        else:
+            j_hi = nk
+        if window is not None:
+            j_lo = max(0, (q_offset + i * q_chunk - window) // k_chunk)
+        else:
+            j_lo = 0
+        j_hi = max(j_hi, j_lo + 1)
+
+        m = torch.full((B, H, q_chunk), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, H, q_chunk), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, H, q_chunk, D), dtype=torch.float32, device=dev)
+        for j in range(j_lo, j_hi):
+            kj, vj = k_ch[:, j], v_ch[:, j]
+            k_pos = j * k_chunk + torch.arange(k_chunk, device=dev)
+            s = _chunk_attn_scores(qi, kj, scale, attn_cap)  # (B,H,Bq,Bk)
+            valid = _mask(q_pos, k_pos, causal, window)
+            # Padded KV rows (beyond Sk) are invalid.
+            valid &= (k_pos < Sk)[None, :]
+            s = torch.where(valid[None, None], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bhqs,bshd->bhqd", p.to(vj.dtype).to(torch.float32), vj.to(torch.float32))
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        oi = acc / torch.clamp_min(l[..., None], 1e-37)  # (B,H,Bq,D)
+        outs.append(oi.transpose(1, 2).to(v.dtype))  # (B,Bq,H,D)
+
+    return torch.cat(outs, dim=1)[:, :Sq]
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence (train/prefill) layer application
+# ---------------------------------------------------------------------------
+
+def apply(
+    params: dict[str, torch.Tensor],
+    x: torch.Tensor,                 # (B, S, d_model)
+    cfg: ModelConfig,
+    *,
+    kind: str,                       # attn | local
+    positions: torch.Tensor | None = None,
+    q_offset: int = 0,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Returns (output, kv) where kv holds this layer's k/v for cache building."""
+    if kind not in ("attn", "local"):
+        raise NotImplementedError(f"attention kind {kind!r}: cross-attention waits for ROADMAP A10")
+    B, S, _ = x.shape
+    if positions is None:
+        positions = q_offset + torch.arange(S, device=x.device)
+
+    q = einsum("bsd,dhk->bshk", x, params["wq"]).to(cfg.compute_dtype)
+    k = einsum("bsd,dhk->bshk", x, params["wk"]).to(cfg.compute_dtype)
+    v = einsum("bsd,dhk->bshk", x, params["wv"]).to(cfg.compute_dtype)
+
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    window = cfg.sliding_window if kind == "local" else None
+
+    o = blockwise_attention(
+        q, k, v,
+        causal=not cfg.is_encoder,
+        window=window,
+        attn_cap=cfg.attn_softcap,
+        q_offset=q_offset,
+        q_chunk=cfg.attn_chunk,
+        k_chunk=cfg.attn_chunk,
+    )
+    out = einsum("bshk,hkd->bsd", o, params["wo"]).to(x.dtype)
+    return out, {"k": k, "v": v}
+
+
+# ---------------------------------------------------------------------------
+# Decode (single token, KV cache): ROADMAP A9
+# ---------------------------------------------------------------------------
+
+def decode_cache_spec(cfg: ModelConfig, batch: int, max_seq: int, kind: str) -> dict[str, Any]:
+    raise NotImplementedError("the KV-cache decode step waits for ROADMAP A9")
+
+
+def decode(params, x, cache, pos, cfg: ModelConfig, *, kind: str):
+    raise NotImplementedError("the KV-cache decode step waits for ROADMAP A9")

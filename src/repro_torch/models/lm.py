@@ -1,0 +1,170 @@
+"""The dense decoder LM: parameter declarations, forward pass and train loss.
+
+Parameters keep the reference's layout, per-slot leaves stacked along a
+leading "layers" dim (``params["layers"]["slot0"][leaf][i]`` is layer i):
+the checkpoint's shard plan, manifests and bytes are keyed on it. The
+reference scans over periods with ``lax.scan``; the port loops over them in
+Python, each period under ``torch.utils.checkpoint`` when ``cfg.remat`` is
+``"full"``.
+
+Not ported yet: ``remat="dots"`` (the reference's save-the-matmuls policy),
+prefill and the decode step (ROADMAP A9), encoder and VLM inputs (ROADMAP
+A10).
+"""
+
+from __future__ import annotations
+
+import math
+from functools import partial
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import blocks
+from repro_torch.models.common import einsum, embed_spec, rmsnorm, rmsnorm_spec, softcap
+from repro_torch.sharding.spec import ParamSpec, stack_tree
+from repro_torch.utils.pytree import tree_map
+
+LOSS_CHUNK = 512  # sequence-chunked cross-entropy (bounds logits memory)
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+def abstract_params(cfg: ModelConfig) -> dict[str, Any]:
+    """The one declaration of the params (the train-state layout derives
+    from it too). Raises for what the port does not declare yet."""
+    if cfg.is_encoder or cfg.vision_tokens or cfg.frontend_stub_dim:
+        raise NotImplementedError(f"{cfg.name}: encoder and VLM inputs wait for ROADMAP A10")
+    p: dict[str, Any] = {
+        "embed": embed_spec(cfg.padded_vocab, cfg.d_model, cfg.param_dtype),
+        "final_norm": rmsnorm_spec(cfg.d_model),
+    }
+    if not cfg.tie_embeddings:
+        p["head"] = ParamSpec((cfg.d_model, cfg.padded_vocab), ("embed", "vocab"), dtype=cfg.param_dtype)
+    layers = {}
+    for j in range(cfg.period):
+        layers[f"slot{j}"] = stack_tree(blocks.block_specs(cfg, j), cfg.num_periods)
+    p["layers"] = layers
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Forward (train)
+# ---------------------------------------------------------------------------
+
+def _embed_tokens(params: dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = F.embedding(tokens, params["embed"]).to(cfg.compute_dtype)
+    if cfg.scale_embed:
+        h = h * math.sqrt(cfg.d_model)
+    return h
+
+
+def _remat(fn, cfg: ModelConfig):
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save the matmul outputs only) is not ported; see ROADMAP A3's leftovers")
+    return partial(checkpoint, fn, use_reentrant=False)
+
+
+def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) integers -> (final hidden (B, S, D), moe_aux)."""
+    h = _embed_tokens(params, tokens, cfg)
+
+    def period_body(h, aux, layer_params):
+        for j in range(cfg.period):
+            h, _, aux_j = blocks.apply_block(layer_params[f"slot{j}"], h, cfg, j)
+            aux = aux + aux_j
+        return h, aux
+
+    body = _remat(period_body, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(cfg.num_periods):
+        sliced = tree_map(lambda x: x[i], params["layers"])
+        h, aux = body(h, aux, sliced)
+
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return h, aux
+
+
+def _head_weight(params: dict[str, Any], cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params["embed"].T  # (D, V)
+    return params["head"]
+
+
+def logits_fn(params: dict[str, Any], h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    w = _head_weight(params, cfg)
+    logits = einsum("...d,dv->...v", h, w).to(torch.float32)
+    logits = softcap(logits, cfg.final_softcap)
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad_mask = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
+        logits = torch.where(pad_mask, -1e30, logits)
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# Loss (sequence-chunked cross-entropy)
+# ---------------------------------------------------------------------------
+
+def _ce_chunk(params, h_c, labels_c, mask_c, cfg):
+    logits = logits_fn(params, h_c, cfg)  # (B, Sc, V_pad) f32
+    lse = torch.logsumexp(logits, dim=-1)
+    # The label logit as the reference takes it: a select against an iota,
+    # summed (a gather's backward would scatter).
+    iota = torch.arange(logits.shape[-1], device=logits.device)
+    label_logit = torch.where(iota == labels_c[..., None], logits, 0.0).sum(dim=-1)
+    nll = (lse - label_logit) * mask_c
+    return nll.sum(), mask_c.sum()
+
+
+def loss_fn(
+    params: dict[str, Any],
+    batch: dict[str, torch.Tensor],
+    cfg: ModelConfig,
+    aux_weight: float = 0.01,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Mean next-token cross-entropy (+ the MoE aux loss, 0 for dense)."""
+    h, aux = forward(params, cfg, batch["tokens"])
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+    mask = mask.to(torch.float32)
+
+    S = h.shape[1]
+    chunk = min(LOSS_CHUNK, S)
+    n = S // chunk if S % chunk == 0 else 1
+    if n == 1:
+        chunk = S
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    denom = torch.zeros((), dtype=torch.float32, device=h.device)
+    ce = partial(_ce_chunk, cfg=cfg)
+    if cfg.remat != "none":
+        ce = partial(checkpoint, ce, use_reentrant=False)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        t, d = ce(params, h[:, sl], labels[:, sl], mask[:, sl])
+        total, denom = total + t, denom + d
+    loss = total / torch.clamp_min(denom, 1.0)
+    moe_aux = aux / max(cfg.num_layers, 1)
+    full = loss + aux_weight * moe_aux
+    return full, {"ce_loss": loss, "moe_aux": moe_aux, "tokens": denom}
+
+
+# ---------------------------------------------------------------------------
+# Serving: ROADMAP A9
+# ---------------------------------------------------------------------------
+
+def prefill(params, cfg: ModelConfig, **inputs):
+    raise NotImplementedError("prefill and the decode step wait for ROADMAP A9")
+
+
+def decode_step(params, cache, token, pos, cfg: ModelConfig):
+    raise NotImplementedError("prefill and the decode step wait for ROADMAP A9")

@@ -1,1 +1,2 @@
-"""Optimizer substrate: snapshot compression (``grad_compress``)."""
+"""Optimizer substrate: AdamW with fp32 masters (``adamw``), schedules
+(``schedule``), snapshot compression (``grad_compress``)."""

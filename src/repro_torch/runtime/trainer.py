@@ -1,0 +1,335 @@
+"""The fault-tolerant training loop — paper Algorithm 3, end to end.
+
+    while current step < number of steps:
+        try:
+            barrier (faults surface here, deterministically)
+            single step
+            checkpoint if due (Algorithm 2, at the Daly interval)
+        catch ProcessFaultException:
+            stabilize parallel environment (revoke -> shrink / spares)
+            recover last checkpoint (Algorithm 4; zero-comm for survivors)
+
+Because the data pipeline's state is part of the checkpoint, the replayed
+trajectory after a rollback is bitwise identical to a fault-free run, as
+long as every operation of the step is deterministic (on the card:
+``torch.use_deterministic_algorithms(True)`` with
+``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set before cuBLAS is first used).
+
+The state is a nested dict of tensors on the trainer's device (``cuda``
+unless the caller passes ``device="cpu"``). Nothing replaces its tensors:
+the optimizer writes them in place, and so do restores
+(``ShardedStateEntity.restore_shards``). Gradients are taken through
+``requires_grad`` aliases of the live params, so the state tensors never
+require grad themselves.
+
+Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
+item: overlapped checkpoints (``checkpoint_mode="async"``,
+``async_checkpoint``: A5); the storage-tier ladder (``tier_dir``,
+``disk_path``, ``cold_restart``: A7); the host ``xor``/``rs`` codecs (the
+engine raises: A4).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+from typing import Any
+
+import torch
+
+from repro_torch.core.checkpoint import CheckpointEngine, EngineConfig
+from repro_torch.core.interval import CheckpointScheduler, system_mtbf
+from repro_torch.data.synthetic import SyntheticDataPipeline
+from repro_torch.launch.steps import train_state_layout
+from repro_torch.models.model import Model
+from repro_torch.obs.trace import tracer
+from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
+from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.runtime.cluster import VirtualCluster
+from repro_torch.runtime.failures import FailureInjector, ProcessFaultException
+from repro_torch.runtime.state import ShardPlan, ShardedStateEntity
+from repro_torch.runtime.straggler import StragglerDetector
+from repro_torch.sharding.mesh import make_mesh, resolve_device
+from repro_torch.utils.logging import get_logger
+from repro_torch.utils.pytree import tree_flatten, tree_unflatten
+from repro_torch.utils.timing import TimerRegistry
+
+log = get_logger("runtime.trainer")
+_TR = tracer()
+
+# The production mesh the shard plan is computed against (the reference's
+# abstract mesh): ZeRO-1 leaves split along their "data" dim.
+PROD_MESH = ((16, 16), ("data", "model"))
+
+
+@dataclass
+class TrainerConfig:
+    batch: int = 8
+    seq: int = 64
+    lr: float = 1e-3
+    warmup_steps: int = 10
+    total_steps: int = 1000
+    seed: int = 0
+    # fault tolerance
+    n_virtual_hosts: int = 4          # failure-domain ranks in the simulation
+    n_spares: int = 0
+    recovery_policy: str = "spare"    # spare | shrink | elastic (N-to-M repartition)
+    mtbf_individual_s: float = 3600.0
+    checkpoint_period: int | None = None  # None -> Daly-optimal (adaptive)
+    # The reference's default engine with the serial restore, the one the
+    # port's engine runs (the pipelined restore waits for ROADMAP A5).
+    engine: EngineConfig = field(default_factory=lambda: EngineConfig(restore_mode="sync"))
+    moment_dtype: Any = torch.float32
+    # Not ported (raise NotImplementedError): the disk rung of the
+    # storage-tier ladder and its deprecated alias (ROADMAP A7), overlapped
+    # checkpoints and their deprecated alias (ROADMAP A5).
+    tier_dir: str | None = None
+    disk_path: str | None = None
+    checkpoint_mode: str = "sync"     # sync | async
+    async_checkpoint: bool = False
+
+
+def _unported(tcfg: TrainerConfig) -> str | None:
+    if tcfg.checkpoint_mode == "async" or tcfg.async_checkpoint:
+        return "overlapped checkpoints (checkpoint_mode='async') wait for ROADMAP A5"
+    if tcfg.tier_dir or tcfg.disk_path:
+        return "the storage-tier ladder (tier_dir, disk_path) waits for ROADMAP A7"
+    return None
+
+
+class Trainer:
+    def __init__(
+        self,
+        model: Model,
+        tcfg: TrainerConfig,
+        injector: FailureInjector | None = None,
+        device: Any = None,
+        data: Any = None,
+    ) -> None:
+        """``data`` replaces the synthetic pipeline: any Snapshottable with a
+        ``next()`` that gives a batch on ``device``."""
+        if tcfg.checkpoint_mode not in ("sync", "async"):
+            raise ValueError(f"checkpoint_mode {tcfg.checkpoint_mode!r}")
+        why = _unported(tcfg)
+        if why is not None:
+            raise NotImplementedError(why)
+        self.model = model
+        self.cfg = model.cfg
+        self.tcfg = tcfg
+        self.device = resolve_device(device)
+        self.timers = TimerRegistry()
+
+        # -- data pipeline (its (seed, step) state is a checkpoint entity) ---
+        self.data = data if data is not None else SyntheticDataPipeline(
+            self.cfg, tcfg.batch, tcfg.seq, tcfg.seed, device=self.device)
+
+        # -- live state -------------------------------------------------------
+        gen = torch.Generator(device=self.device).manual_seed(tcfg.seed)
+        params = model.init(gen, self.device)
+        self.state: dict[str, Any] = {
+            "params": params,
+            "opt": init_opt_state(params, tcfg.moment_dtype),
+            "step": torch.zeros((), dtype=torch.int32, device=self.device),
+        }
+
+        # -- sharding plan against the PRODUCTION mesh ------------------------
+        layout = train_state_layout(replace(self.cfg, optimizer_dtype=tcfg.moment_dtype),
+                                    make_mesh(*PROD_MESH, device=self.device))
+        self.plan = ShardPlan.from_pspecs(layout.sds, layout.pspecs)
+
+        # -- cluster + engine + scheduler -------------------------------------
+        self._engine_cfg = tcfg.engine
+        self.cluster = VirtualCluster(tcfg.n_virtual_hosts, tcfg.n_spares)
+        self.engine = CheckpointEngine(tcfg.n_virtual_hosts, self._engine_cfg, device=self.device)
+        self.cluster.attach_engine(self.engine)
+        self.timers.attach_metrics(self.engine.registry)
+        self.engine.register("train_state", ShardedStateEntity(lambda: self.state, self.plan))
+        self.engine.register("data_pipeline", self.data)
+        self.engine.register("timers", self.timers)
+
+        mtbf = system_mtbf(tcfg.mtbf_individual_s, tcfg.n_virtual_hosts)
+        self.scheduler = CheckpointScheduler(mtbf_s=mtbf, step_time_s=0.1)
+        self.injector = injector or FailureInjector(tcfg.n_virtual_hosts)
+        self.straggler = StragglerDetector(tcfg.n_virtual_hosts)
+
+        self._train_step = self._build_train_step()
+        self.history: list[dict[str, float]] = []
+        self.n_recoveries = 0
+        self._last_ckpt_step = -(10**9)
+
+    # ------------------------------------------------------------------ #
+    def _build_train_step(self):
+        model, tcfg = self.model, self.tcfg
+        hp = AdamWConfig(lr=tcfg.lr)
+        sched = warmup_cosine(tcfg.lr, tcfg.warmup_steps, tcfg.total_steps)
+
+        def step_fn(state, batch):
+            # grads through aliases of the live params (same storage); the
+            # update then writes the live tensors in place
+            paths, live = tree_flatten(state["params"])
+            leaves = [p.detach().requires_grad_() for p in live]
+            loss, metrics = model.loss(tree_unflatten(paths, leaves), batch)
+            grads = torch.autograd.grad(loss, leaves)
+            stats = adamw_update(tree_unflatten(paths, list(grads)), state["params"], state["opt"],
+                                 state["step"], hp, lr_schedule=sched)
+            return {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}, **stats}
+
+        return step_fn
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------ #
+    # Algorithm 3
+    # ------------------------------------------------------------------ #
+    def run(self, num_steps: int) -> list[dict[str, float]]:
+        ckpt_count = 0
+        while int(self.state["step"]) < num_steps:
+            try:
+                self.cluster.barrier("step")
+
+                # Fault injection models hosts dying *during* the step; the
+                # fault surfaces at the next barrier (step granularity).
+                step = int(self.state["step"])
+                for r in self.injector.kills_at_step(step):
+                    self.cluster.kill(r)
+                self.cluster.barrier("step")
+
+                with self.timers("train_step"), _TR.span("train_step", step=step):
+                    batch = self.data.next()
+                    metrics = self._train_step(self.state, batch)
+                    self._sync()
+                step_s = self.timers("train_step").last
+                self.scheduler.record_step_time(self.timers("train_step").mean)
+                loss = float(metrics["loss"])
+                self.history.append({"step": step, "loss": loss, "step_s": step_s})
+                log.debug(
+                    "step", extra={"fields": {
+                        "component": "trainer", "step": step, "loss": loss,
+                        "generation": self.engine.stats.created,
+                        "alive": len(self.cluster.alive()), "step_s": step_s,
+                    }},
+                )
+
+                if self._checkpoint_due(int(self.state["step"])):
+                    kills = self.injector.kills_at_checkpoint(ckpt_count)
+                    hook_fired = {"done": False}
+
+                    def hook(phase: str) -> None:
+                        if phase == "after_create" and kills and not hook_fired["done"]:
+                            hook_fired["done"] = True
+                            for r in kills:
+                                self.cluster.kill(r)
+
+                    self.engine._fault_hook = hook
+                    ckpt_count += 1
+                    with self.timers("checkpoint"):
+                        ok = self.engine.checkpoint({"step": int(self.state["step"])})
+                    self.engine._fault_hook = lambda phase: None
+                    if not ok:
+                        raise ProcessFaultException(sorted(self.cluster.failed), "checkpoint")
+                    self._last_ckpt_step = int(self.state["step"])
+                    self.scheduler.record_checkpoint_duration(self.timers("checkpoint").mean)
+
+            except ProcessFaultException as e:
+                log.warning("fault caught in main loop: %s", e)
+                self.recover()
+        return self.history
+
+    # ------------------------------------------------------------------ #
+    def _checkpoint_due(self, step: int) -> bool:
+        if self.tcfg.checkpoint_period is not None:
+            return step > 0 and step % self.tcfg.checkpoint_period == 0
+        return self.scheduler.due(step, max(self._last_ckpt_step, 0))
+
+    def recover(self) -> None:
+        """Stabilize the parallel environment, then roll back (Algorithm 3)."""
+        if not self.engine.has_valid_checkpoint:
+            raise RuntimeError(
+                "fault before the first checkpoint and no persistent tier configured"
+            )
+        report = self.cluster.stabilize(self.tcfg.recovery_policy)  # revoke+shrink
+        if report.policy == "elastic":
+            meta = self._elastic_recover(report.n_ranks_after)
+        elif report.policy == "shrink":
+            meta = self._shrink_engine(report)
+        else:
+            meta = self.engine.restore()  # Algorithm 4 under the hood
+        # Restored entities include the data pipeline + timers + train state;
+        # the loop continues from the checkpointed step.
+        self.n_recoveries += 1
+        log.info(
+            "recovered to step %s (policy=%s, codec=%s, load_factor=%.2f, restore %.3fs)",
+            meta.get("step"), report.policy, self.engine.codec.name,
+            report.load_factor, self.engine.stats.last_restore_s,
+        )
+
+    def _shrink_engine(self, report) -> dict[str, Any]:
+        """Elastic shrink: restore from the OLD world's surviving stores, then
+        rebuild the engine over the dense-renumbered survivor set. The live
+        state is global in this simulation, so 'survivors inherit the failed
+        ranks' blocks' happens inside restore_shards (the re-sharding to
+        new_n ranks occurs at the next checkpoint)."""
+        old = self.engine
+        failed = set(report.failed)
+        old._alive_fn = lambda: {r for r in range(old.n_ranks) if r not in failed}
+        meta = old.restore()  # Algorithm 4 against the old rank space
+        self._swap_engine(report.n_ranks_after)
+        return meta
+
+    def _elastic_recover(self, n_new: int) -> dict[str, Any]:
+        """N-to-M recovery: repartition the checkpoint onto the ``n_new``-rank
+        world (engine.restore_elastic), realign the cluster, and immediately
+        re-checkpoint so the new world is protected before the next step.
+
+        restore_elastic consumes the old checkpoint, so a failed re-protect
+        (a rank dying during the exchange) must not be ignored: the restored
+        state is still live in memory, so we shrink onto whoever survived and
+        re-protect again until a checkpoint commits."""
+        meta = self.engine.restore_elastic(n_new)
+        self.cluster.resize(n_new)
+        while not self.engine.checkpoint({"step": int(self.state["step"])}):
+            survivors = len(self.cluster.alive())
+            if survivors < 1:
+                raise RuntimeError("all ranks died while re-protecting the elastic world")
+            log.warning("re-protect checkpoint failed; shrinking to %d survivors", survivors)
+            self._swap_engine(survivors)
+            self.cluster.resize(survivors)  # clears the revoked flag too
+        self._last_ckpt_step = int(self.state["step"])
+        return meta
+
+    def restore_elastic(self, n_new: int) -> dict[str, Any]:
+        """Elastic transition to ``n_new`` ranks from the last checkpoint —
+        shrink (fewer hosts, no spares needed) or grow (scale-up). The merged
+        global state is bit-identical; only the shard topology changes."""
+        return self._elastic_recover(n_new)
+
+    def cold_restart(self) -> dict[str, Any]:
+        raise NotImplementedError("cold restart from the storage-tier ladder waits for ROADMAP A7")
+
+    def _swap_engine(self, n_new: int) -> None:
+        """Rebuild the engine for a new world size; entities carry over and
+        re-shard themselves at the next checkpoint."""
+        old = self.engine
+        new_engine = CheckpointEngine(n_new, self._engine_cfg, device=self.device)
+        new_engine._entities = dict(old._entities)
+        new_engine._replicated = set(old._replicated)
+        self.cluster.n_ranks = n_new
+        self.cluster._alive = set(range(n_new))
+        self.cluster.attach_engine(new_engine)
+        self.engine = new_engine
+        # Re-point the timer mirror at the new engine-local registry so
+        # `timer_seconds` keeps accumulating after an elastic resize.
+        self.timers.attach_metrics(new_engine.registry)
+
+    def regrow(self, n_new: int) -> None:
+        """Elastic scale-up (paper §5.2.4): expand the failure-domain world to
+        ``n_new`` ranks and immediately checkpoint so the new ranks hold their
+        re-balanced shards + backups."""
+        if n_new < self.engine.n_ranks:
+            raise ValueError(f"regrow to {n_new} < {self.engine.n_ranks} ranks")
+        self._swap_engine(n_new)
+        ok = self.engine.checkpoint({"step": int(self.state["step"])})
+        if ok:
+            self._last_ckpt_step = int(self.state["step"])
+        log.info("regrown to %d ranks (checkpoint %s)", n_new, "ok" if ok else "failed")

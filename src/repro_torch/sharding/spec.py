@@ -1,11 +1,17 @@
-"""Declarative parameter specifications (shape, logical dim names, dtype)."""
+"""Declarative parameter specifications (shape, logical dim names, dtype,
+init rule) and what derives from them: initialization (``init_tree``) and
+parameter counting (``tree_count``)."""
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, replace
 from typing import Any
 
+import numpy as np
 import torch
+
+from repro_torch.utils.pytree import tree_flatten, tree_map, tree_unflatten
 
 
 @dataclass(frozen=True)
@@ -13,14 +19,67 @@ class ParamSpec:
     shape: tuple[int, ...]
     dims: tuple[str | None, ...]  # logical dim names; len == len(shape)
     dtype: Any = torch.bfloat16
-    init: str = "fan_in"  # fan_in | normal | norm
+    init: str = "fan_in"  # fan_in | normal | zeros | ones
     scale: float = 1.0
 
     def __post_init__(self) -> None:
         assert len(self.shape) == len(self.dims), (self.shape, self.dims)
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64)) if self.shape else 1
 
 
 def stack_spec(spec: ParamSpec, n: int) -> ParamSpec:
     """Add a leading stacked-layers dim (scan-over-layers parameters)."""
     return replace(spec, shape=(n, *spec.shape), dims=("layers", *spec.dims))
 
+
+def stack_tree(tree: Any, n: int) -> Any:
+    return tree_map(lambda s: stack_spec(s, n), tree)
+
+
+def init_std(spec: ParamSpec) -> float | None:
+    """The standard deviation of a leaf's normal draw; None for the constant
+    inits (``zeros``, ``ones``). ``fan_in``: the product of every dim but
+    the last (output) one."""
+    if spec.init in ("zeros", "ones"):
+        return None
+    if spec.init == "normal":
+        return spec.scale
+    if spec.init == "fan_in":
+        fan_in = max(int(np.prod(spec.shape[:-1], dtype=np.int64)), 1) if len(spec.shape) > 1 else spec.shape[0]
+        return spec.scale / math.sqrt(fan_in)
+    raise ValueError(f"unknown init {spec.init}")
+
+
+def draw_normal(shape, std: float, dtype, generator: torch.Generator, device: torch.device) -> torch.Tensor:
+    """``std`` times a standard normal draw in f32, cast to ``dtype``."""
+    x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    return x.mul_(std).to(dtype)
+
+
+def init_leaf(spec: ParamSpec, generator: torch.Generator, device: torch.device) -> torch.Tensor:
+    std = init_std(spec)
+    if std is None:
+        fill = torch.zeros if spec.init == "zeros" else torch.ones
+        return fill(spec.shape, dtype=spec.dtype, device=device)
+    return draw_normal(spec.shape, std, spec.dtype, generator, device)
+
+
+def init_tree(generator: torch.Generator, tree: Any, device: Any = None) -> Any:
+    """Initialize a ParamSpec tree into tensors on ``device`` (the
+    generator's by default). Each leaf draws from its own generator, seeded
+    from one draw of ``generator`` plus the leaf's index in sorted-path
+    order, so a leaf's values do not depend on the leaves drawn before it
+    (the reference splits one key per leaf)."""
+    dev = torch.device(device) if device is not None else generator.device
+    base = int(torch.randint(0, 2**62, (), generator=generator, device=generator.device))
+    paths, specs = tree_flatten(tree)
+    leaves = [init_leaf(s, torch.Generator(device=dev).manual_seed(base + i), dev) for i, s in enumerate(specs)]
+    return tree_unflatten(paths, leaves)
+
+
+def tree_count(tree: Any) -> int:
+    """Total parameter count of a ParamSpec tree."""
+    return sum(s.size for s in tree_flatten(tree)[1])

@@ -5,8 +5,9 @@ virtual CPU devices (``XLA_FLAGS=--xla_force_host_platform_device_count=8``).
 cases; ``... state OUT.npz`` runs the llama3.2-1b layout and slice cases;
 ``... engine OUT.npz`` runs the host-tier checkpoint engine's cases;
 ``... elastic OUT.npz`` the elastic N-to-M planner, reshard executors and
-``restore_elastic`` cases. The arrays go to the ``.npz``, the metadata to
-``OUT.npz.json``.
+``restore_elastic`` cases; ``... trainer OUT.npz`` the reference ``Trainer``
+through two kills (``TRAINER_CASE``). The arrays go to the ``.npz``, the
+metadata to ``OUT.npz.json``.
 
 The engine cases' entities (``ShardedVec``, ``Counter``, ``engine_state``),
 the dump of an engine's committed stores (``dump_engine``) and the elastic
@@ -602,6 +603,44 @@ def run_elastic(out_path: str) -> None:
     _save(out_path, arrays, meta)
 
 
+# The trainer cross-check: reduced llama3.2-1b, 20 steps, a checkpoint every
+# 5, hosts 1 and 2 killed at steps 8 and 17, replaced from 4 spares.
+TRAINER_CASE = dict(batch=4, seq=32, total_steps=20, checkpoint_period=5, n_virtual_hosts=4, n_spares=4)
+TRAINER_KILLS = {8: [1], 17: [2]}
+TRAINER_STEPS = 20
+
+
+def _flat_np(tree) -> dict:
+    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+    return {"/".join(str(k.key) for k in p): np.asarray(x) for p, x in flat}
+
+
+def run_trainer(out_path: str) -> None:
+    """The reference Trainer through ``TRAINER_KILLS``: its initial state,
+    every step's batch (a batch is a function of the step alone), the loss
+    history, recoveries, created/aborted counts, the committed stores'
+    manifests and the final state."""
+    from repro.configs import get_config
+    from repro.models import build_model
+    from repro.runtime.failures import FailureInjector
+    from repro.runtime.trainer import Trainer, TrainerConfig
+
+    model = build_model(get_config("llama3.2-1b").reduced())
+    t = Trainer(model, TrainerConfig(**TRAINER_CASE), injector=FailureInjector(4, schedule=TRAINER_KILLS))
+    arrays = {f"init/{k}": v for k, v in _flat_np(jax.device_get(t.state)).items()}
+    for step in range(TRAINER_STEPS):
+        for k, v in t.data.peek(step).items():
+            arrays[f"batch/{step}/{k}"] = np.asarray(v)
+    hist = t.run(TRAINER_STEPS)
+    arrays.update({f"final/{k}": v for k, v in _flat_np(jax.device_get(t.state)).items()})
+    _, stores = dump_engine(t.engine, np.asarray)
+    meta = {"history": [[h["step"], h["loss"]] for h in hist], "n_recoveries": t.n_recoveries,
+            "created": t.engine.stats.created, "aborted": t.engine.stats.aborted,
+            "manifests": {r: {"own": d["own"], "manifests": d["manifests"], "step": d["step"]}
+                          for r, d in stores["stores"].items()}}
+    _save(out_path, arrays, meta)
+
+
 def _save(out_path: str, arrays: dict, meta: dict) -> None:
     # bf16 leaves travel as their 16-bit patterns (npz has no bf16)
     enc = {}
@@ -633,4 +672,4 @@ def load(out_path: str) -> tuple[dict, dict]:
 
 if __name__ == "__main__":
     {"device_tier": run_device_tier, "state": run_state, "engine": run_engine,
-     "elastic": run_elastic}[sys.argv[1]](sys.argv[2])
+     "elastic": run_elastic, "trainer": run_trainer}[sys.argv[1]](sys.argv[2])

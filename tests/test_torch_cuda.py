@@ -1,6 +1,8 @@
 """The CUDA kernels, the device tier, the host engine and its elastic N-to-M
 restore on the card, against their plain PyTorch versions and the CPU path,
-bit for bit. Each test needs a
+bit for bit; and the Trainer on the card against the Trainer on the CPU
+(f32 arithmetic: losses and final state within rtol 1e-4, atol 1e-4 of
+each leaf's largest magnitude). Each test needs a
 CUDA card and ``nvcc`` and skips without them; on the GPU run
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``."""
 
@@ -440,3 +442,33 @@ def test_restore_elastic_on_the_card_matches_the_cpu(cuda, n_old, n_new, kill):
     for x, y, o in zip(a, b, tree_flatten(cpu_state)[1]):
         assert torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
         assert torch.equal(x.reshape(-1).view(torch.uint8), o.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.parametrize("policy,kills", [("spare", {8: [1], 17: [2]}), ("elastic", {12: [3]})])
+def test_trainer_on_the_card_matches_the_cpu(cuda, policy, kills):
+    """Reduced llama3.2-1b, 20 steps, a checkpoint every 5, hosts killed per
+    ``kills``: the card takes the CPU's steps (rollbacks included) from the
+    same initial state and batches; under the elastic policy the restore
+    runs the row gather (B6) on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime.failures import FailureInjector
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    model = build_model(get_config("llama3.2-1b").reduced())
+    tcfg = TrainerConfig(batch=4, seq=32, total_steps=20, checkpoint_period=5, n_virtual_hosts=4,
+                         n_spares=4 if policy == "spare" else 0, recovery_policy=policy)
+    runs = [Trainer(model, tcfg, injector=FailureInjector(4, schedule=kills), device=dev) for dev in ("cpu", cuda)]
+    with torch.no_grad():
+        for x, y in zip(tree_flatten(runs[1].state)[1], tree_flatten(runs[0].state)[1]):
+            x.copy_(y)
+    before = ops.launch_counts()["gather_rows"]
+    cpu, card = (t.run(20) for t in runs)
+    assert [h["step"] for h in card] == [h["step"] for h in cpu]
+    assert runs[1].n_recoveries == runs[0].n_recoveries == len(kills)
+    assert (ops.launch_counts()["gather_rows"] > before) == (policy == "elastic")
+    np.testing.assert_allclose([h["loss"] for h in card], [h["loss"] for h in cpu], rtol=1e-4)
+    for (p, x), y in zip(zip(*tree_flatten(runs[1].state)), tree_flatten(runs[0].state)[1]):
+        want = y.numpy()
+        np.testing.assert_allclose(x.cpu().numpy(), want, rtol=1e-4, atol=1e-4 * float(np.abs(want).max()),
+                                   err_msg="/".join(p))

@@ -1,0 +1,112 @@
+#!/usr/bin/env python3
+"""Rehearse ``chip_smoke.py`` on a machine with no card: every phase, on the
+CPU, at a small config, in seconds.
+
+    python3 tools/rehearse_chip_smoke.py            # all phases through main()
+    python3 tools/rehearse_chip_smoke.py --phase7   # the training loop alone
+
+It runs a copy of ``chip_smoke.py``'s source in which the card is the CPU:
+``"cuda"`` strings and ``.cuda()`` calls name the CPU, every entry point of
+the port resolves its default device to the CPU, the CUDA timing, memory
+and device calls are stubbed, nothing is built and no raw kernel is
+launched (the kernel wrappers take their plain versions on CPU tensors), and
+the launch counts read one for every kernel but the row gather, which is
+counted for real (phase 6 checks its exact count). What it finds are wrong
+paths, shapes, arguments and control flow; its times mean nothing.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import types
+from dataclasses import replace
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+import repro_torch.sharding.mesh as mesh_mod  # noqa: E402  (before the rest of the port)
+
+_resolve = mesh_mod.resolve_device
+mesh_mod.resolve_device = lambda device=None: _resolve(
+    "cpu" if device is None or str(device).startswith("cuda") else device)
+
+import torch  # noqa: E402
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.core import checkpoint  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
+
+KERNELS = ("checksum", "xor_reduce", "gf256_matmul", "gf256_matmul_dyn", "quantize_blockwise",
+           "dequantize_blockwise")
+
+
+class _Event:
+    def __init__(self, **_) -> None:
+        pass
+
+    def record(self, *_) -> None:
+        pass
+
+    def elapsed_time(self, _) -> float:
+        return 1.0
+
+
+def small_config():
+    return replace(configs.get_config("llama3.2-1b"), num_layers=2, d_model=256, num_heads=4, num_kv_heads=2,
+                   head_dim=64, d_ff=512, vocab_size=1000)
+
+
+def load_chip_smoke(cfg) -> types.ModuleType:
+    src = (ROOT / "chip_smoke.py").read_text()
+    src = src.replace('"cuda"', '"cpu"').replace(".cuda()", '.to("cpu")')
+    mod = types.ModuleType("chip_smoke")
+    mod.__file__ = str(ROOT / "chip_smoke.py")
+    exec(compile(src, "chip_smoke.py (CPU rehearsal)", "exec"), mod.__dict__)
+    for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        setattr(torch.cuda, name, lambda *a, **k: None)
+    torch.cuda.Event = _Event
+    torch.cuda.max_memory_allocated = torch.cuda.memory_allocated = lambda *a: 0
+    torch.cuda.is_available = lambda: True
+    torch.cuda.get_device_name = lambda *a: "CPU rehearsal"
+    torch.cuda.device_count = lambda: 1
+    _build.build = lambda *a: {}
+    _build.call = _build.stream_of = lambda *a, **k: None
+    gathers = [1]
+    gather = ops.gather_rows
+
+    def counted_gather(*a, **k):
+        gathers[0] += 1
+        return gather(*a, **k)
+
+    ops.gather_rows = counted_gather
+    ops.launch_counts = lambda: {**{k: 1 for k in KERNELS}, "gather_rows": gathers[0]}
+    ops.reset_launch_counts = lambda: None
+    checkpoint.reshard_leaves = checkpoint.reshard_leaves_device  # the engine picks the host one on the CPU
+    for name in ("sass_phase", "kernel_tests_phase", "free_pinned_cache"):
+        setattr(mod, name, lambda *a: None)
+    mod.gpu_line = lambda: "CPU rehearsal, 0 W"
+    mod.get_config = configs.get_config = lambda name: cfg
+    return mod
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phase7", action="store_true", help="run the training loop's phase alone")
+    args = ap.parse_args()
+    torch.set_num_threads(4)
+    cfg = small_config()
+    mod = load_chip_smoke(cfg)
+    if not args.phase7:
+        return mod.main()
+    mod._HOST_START[:] = [mod.host_free_gib(), mod.host_rss_gib()]
+    run, counts = mod.trainer_path(cfg)
+    print(json.dumps(run))
+    print(json.dumps(counts))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
