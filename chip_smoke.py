@@ -40,54 +40,66 @@ printing no result, on any failure or without a card. Phases:
    compress=True: int8 partner codes and scales bit-equal to the plain
    quantize of the same bucket, the staged fetch, and the fetched partner
    dequantized on the card within half a step of the original;
-5. engine path: the same state held by a ShardedStateEntity over 4 ranks
-   (the ZeRO-1 data dim split four ways) plus an RngEntity, through
-   ``CheckpointEngine(4, EngineConfig(compress=True, restore_mode="sync"))``:
-   checkpoint, overwrite the live state, wipe rank 2's host store, restore;
-   survivors byte-exact, rank 2's split float leaves bit-equal to the plain
-   dequantize(quantize(x)); then the same cycle uncompressed, byte-exact.
-   If the host lacks the RAM this path needs, depth (layers) is cut, never
-   width, and the cut is printed;
-6. elastic path: the same state and entities through
-   ``CheckpointEngine(4, EngineConfig(restore_mode="sync"))`` attached to a
+5. engine path: a seeded llama3.2-1b train state cut to ``PATH_LAYERS``
+   (8) of its 16 layers, width kept, held by a ShardedStateEntity over 4
+   ranks (the ZeRO-1 data dim split four ways) plus an RngEntity, through three
+   cycles: ``CheckpointEngine(4, EngineConfig())`` (the reference's default
+   engine), ``EngineConfig(compress=True)`` and ``EngineConfig(compress=True,
+   async_workers=4)``. Each: a background ``checkpoint_async`` (every leaf
+   copied from the card straight into pinned arenas, the device-to-host rate
+   printed) and ``finalize_async``, overwrite the live state, wipe rank 2's
+   host store, the pipelined restore; survivors byte-exact, rank 2's split
+   float leaves bit-equal to the plain dequantize(quantize(x)); then the
+   same committed generation through the sync restore, checked the same way.
+   If the host lacks the RAM this path needs, depth (layers) is cut
+   further, never width, and the cut is printed;
+6. elastic path: the same cut state and entities through
+   ``CheckpointEngine(4, EngineConfig())`` attached to a
    ``VirtualCluster(4)``: checkpoint, overwrite the live state, kill rank 2,
-   ``stabilize("elastic")``, ``restore_elastic(2)``, ``resize(2)``; re-protect
-   with a checkpoint on 2 ranks, overwrite again, ``restore_elastic(8)``,
-   ``resize(8)``. After each restore every leaf is byte-equal to the seeded
-   original, and every leaf with a data axis of every new rank was built by
-   the row gather (B6): 33 x 2 and 33 x 8 launches. 4 -> 3 would hold every
-   split leaf whole on each of 3 new ranks (44.5 GB beside the live state
-   and the recovered payloads: more than the card has), so the drill goes
-   4 -> 2 -> 8, world sizes that divide every ZeRO-1 dim. Depth is cut, never
+   ``stabilize("elastic")``, ``restore_elastic(2)`` (its recovery through the
+   pipelined restore), ``resize(2)``; re-protect with a checkpoint on 2
+   ranks, overwrite again, ``restore_elastic(8)``, ``resize(8)``. After each
+   restore every leaf is byte-equal to the seeded original, and every leaf
+   with a data axis of every new rank was built by the row gather (B6): 33
+   x 2 and 33 x 8 launches. At full depth 4 -> 3 would hold every split
+   leaf whole on each of 3 new ranks (44.5 GB beside the live state and the
+   recovered payloads: more than the card has), so the drill goes 4 -> 2 ->
+   8, world sizes that divide every ZeRO-1 dim. Depth is cut further, never
    width, if the host lacks the RAM, and the cut is printed;
-7. training loop (paper Algorithm 3): the port's ``Trainer`` on llama3.2-1b
-   at full width, bf16 params and compute with f32 master/m/v (batch 8, seq
-   128, lr 1e-3 as ``launch/train.py``'s defaults; 4 virtual hosts, one
-   spare, a checkpoint every 3 steps, host 2 killed at step 5: checkpoints
-   at 3 and 6, a rollback to 3, steps 3 and 4 replayed), 8 steps under
+7. training loop (paper Algorithm 3): the port's ``Trainer`` under its
+   defaults (the reference's default engine) on llama3.2-1b at full width,
+   params drawn from the seed by the reference's threefry streams, bf16
+   params and compute with f32 master/m/v (batch 8, seq 128, lr 1e-3 as
+   ``launch/train.py``'s defaults; 4 virtual hosts, one spare, a checkpoint
+   every 3 steps, host 2 killed at step 5: checkpoints at 3 and 6, a
+   rollback to 3, steps 3 and 4 replayed), 8 steps under
    ``torch.use_deterministic_algorithms(True)`` (``main`` sets
-   ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` before cuBLAS is first used). Prints
-   each step's loss and time (ending in ``torch.cuda.synchronize()``), both
-   checkpoints' create/capture/drain times, the restore time, the card and
-   host peaks; fails unless every loss is finite, there is one recovery, the
-   replayed losses are bit-equal to the first pass, and every state leaf
-   right after the restore is byte-equal to the state at the step-3
-   checkpoint (a host copy, or where the host has no room for one, each
-   leaf's ``np_checksum``). Its engine holds two committed generations at
-   once: depth is cut, never width, if the host lacks the RAM, and the cut
-   is printed.
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` before cuBLAS is first used); then
+   the same run with ``checkpoint_mode="async"`` (each checkpoint captured
+   at the step boundary, drained behind the next step, committed at the
+   following barrier). Prints each step's loss and time (ending in
+   ``torch.cuda.synchronize()``), every committed create's capture,
+   blocked, finalize-wait and create times, the restore's time and chunk
+   count, the card and host peaks; fails unless every loss is finite, there
+   is one recovery, the replayed losses are bit-equal to the first pass, and
+   every state leaf right after the restore is byte-equal to the state at
+   the step-3 checkpoint (a host copy, or where the host has no room for
+   one, each leaf's ``np_checksum``). Its engine holds two committed
+   generations at once: depth is cut, never width, if the host lacks the
+   RAM, and the cut is printed.
 
 Phase 3 also runs B6 at the main path's largest gather (the w_up master
 leaf, 4 origins x 512 rows of 512 KiB, gathered for one new rank of the
 4 -> 2 plan), with the copies around it (the axis move and the stacking)
 timed on their own, and the host executor's result for that leaf held
-against the gather's.
+against the gather's; B6 and ``torch.index_select`` are timed in
+alternating order over ``B6_AB_ROUNDS`` rounds (medians and spreads).
 
 Phase 7 runs right after phase 3, then phases 5, 6 and 4: 7 and 5 need the
 most host RAM, and phase 4's staged fetches leave pinned host blocks in
 PyTorch's cache. The kernels' launch counts are set to 0 before each of the
-four paths and read after it; every kernel a path runs must have launched
-in it (phase 7's default engine launches none).
+paths and read after it; every kernel a path runs must have launched in it
+(phase 7's copy codec launches none).
 
 The line before the last is the kernels' JSON; the last line is the result.
 """
@@ -98,6 +110,7 @@ import contextlib
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -122,6 +135,7 @@ ALU_OPS_PER_S = 64 * 132 * 1.98e9
 FMA_OPS_PER_S = 64 * 132 * 1.98e9
 DISPATCH_PER_S = 128 * 132 * 1.98e9
 MAIN_RUNS = (("rs", 4, 2, (0, 2)), ("xor", 4, 1, (5,)))
+B6_AB_ROUNDS = 16  # rounds of the B6 / index_select comparison (phase 3)
 DEVICE_TIER_KERNELS = ("checksum", "xor_reduce", "gf256_matmul", "gf256_matmul_dyn", "quantize_blockwise",
                        "dequantize_blockwise")
 
@@ -528,11 +542,27 @@ def gather_kernel_main(cfg, gen) -> dict:
 
     unit = rk.unit_bytes(row_bytes, stacked.data_ptr(), out.data_ptr())
     stream = _build.stream_of(stacked.device)
-    ms = time_ms(lambda: _build.call("gather_rows", stacked.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                                     idx.numel(), row_bytes, unit, stream), reps=20)
-    plain_ms = time_ms(lambda: ref.gather_rows(stacked, idx))
     idx64 = idx.long()
-    library_ms = time_ms(lambda: torch.index_select(stacked, 0, idx64))
+    lib_out = torch.empty_like(out)
+
+    def b6():
+        _build.call("gather_rows", stacked.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(), row_bytes,
+                    unit, stream)
+
+    def lib():
+        torch.index_select(stacked, 0, idx64, out=lib_out)
+
+    # B6 against torch.index_select in alternating order (B6 first in even
+    # rounds, index_select first in odd ones): medians, with the spread
+    times: dict[str, list[float]] = {"b6": [], "lib": []}
+    for rnd in range(B6_AB_ROUNDS):
+        for name in (("b6", "lib") if rnd % 2 == 0 else ("lib", "b6")):
+            times[name].append(time_ms(b6 if name == "b6" else lib, reps=10))
+    check(torch.equal(lib_out.view(torch.int32), out.view(torch.int32)), "index_select differs from B6")
+    ab = {k: dict(median=statistics.median(v), min=min(v), max=max(v), spread=max(v) - min(v))
+          for k, v in times.items()}
+    ms, library_ms = ab["b6"]["median"], ab["lib"]["median"]
+    plain_ms = time_ms(lambda: ref.gather_rows(stacked, idx))
     moved = [sources[o].movedim(axis, 0).contiguous() for o in range(ENGINE_RANKS)]
     copies = dict(
         movedim_ms=time_ms(lambda: [sources[o].movedim(axis, 0).contiguous() for o in range(ENGINE_RANKS)]),
@@ -546,11 +576,12 @@ def gather_kernel_main(cfg, gen) -> dict:
     log(f"kernel gather_rows at the w_up master leaf ({ENGINE_RANKS} x {shape[axis]} rows of {row_bytes} B "
         f"-> {idx.numel()} rows, unit {unit} B): {ms:.3f} ms (plain {plain_ms:.3f}, index_select "
         f"{library_ms:.3f}, bound {b_ms:.3f} ms by {b_by}); copies around it: " + json.dumps(copies))
+    log(f"gather_rows against index_select, {B6_AB_ROUNDS} rounds in alternating order, ms: " + json.dumps(ab))
     del sources, stacked, out, moved
     torch.cuda.empty_cache()
     return dict(name="gather_rows", source="src/repro_torch/kernels/csrc/reshard.cu",
                 replaces="src/repro/kernels/reshard.py:48", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms, **copies)
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms, b6_vs_index_select=ab, **copies)
 
 
 # ---------------------------------------------------------------------------
@@ -796,13 +827,23 @@ def device_tier_path(state, layout, mesh) -> tuple[dict, list[dict]]:
 
 ENGINE_RANKS = 4  # the quickstart's virtual failure-domain hosts
 HOST_HEADROOM_GIB = 6.0
+# Depth of phases 5 and 6 (llama3.2-1b has 16 layers; width is never cut):
+# their creates cost about 1.3 s per GB staged, most of it pinning fresh
+# arenas, and halving the depth leaves the run time for phase 7's two runs
+# at full depth
+PATH_LAYERS = 8
+# phase 5's cycles: the reference's default engine, compressed, and
+# compressed with the drain over 4 workers (each quantizing on its own stream)
+ENGINE_CYCLES = (("default", {}), ("compress", {"compress": True}),
+                 ("compress, 4 workers", {"compress": True, "async_workers": 4}))
 
 
 def engine_host_need_gib(layout, plan) -> float:
     """Host RAM one engine cycle holds at its peak: the own arenas of all
-    ranks, the exchange arenas, the compressed copies, the full-state host
-    copy the capture takes, and ``np_checksum``'s weight table (uint32, a
-    power of two at least the largest own buffer's words)."""
+    ranks, the exchange arenas, the compressed copies, and ``np_checksum``'s
+    weight table (uint32, a power of two at least the largest own buffer's
+    words). The capture copies each leaf from the card straight into its
+    pinned arena: no host copy of the state besides."""
     from repro_torch.utils.pytree import tree_flatten
 
     sizes = [int(math.prod(sd.shape)) * sd.dtype.itemsize for sd in tree_flatten(layout.sds)[1]]
@@ -810,7 +851,7 @@ def engine_host_need_gib(layout, plan) -> float:
     repl = sum(sizes) - split
     own_max_words = (repl + split // ENGINE_RANKS) // 4
     weights = 4 * (1 << max(own_max_words - 1, 1).bit_length())
-    need = ENGINE_RANKS * repl + split + split + split // 4 + sum(sizes) + weights
+    need = ENGINE_RANKS * repl + split + split + split // 4 + weights
     return need / 2**30
 
 
@@ -820,11 +861,68 @@ def _int_view(t):
     return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
 
 
-def engine_cycle(state, originals, plan, compress: bool) -> dict:
-    """checkpoint → overwrite the live state → wipe rank 2's host store →
+def create_line(stats) -> dict:
+    """A committed create's times from the engine's stats."""
+    return dict(capture_s=stats.last_capture_s, blocked_s=stats.last_blocked_s,
+                finalize_wait_s=stats.last_finalize_wait_s, create_s=stats.last_create_s,
+                bytes_staged=stats.last_bytes_staged, drain_units=stats.last_pipeline_chunks)
+
+
+def restore_line(stats, pipelined: bool = True) -> dict:
+    """A restore's time from the engine's stats, with the pipeline's chunk
+    count and drain time when it ran the pipeline (the sync restore leaves
+    those gauges as the last pipelined restore set them)."""
+    if not pipelined:
+        return dict(restore_s=stats.last_restore_s)
+    return dict(restore_s=stats.last_restore_s, restore_chunks=stats.last_restore_chunks,
+                decode_s=stats.last_restore_decode_s, decompressed_bytes=stats.last_restore_decompressed_bytes)
+
+
+@contextlib.contextmanager
+def d2h_meter():
+    """While the block runs: bytes and seconds of the engine's packs whose
+    leaves lie on the card (the capture's device-to-host copies into pinned
+    arenas, their arenas' pinning excluded), and bytes and seconds of the
+    arenas pinned; yields {"bytes", "s", "pinned_bytes", "pin_s"}."""
+    import torch
+
+    from repro_torch.core import checkpoint, hoststore
+    from repro_torch.utils.pytree import tree_flatten
+
+    pack, pin = checkpoint.pack_bytes, hoststore.pinned_empty
+    acc = {"bytes": 0, "s": 0.0, "pinned_bytes": 0, "pin_s": 0.0}
+
+    def timed_pin(nbytes):
+        t0 = time.perf_counter()
+        out = pin(nbytes)
+        acc["pin_s"] += time.perf_counter() - t0
+        acc["pinned_bytes"] += nbytes
+        return out
+
+    def timed_pack(tree, *a, **k):
+        on_card = any(isinstance(x, torch.Tensor) and x.is_cuda for x in tree_flatten(tree)[1])
+        t0, pin_s = time.perf_counter(), acc["pin_s"]
+        out = pack(tree, *a, **k)
+        if on_card:
+            acc["s"] += time.perf_counter() - t0 - (acc["pin_s"] - pin_s)
+            acc["bytes"] += out[0].numel()
+        return out
+
+    checkpoint.pack_bytes, hoststore.pinned_empty = timed_pack, timed_pin
+    try:
+        yield acc
+    finally:
+        checkpoint.pack_bytes, hoststore.pinned_empty = pack, pin
+
+
+def engine_cycle(state, originals, plan, cfg_kw: dict) -> dict:
+    """A background create (``checkpoint_async`` then ``finalize_async``) →
+    overwrite the live state → wipe rank 2's host store → the pipelined
     restore, then every leaf checked against the originals: byte-exact,
     except rank 2's quantized leaves under compress, which must equal the
-    plain dequantize(quantize(x)) of the originals bit for bit."""
+    plain dequantize(quantize(x)) of the originals bit for bit. Then the
+    same committed generation restored by the sync restore and checked the
+    same way: the two restores give the same bytes."""
     import resource
 
     import torch
@@ -836,86 +934,92 @@ def engine_cycle(state, originals, plan, compress: bool) -> dict:
     from repro_torch.runtime.state import RngEntity, ShardedStateEntity
     from repro_torch.utils.pytree import tree_flatten
 
-    class TimedEntity(ShardedStateEntity):
-        """The entity, with the time its capture (the device-to-host copy of
-        every leaf and the split) takes."""
-
-        snapshot_s = 0.0
-
-        def snapshot_shards(self, n_ranks):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            shards = super().snapshot_shards(n_ranks)
-            self.snapshot_s += time.perf_counter() - t0
-            return shards
-
-    eng = CheckpointEngine(ENGINE_RANKS, EngineConfig(compress=compress, restore_mode="sync"))
+    compress = bool(cfg_kw.get("compress"))
+    eng = CheckpointEngine(ENGINE_RANKS, EngineConfig(**cfg_kw))
     rng = RngEntity()
     rng.seed, rng.counter = SEED, 17
-    entity = TimedEntity(lambda: state, plan)
-    eng.register("state", entity)
+    eng.register("state", ShardedStateEntity(lambda: state, plan))
     eng.register("rng", rng)
+    live = tree_flatten(state)[1]
     tr = tracer()
     tr.reset()
     tr.enable()
     free0 = host_free_gib()
-    check(eng.checkpoint({"step": 1}), "checkpoint: the handshake failed")
+    torch.cuda.synchronize()
+    with d2h_meter() as d2h:
+        check(eng.checkpoint_async({"step": 1}), "checkpoint_async: the capture failed")
+    check(eng._pending.future is not None, "the default engine drains in the background")
+    check(eng.finalize_async() is True, "finalize_async: the handshake failed")
+    create = create_line(eng.stats)
     free1 = host_free_gib()
+    pinned = all(a.is_pinned() for st in eng.stores.values() for a in st._arenas.values())
+    check(pinned, "an arena of the engine on the card is not pinned")
     # the host checksum's rate on this machine, over rank 0's own buffer
     own0 = eng.stores[0].buffer.read_only.own["state"][0]
     t0 = time.perf_counter()
     np_checksum(own0.numpy())
     checksum_gbps = own0.numel() / (time.perf_counter() - t0) / 1e9
-    live = tree_flatten(state)[1]
-    for leaf in live:  # the live state moves on: every byte overwritten
-        leaf.fill_(7)
-    rng.seed = rng.counter = 0
+
+    def overwrite_and_restore(pipelined: bool) -> dict:
+        for leaf in live:  # the live state moves on: every byte overwritten
+            leaf.fill_(7)
+        rng.seed = rng.counter = 0
+        meta = eng.restore()
+        torch.cuda.synchronize()
+        check(meta["step"] == 1 and (rng.seed, rng.counter) == (SEED, 17), "restore: meta or rng entity")
+        quantized = exact = 0
+        for i, (x, o) in enumerate(zip(live, tree_flatten(originals)[1])):
+            d = plan.split_dim(i, ENGINE_RANKS)
+            if d is None:
+                check(torch.equal(_int_view(x), _int_view(o)), f"leaf {i} (replicated) differs after restore")
+                exact += 1
+                continue
+            for r, (xs, os) in enumerate(zip(x.chunk(ENGINE_RANKS, d), o.chunk(ENGINE_RANKS, d))):
+                if r == 2 and compress and o.is_floating_point() and os.numel() >= 256:
+                    flat = os.reshape(-1)
+                    pad = torch.zeros(-(-flat.numel() // 8192) * 8192, dtype=flat.dtype, device=flat.device)
+                    pad[: flat.numel()] = flat
+                    want = ref.dequantize_blockwise(*ref.quantize_blockwise(pad))[: flat.numel()].to(o.dtype)
+                    check(torch.equal(_int_view(xs.reshape(-1)), _int_view(want)),
+                          f"leaf {i} rank 2: not the plain dequantize(quantize(x))")
+                    quantized += 1
+                else:
+                    check(torch.equal(_int_view(xs), _int_view(os)), f"leaf {i} rank {r} differs after restore")
+                    exact += 1
+        return dict(**restore_line(eng.stats, pipelined), exact_pieces=exact, quantized_pieces=quantized)
+
     eng.stores[2].wipe()
-    meta = eng.restore()
-    torch.cuda.synchronize()
+    pipelined = overwrite_and_restore(True)
+    check(pipelined["restore_chunks"] > 0, "the default engine's restore did not run the pipeline")
     tr.disable()
     spans: dict[str, float] = {}
     for ev in tr.events():
         spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"]
     tr.reset()
-    check(meta["step"] == 1 and (rng.seed, rng.counter) == (SEED, 17), "restore: meta or rng entity")
-    quantized = exact = 0
-    for i, (x, o) in enumerate(zip(live, tree_flatten(originals)[1])):
-        d = plan.split_dim(i, ENGINE_RANKS)
-        if d is None:
-            check(torch.equal(_int_view(x), _int_view(o)), f"leaf {i} (replicated) differs after restore")
-            exact += 1
-            continue
-        for r, (xs, os) in enumerate(zip(x.chunk(ENGINE_RANKS, d), o.chunk(ENGINE_RANKS, d))):
-            if r == 2 and compress and o.is_floating_point() and os.numel() >= 256:
-                flat = os.reshape(-1)
-                pad = torch.zeros(-(-flat.numel() // 8192) * 8192, dtype=flat.dtype, device=flat.device)
-                pad[: flat.numel()] = flat
-                want = ref.dequantize_blockwise(*ref.quantize_blockwise(pad))[: flat.numel()].to(o.dtype)
-                check(torch.equal(_int_view(xs.reshape(-1)), _int_view(want)),
-                      f"leaf {i} rank 2: not the plain dequantize(quantize(x))")
-                quantized += 1
-            else:
-                check(torch.equal(_int_view(xs), _int_view(os)), f"leaf {i} rank {r} differs after restore")
-                exact += 1
+    eng.cfg = EngineConfig(**{**cfg_kw, "restore_mode": "sync"})
+    sync = overwrite_and_restore(False)
+    check((pipelined["exact_pieces"], pipelined["quantized_pieces"]) == (sync["exact_pieces"], sync["quantized_pieces"]),
+          "the pipelined and the sync restore checked different pieces")
     stats = eng.stats
-    out = dict(compress=compress, create_s=stats.last_create_s, capture_s=stats.last_capture_s,
-               drain_s=stats.last_finalize_wait_s, restore_s=stats.last_restore_s,
-               bytes_staged=stats.last_bytes_staged, bytes_exchanged=stats.last_bytes_exchanged,
-               snapshot_shards_s=entity.snapshot_s, checksum_gbps=checksum_gbps,
+    out = dict(engine=cfg_kw, create=create, d2h_gbps=d2h["bytes"] / max(d2h["s"], 1e-9) / 1e9,
+               d2h_bytes=d2h["bytes"], d2h_s=d2h["s"], pinned_bytes=d2h["pinned_bytes"], pin_s=d2h["pin_s"],
+               pinned_arenas=pinned,
+               restore_pipelined=pipelined, restore_sync=sync,
+               bytes_exchanged=stats.last_bytes_exchanged, checksum_gbps=checksum_gbps,
                span_s={k: round(v, 6) for k, v in sorted(spans.items())},
                adopted=stats.adopted_restores, zero_comm=stats.zero_comm_restores,
-               exact_pieces=exact, quantized_pieces=quantized,
                host_free_before_gib=free0, host_free_after_create_gib=free1,
                host_peak_rss_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
                peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+    eng.close()
     del eng
     return out
 
 
-def engine_path(state, cfg) -> tuple[dict, list[dict]]:
-    """The host-tier engine over 4 ranks, compressed then not; returns the
-    kernels' launch counts over this path alone."""
+def engine_path(cfg) -> tuple[dict, list[dict]]:
+    """The host-tier engine over 4 ranks through ENGINE_CYCLES, on a seeded
+    train state of PATH_LAYERS layers (fewer if the host lacks the RAM);
+    returns the kernels' launch counts over this path alone."""
     import gc
 
     import torch
@@ -927,41 +1031,42 @@ def engine_path(state, cfg) -> tuple[dict, list[dict]]:
     from repro_torch.utils.pytree import tree_flatten, tree_map
 
     mesh4 = make_mesh((ENGINE_RANKS, 1), ("data", "model"))
-    layout = train_state_layout(cfg, mesh4)
-    plan = ShardPlan.from_pspecs(layout.sds, layout.pspecs)
+
+    def reckon(n_layers: int):
+        layout = train_state_layout(replace(cfg, num_layers=n_layers), mesh4)
+        plan = ShardPlan.from_pspecs(layout.sds, layout.pspecs)
+        return layout, plan, engine_host_need_gib(layout, plan)
+
     free = host_free_settled_gib()
-    need = engine_host_need_gib(layout, plan)
-    layers = cfg.num_layers
+    layers = min(cfg.num_layers, PATH_LAYERS)
+    layout, plan, need = reckon(layers)
     while need + HOST_HEADROOM_GIB > free and layers > 1:
         layers //= 2
-        cut = replace(cfg, num_layers=layers)
-        layout = train_state_layout(cut, mesh4)
-        plan = ShardPlan.from_pspecs(layout.sds, layout.pspecs)
-        need = engine_host_need_gib(layout, plan)
+        layout, plan, need = reckon(layers)
     check(need + HOST_HEADROOM_GIB <= free, f"engine path: {need:.1f} GiB of host RAM needed, {free:.1f} free")
-    if layers != cfg.num_layers:
-        log(f"engine: depth cut to {layers} of {cfg.num_layers} layers (width kept): "
-            f"{free:.1f} GiB host RAM free, {need:.1f} GiB needed")
-        state = init_train_state(layout, mesh4, torch.Generator(device="cuda").manual_seed(SEED))
+    log(f"engine: {layers} of {cfg.num_layers} layers, width kept (PATH_LAYERS {PATH_LAYERS}, for the run's "
+        f"time; fewer only for the host's RAM): {free:.1f} GiB host RAM free, {need:.1f} GiB needed")
+    state = init_train_state(layout, mesh4, torch.Generator(device="cuda").manual_seed(SEED))
     split = sum(plan.split_dim(i, ENGINE_RANKS) is not None for i in range(len(plan.dims)))
     log(f"engine: {layers} layers, {len(plan.dims)} leaves ({split} split over {ENGINE_RANKS} ranks), "
         f"host RAM {free:.1f} GiB free, about {need:.1f} GiB needed")
     originals = tree_map(lambda t: t.clone(), state)
     runs = []
     ops.reset_launch_counts()  # this path's counts start here
-    for compress in (True, False):
+    for name, cfg_kw in ENGINE_CYCLES:
         for x, o in zip(tree_flatten(state)[1], tree_flatten(originals)[1]):
             x.copy_(o)
         torch.cuda.reset_peak_memory_stats()
         before = ops.launch_counts()
-        run = engine_cycle(state, originals, plan, compress)
+        run = engine_cycle(state, originals, plan, cfg_kw)
         after = ops.launch_counts()
         run["launches"] = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         runs.append(run)
-        log(f"engine compress={compress}: " + json.dumps(run))
+        log(f"engine {name}: " + json.dumps(run))
         gc.collect()
         torch.cuda.empty_cache()
     counts = ops.launch_counts()
+    del state, originals
     for name in ("quantize_blockwise", "dequantize_blockwise"):
         check(counts[name] > 0, f"kernel {name} was launched no time on the engine path")
     return counts, runs
@@ -982,10 +1087,9 @@ def _pow2_words_bytes(nbytes: int) -> int:
 
 def elastic_host_need_gib(layout, plan) -> float:
     """Host RAM the two checkpoints of the drill add at their peaks (4 and 2
-    ranks, plain copies): the own and exchange arenas, beside either the
-    full-state host copy the capture takes or ``np_checksum``'s weight table
-    growing to the largest own buffer (old and new table at once), less the
-    table already held."""
+    ranks, plain copies): the own and exchange arenas, beside
+    ``np_checksum``'s weight table growing to the largest own buffer (old and
+    new table at once), less the table already held."""
     from repro_torch.core import integrity
     from repro_torch.utils.pytree import tree_flatten
 
@@ -997,7 +1101,7 @@ def elastic_host_need_gib(layout, plan) -> float:
     for n in ELASTIC_WORLDS[:2]:
         arenas = n * repl + 2 * split
         grown = max(table, _pow2_words_bytes(repl + split // n))
-        need = max(need, arenas + table + sum(sizes), arenas + table + (grown if grown > table else 0))
+        need = max(need, arenas + table + (grown if grown > table else 0))
         table = grown
     return (need - held) / 2**30
 
@@ -1097,13 +1201,14 @@ def elastic_transition(eng, cluster, state, layout, mesh, plan, n_new: int) -> d
     check(meta["step"] == 1 and eng.n_ranks == n_new and sorted(eng.stores) == list(range(n_new)),
           "elastic: meta or new world")
     check(rep.bytes_moved == rep.bytes_lower_bound, "elastic: movement above its lower bound")
+    check(failed == 0 or eng.stats.last_restore_chunks > 0, "elastic: the recovery did not run the pipeline")
 
     original = init_train_state(layout, mesh, torch.Generator(device="cuda").manual_seed(SEED))
     for i, (x, o) in enumerate(zip(tree_flatten(state)[1], tree_flatten(original)[1])):
         check(torch.equal(_int_view(x), _int_view(o)), f"elastic {n_old} -> {n_new}: leaf {i} differs")
     del original
     torch.cuda.empty_cache()
-    return dict(n_old=n_old, n_new=n_new, failed=failed, restore_s=eng.stats.last_restore_s, wall_s=wall_s,
+    return dict(n_old=n_old, n_new=n_new, failed=failed, **restore_line(eng.stats, failed > 0), wall_s=wall_s,
                 span_s={k: round(v, 6) for k, v in sorted(spans.items())},
                 bytes_total=rep.bytes_total, bytes_moved=rep.bytes_moved,
                 bytes_lower_bound=rep.bytes_lower_bound, movement_ratio=rep.movement_ratio,
@@ -1115,10 +1220,10 @@ def elastic_transition(eng, cluster, state, layout, mesh, plan, n_new: int) -> d
                 host_peak_rss_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20)
 
 
-def elastic_path(state, cfg) -> tuple[dict, list[dict]]:
-    """The drill of phase 6 on ``state`` (the seeded llama3.2-1b train state,
-    written back in place by every restore); returns the kernels' launch
-    counts over this path alone."""
+def elastic_path(cfg) -> tuple[dict, list[dict]]:
+    """The drill of phase 6 on a seeded train state of PATH_LAYERS layers
+    (fewer if the host lacks the RAM), written back in place by every
+    restore; returns the kernels' launch counts over this path alone."""
     import gc
 
     import torch
@@ -1130,22 +1235,20 @@ def elastic_path(state, cfg) -> tuple[dict, list[dict]]:
     from repro_torch.runtime.state import RngEntity, ShardedStateEntity
     from repro_torch.utils.pytree import tree_flatten
 
-    mesh, layout, plan = layout_and_plan(cfg, ELASTIC_WORLDS[0])
     free = host_free_settled_gib()
+    layers = min(cfg.num_layers, PATH_LAYERS)
+    mesh, layout, plan = layout_and_plan(replace(cfg, num_layers=layers), ELASTIC_WORLDS[0])
     need = elastic_host_need_gib(layout, plan)
-    layers = cfg.num_layers
     while need + HOST_HEADROOM_GIB > free and layers > 1:
         layers //= 2
         mesh, layout, plan = layout_and_plan(replace(cfg, num_layers=layers), ELASTIC_WORLDS[0])
         need = elastic_host_need_gib(layout, plan)
     check(need + HOST_HEADROOM_GIB <= free, f"elastic path: {need:.1f} GiB of host RAM needed, {free:.1f} free")
-    if layers != cfg.num_layers:
-        log(f"elastic: depth cut to {layers} of {cfg.num_layers} layers (width kept): "
-            f"{free:.1f} GiB host RAM free, {need:.1f} GiB needed")
-        state = init_train_state(layout, mesh, torch.Generator(device="cuda").manual_seed(SEED))
-    log(f"elastic: {layers} layers, host RAM {free:.1f} GiB free, about {need:.1f} GiB needed")
+    log(f"elastic: {layers} of {cfg.num_layers} layers, width kept (PATH_LAYERS {PATH_LAYERS}, for the run's "
+        f"time; fewer only for the host's RAM): {free:.1f} GiB host RAM free, {need:.1f} GiB needed")
+    state = init_train_state(layout, mesh, torch.Generator(device="cuda").manual_seed(SEED))
 
-    eng = CheckpointEngine(ELASTIC_WORLDS[0], EngineConfig(restore_mode="sync"))
+    eng = CheckpointEngine(ELASTIC_WORLDS[0], EngineConfig())
     cluster = VirtualCluster(ELASTIC_WORLDS[0])
     cluster.attach_engine(eng)
     rng = RngEntity()
@@ -1158,9 +1261,7 @@ def elastic_path(state, cfg) -> tuple[dict, list[dict]]:
     for n_new in ELASTIC_WORLDS[1:]:
         n = eng.n_ranks
         check(eng.checkpoint({"step": 1}), f"checkpoint on {n} ranks: the handshake failed")
-        create = dict(create_s=eng.stats.last_create_s, capture_s=eng.stats.last_capture_s,
-                      drain_s=eng.stats.last_finalize_wait_s, bytes_staged=eng.stats.last_bytes_staged,
-                      host_free_gib=host_free_gib())
+        create = dict(**create_line(eng.stats), host_free_gib=host_free_gib())
         log(f"elastic checkpoint on {n} ranks: " + json.dumps(create))
         for leaf in live:  # the live state moves on: every byte overwritten
             leaf.fill_(7)
@@ -1180,6 +1281,7 @@ def elastic_path(state, cfg) -> tuple[dict, list[dict]]:
         log(f"elastic restore {run['n_old']} -> {n_new}: " + json.dumps(run))
     kinds = [e["kind"] for e in eng.journal.events()]
     check(kinds.count("failure") == 1 and kinds.count("resize") == 2, f"elastic journal: {kinds}")
+    eng.close()
     del eng, cluster
     gc.collect()
     torch.cuda.empty_cache()
@@ -1205,9 +1307,9 @@ TRAIN_HISTORY = [0, 1, 2, 3, 4, 3, 4, 5, 6, 7]
 def trainer_host_need_gib(layout, plan) -> float:
     """Host RAM the trainer's engine adds at its peak, the capture of its
     second checkpoint: the committed generation (every rank's own arena and
-    the exchange arenas) beside the one being captured, the full-state host
-    copy the capture takes, and the growth of ``np_checksum``'s weight table
-    to the largest own buffer."""
+    the exchange arenas) beside the one being captured, and the growth of
+    ``np_checksum``'s weight table to the largest own buffer. The capture
+    copies each leaf from the card straight into its pinned arena."""
     from repro_torch.core import integrity
     from repro_torch.utils.pytree import tree_flatten
 
@@ -1216,7 +1318,7 @@ def trainer_host_need_gib(layout, plan) -> float:
     repl = sum(sizes) - split
     held = integrity._WEIGHTS.nbytes
     generation = ENGINE_RANKS * repl + 2 * split
-    need = 2 * generation + sum(sizes) + max(_pow2_words_bytes(repl + split // ENGINE_RANKS) - held, 0)
+    need = 2 * generation + max(_pow2_words_bytes(repl + split // ENGINE_RANKS) - held, 0)
     return need / 2**30
 
 
@@ -1258,14 +1360,16 @@ def step_split_ms(trainer, reps: int = 3) -> dict:
     return dict(loss_grad_ms=grad_ms, update_ms=update_ms)
 
 
-def trainer_path(cfg) -> tuple[dict, dict]:
-    """The port's Trainer on the card: TRAIN over TRAIN_STEPS steps through
-    TRAIN_KILLS under deterministic algorithms. Checks every loss finite, one
-    recovery, the replayed steps' losses bit-equal to their first pass, and
-    every state leaf right after the restore byte-equal to the state at the
-    step-3 checkpoint (a host copy where the host has room for it, else the
-    leaves' ``np_checksum``s). Returns the run's numbers and the kernels'
-    launch counts over it (the default engine launches none)."""
+def trainer_path(cfg, mode: str) -> tuple[dict, dict]:
+    """The port's Trainer on the card under its defaults (the reference's
+    default engine) with ``checkpoint_mode=mode``: TRAIN over TRAIN_STEPS
+    steps through TRAIN_KILLS under deterministic algorithms. Checks every
+    loss finite, one recovery, the replayed steps' losses bit-equal to their
+    first pass, and every state leaf right after the restore byte-equal to
+    the state at the step-3 checkpoint (a host copy where the host has room
+    for it, else the leaves' ``np_checksum``s). Returns the run's numbers
+    (each create's and the restore's times as the engine recorded them) and
+    the kernels' launch counts over it (the copy codec launches none)."""
     import gc
     import resource
 
@@ -1276,6 +1380,7 @@ def trainer_path(cfg) -> tuple[dict, dict]:
     from repro_torch.models import build_model
     from repro_torch.runtime.failures import FailureInjector
     from repro_torch.runtime.state import ShardPlan
+    from repro_torch.core.checkpoint import EngineConfig
     from repro_torch.runtime.trainer import PROD_MESH, Trainer, TrainerConfig
     from repro_torch.sharding.mesh import make_mesh
     from repro_torch.utils.pytree import tree_flatten
@@ -1292,21 +1397,23 @@ def trainer_path(cfg) -> tuple[dict, dict]:
         layout, need = reckon(replace(cfg, num_layers=layers))
     check(need + HOST_HEADROOM_GIB <= free, f"trainer path: {need:.1f} GiB of host RAM needed, {free:.1f} free")
     if layers != cfg.num_layers:
-        log(f"trainer: depth cut to {layers} of {cfg.num_layers} layers (width kept): "
+        log(f"trainer ({mode}): depth cut to {layers} of {cfg.num_layers} layers (width kept): "
             f"{free:.1f} GiB host RAM free, {need:.1f} GiB needed at {layers} layers")
         cfg = replace(cfg, num_layers=layers)
     state_gib = sum(int(math.prod(sd.shape)) * sd.dtype.itemsize for sd in tree_flatten(layout.sds)[1]) / 2**30
     keep_copy = need + state_gib + HOST_HEADROOM_GIB <= free
-    log(f"trainer: {layers} layers, state {state_gib * 2**30 / 1e9:.3f} GB, host RAM {free:.1f} GiB free, "
-        f"about {need:.1f} GiB needed; the step-3 state kept as "
+    log(f"trainer ({mode}): {layers} layers, state {state_gib * 2**30 / 1e9:.3f} GB, host RAM {free:.1f} GiB "
+        f"free, about {need:.1f} GiB needed; the step-3 state kept as "
         + ("a host copy" if keep_copy else "per-leaf np_checksums (no room for a host copy)"))
 
     class CheckedTrainer(Trainer):
-        """The Trainer, holding its state right after the restore against
-        ``at_ckpt``, the state at the step-3 checkpoint."""
+        """The Trainer, recording each committed create's stats and holding
+        its state right after the restore against ``at_ckpt``, the state at
+        the step-3 checkpoint."""
 
         at_ckpt: list
         restored: dict | None = None
+        creates: list
 
         def recover(self) -> None:
             super().recover()
@@ -1317,14 +1424,14 @@ def trainer_path(cfg) -> tuple[dict, dict]:
                         for x, c in zip(leaves, self.at_ckpt)]
             else:
                 same = [a == b for a, b in zip(_leaf_sums(leaves), self.at_ckpt)]
-            self.restored = dict(step=int(self.state["step"]), restore_s=self.engine.stats.last_restore_s,
+            self.restored = dict(step=int(self.state["step"]), **restore_line(self.engine.stats),
                                  leaves=len(same), leaves_equal=sum(same),
                                  compared="bytes" if keep_copy else "np_checksum")
 
-    tcfg = TrainerConfig(total_steps=TRAIN_STEPS, **TRAIN)
+    tcfg = TrainerConfig(total_steps=TRAIN_STEPS, checkpoint_mode=mode, **TRAIN)
     torch.use_deterministic_algorithms(True)
     # every tensor the path allocates is written before it is read; filling
-    # fresh allocations (tens of GB of host arenas) would only slow the create
+    # fresh allocations would only slow the path
     fill = torch.utils.deterministic.fill_uninitialized_memory
     torch.utils.deterministic.fill_uninitialized_memory = False
     torch.cuda.reset_peak_memory_stats()
@@ -1332,24 +1439,34 @@ def trainer_path(cfg) -> tuple[dict, dict]:
     trainer = CheckedTrainer(build_model(cfg), tcfg, injector=FailureInjector(ENGINE_RANKS, schedule=TRAIN_KILLS))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    check(tcfg.engine == EngineConfig() and trainer.engine.cfg == EngineConfig(), "the trainer's engine default")
+    trainer.creates = []
+    finalize = trainer.engine.finalize_async
+
+    def finalize_and_record():
+        ok = finalize()
+        if ok:
+            trainer.creates.append(dict(step=int(trainer.engine.checkpoint_step()["step"]),
+                                        **create_line(trainer.engine.stats)))
+        return ok
+
+    trainer.engine.finalize_async = finalize_and_record
     n_params = sum(x.numel() for x in tree_flatten(trainer.state["params"])[1])
     ops.reset_launch_counts()  # this path's counts start here
-    trainer.run(TRAIN_PERIOD)
-    s = trainer.engine.stats
-    first_ckpt = dict(step=TRAIN_PERIOD, create_s=s.last_create_s, capture_s=s.last_capture_s,
-                      drain_s=s.last_finalize_wait_s, bytes_staged=s.last_bytes_staged)
-    t0 = time.perf_counter()
-    leaves = tree_flatten(trainer.state)[1]
-    trainer.at_ckpt = [x.detach().to("cpu", copy=True) for x in leaves] if keep_copy else _leaf_sums(leaves)
-    keep_s = time.perf_counter() - t0
-    hist = trainer.run(TRAIN_STEPS)
+    with d2h_meter() as d2h:
+        trainer.run(TRAIN_PERIOD)
+        t0 = time.perf_counter()
+        leaves = tree_flatten(trainer.state)[1]
+        trainer.at_ckpt = [x.detach().to("cpu", copy=True) for x in leaves] if keep_copy else _leaf_sums(leaves)
+        keep_s = time.perf_counter() - t0
+        hist = trainer.run(TRAIN_STEPS)
     counts = ops.launch_counts()
     split = step_split_ms(trainer)
     torch.use_deterministic_algorithms(False)
     torch.utils.deterministic.fill_uninitialized_memory = fill
     s = trainer.engine.stats
     for h in hist:
-        log(f"train step {h['step']}: loss {h['loss']!r} in {h['step_s']:.4f} s")
+        log(f"train step {h['step']} ({mode}): loss {h['loss']!r} in {h['step_s']:.4f} s")
     losses = [h["loss"] for h in hist]
     check(all(math.isfinite(x) for x in losses), f"trainer: a loss is not finite: {losses}")
     check([h["step"] for h in hist] == TRAIN_HISTORY, f"trainer: steps {[h['step'] for h in hist]}")
@@ -1358,21 +1475,26 @@ def trainer_path(cfg) -> tuple[dict, dict]:
     r = trainer.restored
     check(r is not None and r["step"] == TRAIN_PERIOD and r["leaves_equal"] == r["leaves"],
           f"trainer: the restored state differs from the step-{TRAIN_PERIOD} checkpoint's: {r}")
-    run = dict(layers=layers, n_params=n_params, state_gb=state_gib * 2**30 / 1e9, setup_s=setup_s,
-               step_s=[h["step_s"] for h in hist], loss=losses, checkpoints=[first_ckpt, dict(
-                   step=2 * TRAIN_PERIOD, create_s=s.last_create_s, capture_s=s.last_capture_s,
-                   drain_s=s.last_finalize_wait_s, bytes_staged=s.last_bytes_staged)],
+    check([c["step"] for c in trainer.creates] == [TRAIN_PERIOD, 2 * TRAIN_PERIOD],
+          f"trainer: committed creates {trainer.creates}")
+    run = dict(mode=mode, layers=layers, n_params=n_params, state_gb=state_gib * 2**30 / 1e9, setup_s=setup_s,
+               step_s=[h["step_s"] for h in hist], loss=losses, checkpoints=trainer.creates,
                created=s.created, aborted=s.aborted, restore=r, keep_state_s=keep_s, step_split_ms=split,
+               d2h_gbps=d2h["bytes"] / max(d2h["s"], 1e-9) / 1e9, d2h_bytes=d2h["bytes"], d2h_s=d2h["s"],
+               pinned_bytes=d2h["pinned_bytes"], pin_s=d2h["pin_s"],
                peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
                host_peak_rss_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
                host_free_before_gib=free)
-    del trainer, leaves
+    trainer.engine.close()
+    del trainer.engine.finalize_async  # the recording wrapper holds the trainer
+    del trainer, leaves, finalize, finalize_and_record
     gc.collect()
     torch.cuda.empty_cache()
     return run, counts
 
 
 def main() -> int:
+    import gc
     import os
 
     # before the first cuBLAS call: a fixed workspace makes cuBLAS
@@ -1417,10 +1539,22 @@ def main() -> int:
 
     # the trainer first: it needs the most host RAM (two committed
     # generations), and runs before any staged fetch caches pinned blocks
-    run7, counts7 = trainer_path(cfg)
-    log("trainer path: " + json.dumps(run7))
-    log(f"trainer path launches: {json.dumps(counts7)}")
+    counts7 = {}
+    for mode in ("sync", "async"):
+        run7, counts = trainer_path(cfg, mode)
+        gc.collect()
+        log(f"trainer path ({mode}): " + json.dumps(run7))
+        log(f"trainer path ({mode}) launches: {json.dumps(counts)}")
+        counts7 = {k: counts7.get(k, 0) + v for k, v in counts.items()}
 
+    # the engine path first: it needs the most host RAM, and the device-tier
+    # path's staged fetches leave pinned host blocks in PyTorch's cache
+    counts5, runs5 = engine_path(cfg)
+    log(f"engine path launches: {json.dumps(counts5)}")
+    counts6, runs6 = elastic_path(cfg)
+    log(f"elastic path launches: {json.dumps(counts6)}")
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     state = init_train_state(layout, mesh, torch.Generator(device="cuda").manual_seed(SEED))
     torch.cuda.synchronize()
@@ -1428,12 +1562,6 @@ def main() -> int:
     state_bytes = sum(x.numel() * x.element_size() for x in tree_flatten(state)[1])
     log(f"main: {ARCH} state {n_params} params, {state_bytes / 1e9:.3f} GB on the card "
         f"({time.perf_counter() - t0:.1f} s to make)")
-    # the engine path first: it needs the most host RAM, and the device-tier
-    # path's staged fetches leave pinned host blocks in PyTorch's cache
-    counts5, runs5 = engine_path(state, cfg)
-    log(f"engine path launches: {json.dumps(counts5)}")
-    counts6, runs6 = elastic_path(state, cfg)
-    log(f"elastic path launches: {json.dumps(counts6)}")
     counts4, runs4 = device_tier_path(state, layout, mesh)
     log(f"device-tier path launches: {json.dumps(counts4)}")
     for k in kernels:

@@ -10,23 +10,30 @@ read-only buffer untouched.
 Algorithm 4 (``restore``): survivors restore their own shards with zero
 communication; a lost shard is adopted from a surviving partner copy.
 
-What this slice runs, and what raises ``NotImplementedError`` naming its
-ROADMAP item instead of quietly running another path:
+The reference's default engine runs as it is:
 
-* codecs: ``copy`` (pairwise, neighbor, ``n_copies``), with ``compress``
-  (int8 partner copies through the B5a/B5b kernels on the engine's device).
-  ``xor``/``rs``/``lrc`` on the host wait for A4.
-* create: the blocking drain, capture → encode → transfer → verify, one
-  (group, entity) unit after another, each unit encoded whole (the
-  reference's ``encode_chunk_bytes=-1`` shape; the copy codec has no GF
-  matrix to chunk). Background drains (``checkpoint_async(background=True)``,
-  ``async_workers > 1``) wait for A5.
-* restore: ``restore_mode="sync"`` (the serial per-origin decode), and
-  ``restore_elastic``, the N-to-M repartition onto a new world size (on the
-  card, every split leaf of every new rank is built by the row-gather
-  kernel B6). The pipelined restore (the reference's default) waits for A5,
-  storage tiers and ``delta`` for A7 (so for the cold N-to-M restart too),
-  ``topology`` for A9.
+* create: phase A (``checkpoint_async``) captures each leaf straight into
+  the writable bank's arenas, pinned ones when the engine runs on the card
+  (one device-to-host copy per byte; the exchange subset is copied host-side
+  from the own arena). Phase B, the drain, runs ENCODE i ‖ TRANSFER i−1 ‖
+  VERIFY i−2 over (group, entity) units: in ``finalize_async``, or on a
+  background worker (``async_workers > 0``, the default), sharded across
+  ``async_workers`` workers. Under ``compress`` the encode quantizes on the
+  card (B5a) on the worker's own CUDA stream, which the training step never
+  waits on.
+* restore: ``restore_mode="pipelined"`` (the default) drains the chunked
+  TRANSFER/DECODE/VERIFY/DEQ pipeline, the dequantization on the card (B5b)
+  chunk by chunk, with a generation-keyed plan cache and the adaptive chunk
+  planner; ``"sync"`` keeps the serial per-origin decode. Both give the same
+  bytes, and so does ``restore_elastic``, the N-to-M repartition onto a new
+  world size (on the card every split leaf of every new rank is built by
+  the row-gather kernel B6).
+
+What this slice does not run raises ``NotImplementedError`` naming its
+ROADMAP item instead of quietly running another path: ``xor``/``rs``/``lrc``
+on the host (A4, which also brings the chunked encode planner and the GF
+backend probe that seeds the decode planner), storage tiers and ``delta``
+(A7, so also the cold N-to-M restart), ``topology`` (A9).
 
 Host stores hold ``torch.uint8`` CPU arenas; the handshake checksums them
 on the host with ``np_checksum``, as the reference does. Restored payloads
@@ -36,7 +43,10 @@ are unpacked onto the engine's device (``cuda`` unless the caller passes
 
 from __future__ import annotations
 
+import contextlib
 import itertools
+import os
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Protocol
@@ -46,15 +56,16 @@ import torch
 from repro_torch.core import codec as codec_mod
 from repro_torch.core import distribution as dist
 from repro_torch.core.hoststore import HostStore, StorePayload
-from repro_torch.core.integrity import np_checksum
-from repro_torch.core.serialization import Manifest, pack_bytes, unpack_bytes
+from repro_torch.core.integrity import IntegrityError, np_checksum
+from repro_torch.core.serialization import Manifest, arena_views, dtype_from_name, pack_bytes, unpack_bytes
 from repro_torch.core.snapshot import Snapshottable
 from repro_torch.elastic.plan import ElasticReport, plan_repartition
 from repro_torch.elastic.reshard import reshard_leaves, reshard_leaves_device
 from repro_torch.obs.journal import EventJournal
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import tracer
-from repro_torch.optim.grad_compress import compress_tree, decompress_tree
+from repro_torch.kernels import quantize as qk
+from repro_torch.optim.grad_compress import _DTYPES, _is_packed, _map, compress_tree, decompress_tree
 from repro_torch.sharding.mesh import resolve_device
 from repro_torch.utils.logging import get_logger
 from repro_torch.utils.pytree import tree_flatten, tree_unflatten
@@ -65,6 +76,18 @@ _TR = tracer()  # process-global span tracer (no-op spans while disabled)
 
 # Engines number themselves so multi-engine traces stay attributable.
 _ENGINE_SEQ = itertools.count()
+
+#: Process-wide decode-rate record (range bytes/s, peak with slow decay, per
+#: codec name): a fresh engine sizes its first restore's chunks from the last
+#: engine's measured rate.
+_DECODE_RATE: dict[str, float] = {}
+_DECODE_RATE_LOCK = threading.Lock()
+
+#: The decode rate (range bytes/s) the restore planner starts from before
+#: any restore in the process has measured one. The reference seeds it from
+#: its host GF(2^8) backend probe (``gf256.probed_gbps() * 1e9 / 4``); the
+#: port has no host GF backend until ROADMAP A4, whose probe replaces this.
+DECODE_RATE_SEED = 1e9
 
 
 class DistributedEntity(Protocol):
@@ -105,9 +128,9 @@ class EngineConfig:
     rs_parity: int = 2             # m parity blobs per group for codec="rs"
     lrc_locals: int = 2            # local groups for codec="lrc"
     topology: object = None        # failure-domain topology (ROADMAP A9)
-    async_workers: int = 1         # background drain workers (ROADMAP A5 above 1)
-    restore_mode: str = "pipelined"  # "sync" here; "pipelined" waits for A5
-    restore_chunk_bytes: int = 0   # pipelined restore chunking (A5)
+    async_workers: int = 1         # background drain workers (0: drain in finalize_async)
+    restore_mode: str = "pipelined"  # "pipelined" | "sync" (the serial per-origin decode)
+    restore_chunk_bytes: int = 0   # pipelined restore chunk bytes; 0 = the adaptive planner
     encode_chunk_bytes: int = 0    # create-side chunking; the copy codec encodes whole
     delta: bool = False            # differential checkpointing (ROADMAP A7)
     delta_chunk_bytes: int = 1 << 20
@@ -119,11 +142,6 @@ class EngineConfig:
 def _unported(cfg: EngineConfig) -> str | None:
     """Why this slice cannot run ``cfg``, naming the ROADMAP item; None if
     it can."""
-    if cfg.restore_mode != "sync":
-        return (f"restore_mode={cfg.restore_mode!r}: only the serial 'sync' restore is "
-                f"ported; the pipelined restore waits for ROADMAP A5")
-    if cfg.async_workers > 1:
-        return "async_workers > 1: sharded background drains wait for ROADMAP A5"
     if cfg.tiers:
         return "tiers: the storage-tier ladder waits for ROADMAP A7"
     if cfg.delta:
@@ -167,6 +185,16 @@ _STATS_METRICS: dict[str, tuple[str, str, type, str]] = {
                           "Own + exchange bytes staged (host copies)."),
     "last_pipeline_chunks": ("gauge", "ckpt_last_pipeline_chunks", int,
                              "(group, entity) units the last drain ran."),
+    "last_restore_decode_s": ("gauge", "restore_last_decode_seconds", float,
+                              "Wall time of the last recovery drain."),
+    "last_restore_bytes_rebuilt": ("gauge", "restore_last_bytes_rebuilt", int,
+                                   "Padded bytes codecs reconstructed."),
+    "last_restore_chunks": ("gauge", "restore_last_chunks", int,
+                            "TRANSFER/DECODE/VERIFY chunks drained."),
+    "last_restore_decompressed_bytes": ("gauge", "restore_last_decompressed_bytes", int,
+                                        "Bytes expanded by the chunked DEQ stage."),
+    "restore_plan_reuses": ("counter", "restore_plan_reuse_total", int,
+                            "Restore units served from the generation-keyed plan cache."),
 }
 
 
@@ -213,6 +241,52 @@ class FaultDuringCheckpoint(RuntimeError):
 
 
 @dataclass
+class _RestoreUnit:
+    """One failure group's reconstruction of one entity, the unit of the
+    restore pipeline: prepared up front (references to the surviving copies
+    captured, the codec's chunk decoder bound), then drained in 4-aligned
+    byte chunks: TRANSFER joins stripe segments into blob arenas, DECODE
+    runs the codec's chunk function, VERIFY takes Fletcher partials of the
+    rebuilt bytes, DEQ dequantizes the chunk's int8 codes on the engine's
+    device. Chunks touch disjoint byte ranges, so chunks and units run in
+    parallel across workers."""
+
+    gi: int
+    grp: Any
+    name: str
+    missing_idx: list[int]
+    stripe_srcs: dict[int, list[torch.Tensor]]   # blob -> stripes to join (multi-stripe only)
+    blobs: dict[int, torch.Tensor]               # blob -> arena (or adopted single stripe)
+    rebuilt: dict[int, torch.Tensor]             # missing idx -> rebuilt flat
+    decode_chunk: Any                            # codec chunk fn (lo, hi) -> None
+    bounds: list[tuple[int, int]]                # 4-aligned chunk byte ranges
+    manifests: dict[int, Any]                    # missing idx -> origin manifest
+    ref_sums: dict[int, Any]                     # missing idx -> capture checksum | None
+    sums: dict[int, list]                        # missing idx -> per-chunk partials
+    # compressed origins: missing idx -> one _DeqLeaf per quantized leaf
+    decomp: dict[int, list] | None = None
+    # a plan-cache hit: the blob arenas already hold the committed bytes
+    # (``staged``) and their checksum verdict is known clean (``verified``)
+    staged: bool = False
+    verified: bool = False
+
+
+@dataclass
+class _DeqLeaf:
+    """One quantized leaf of a compressed origin, dequantized chunk by chunk:
+    bytes [q_off, q_off + q_n) of the rebuilt flat hold the int8 codes, one
+    f32 scale per ``block`` of them (``scales``, on the engine's device,
+    read at prep: the compressed copy is adopted whole); ``out`` is the f32
+    destination on the engine's device."""
+
+    q_off: int
+    q_n: int
+    block: int
+    scales: torch.Tensor
+    out: torch.Tensor
+
+
+@dataclass
 class _PendingCheckpoint:
     """An un-committed snapshot between the capture and the swap."""
 
@@ -220,6 +294,7 @@ class _PendingCheckpoint:
     manifests: dict[tuple[int, str], Any]
     alive0: set[int]
     t0: float
+    future: Any = None          # background drain future (None = drain in finalize_async)
     bytes_exchanged: int = 0
     verified: set = field(default_factory=set)      # (rank, entity) unit-verified
     # Replicated with every store's meta (shared reference, like the
@@ -249,7 +324,7 @@ class CheckpointEngine:
         self.cfg = cfg
         #: where restored payloads are unpacked and compression runs
         self.device = resolve_device(device)
-        self.stores: dict[int, HostStore] = {r: HostStore(r) for r in range(n_ranks)}
+        self.stores: dict[int, HostStore] = self._new_stores(n_ranks)
         self._entities: dict[str, DistributedEntity] = {}
         # Entities whose payload is identical on every rank need no partner
         # exchange (paper §5.2.1) — any survivor restores them.
@@ -259,15 +334,41 @@ class CheckpointEngine:
         # inside the checkpoint procedure (tests for Algorithm 2's guarantee).
         self._fault_hook = fault_hook or (lambda phase: None)
         self._pending: _PendingCheckpoint | None = None
+        self._pool: Any = None          # lazy ThreadPoolExecutor (drain + restore workers)
+        self._streams: dict[int, Any] = {}  # worker thread -> its CUDA stream for the drain
+        # Single-slot restore-plan cache: key -> prepped units of the last
+        # fully successful pipelined restore (one slot: restore arenas are
+        # leased by (group, entity) key, so two plans would alias them).
+        self._restore_plan_cache: tuple[Any, dict[tuple[int, str], _RestoreUnit]] | None = None
         self._obs_id = next(_ENGINE_SEQ)
         self.stats = CheckpointStats()
         self.registry = self.stats.registry
+        self._h_stage = self.registry.histogram(
+            "ckpt_stage_seconds", "Create-pipeline stage seconds per unit.", labelnames=("phase",))
+        self._h_rate = self.registry.histogram(
+            "ckpt_stage_bytes_per_second", "Create-pipeline stage throughput per unit.",
+            labelnames=("phase",))
+        self._h_restore = self.registry.histogram(
+            "restore_stage_seconds", "Restore-pipeline stage seconds per chunk.", labelnames=("phase",))
+        # pre-bound children for the chunk loop (no kwargs dict per chunk)
+        self._hr_transfer = self._h_restore.labels(phase="r_transfer")
+        self._hr_decode = self._h_restore.labels(phase="decode")
+        self._hr_verify = self._h_restore.labels(phase="r_verify")
+        self._hr_deq = self._h_restore.labels(phase="deq")
+        self._h_restore_rate = self.registry.histogram(
+            "restore_decode_bytes_per_second",
+            "Chunk-decode throughput driving the adaptive restore planner.", labelnames=("codec",))
         self.journal = EventJournal(None, self.registry)
         self.last_elastic_report: ElasticReport | None = None  # of the last N-to-M restore
         self.codec = codec_mod.make_codec(cfg)
         if self.codec.striped:
             raise NotImplementedError(
                 f"codec {self.codec.name!r}: striped codecs on the host wait for ROADMAP A4")
+
+    def _new_stores(self, n_ranks: int) -> dict[int, HostStore]:
+        """One store per rank, leasing pinned arenas when the engine's device
+        is a card."""
+        return {r: HostStore(r, pinned=self.device.type == "cuda") for r in range(n_ranks)}
 
     def _codec_spec(self, c: codec_mod.RedundancyCodec) -> str:
         """Compact codec descriptor recorded per entity in every payload."""
@@ -298,15 +399,17 @@ class CheckpointEngine:
             return self.finalize_async() is True
         return False
 
-    def checkpoint_async(self, meta: dict[str, Any] | None = None, background: bool = False) -> bool:
-        """Capture a consistent snapshot of every entity straight into the
-        writable-bank arenas; the encode + transfer + verify drain runs in
-        ``finalize_async``. Background drains wait for ROADMAP A5."""
-        if background:
-            raise NotImplementedError("background drains wait for ROADMAP A5")
+    def checkpoint_async(self, meta: dict[str, Any] | None = None, background: bool | None = None) -> bool:
+        """Phase A: capture a consistent snapshot of every entity straight
+        into the writable-bank arenas; every copy out of the live state is
+        complete when this returns, so the caller may update the state. The
+        encode + transfer + verify drain is deferred to a background worker
+        when ``background`` (default: ``cfg.async_workers > 0``), else to
+        ``finalize_async``. Nothing touches the read-only buffers until the
+        handshake succeeds and the buffers swap."""
         if self._pending is not None:
             # Two captures without a finalize: the first snapshot was never
-            # committed — drop it before its arenas are re-leased.
+            # committed — drain and drop it before its arenas are re-leased.
             self.discard_pending()
         gen = self.stats.created + 1  # generation this capture becomes on commit
         t0 = time.perf_counter()
@@ -325,14 +428,23 @@ class CheckpointEngine:
             return False
 
         self.stats.last_capture_s = time.perf_counter() - t0
-        self._pending = _PendingCheckpoint(packed_partner, manifests, alive0, t0, exch_sums=exch_sums, gen=gen)
+        self._h_stage.observe(self.stats.last_capture_s, phase="capture")
+        if self.stats.last_capture_s > 0:
+            self._h_rate.observe(self.stats.last_bytes_staged / self.stats.last_capture_s, phase="capture")
+        pending = _PendingCheckpoint(packed_partner, manifests, alive0, t0, exch_sums=exch_sums, gen=gen)
+        self._pending = pending
+        if background is None:
+            background = self.cfg.async_workers > 0
+        if background:
+            pending.future = self._executor().submit(self._drain, pending)
         return True
 
     def _capture(
         self, alive0: set[int], meta: dict[str, Any] | None
     ) -> tuple[dict[str, list[tuple[Any, Manifest]]], dict[tuple[int, str], Any], dict]:
         """Serialize every entity's per-rank shards directly into host-store
-        arenas (one copy per leaf, zero steady-state allocation) and stage
+        arenas (one copy per leaf, zero steady-state allocation; shards on
+        the card are copied straight into pinned arenas) and stage
         the writable payloads. Returns the exchange buffers the drain
         encodes, the replicated manifest table and the (empty, shared)
         exchange-checksum table the drain fills."""
@@ -350,9 +462,8 @@ class CheckpointEngine:
             return lambda nbytes: store.lease(key, nbytes)
 
         for name, ent in self._entities.items():
-            shards = ent.snapshot_shards(self.n_ranks)
             rows: list[tuple[Any, Manifest]] = []
-            for r, shard in enumerate(shards):
+            for r, shard in enumerate(ent.snapshot_shards(self.n_ranks)):
                 rows.append(pack_bytes(shard, lease=_lease_for(r, ("own", name))))
                 bytes_staged += rows[-1][0].nbytes
             packed[name] = rows
@@ -365,10 +476,12 @@ class CheckpointEngine:
                 coords_tables[name] = table
             if hasattr(ent, "partner_payload"):
                 # Exchange only the uniquely-owned subset (replicated leaves
-                # exist on every rank already — paper §5.2.1).
+                # exist on every rank already — paper §5.2.1), copied on the
+                # host from the own arena just written: each byte of the
+                # live state crosses the link once.
                 sub_rows: list[tuple[Any, Manifest]] = []
-                for r, shard in enumerate(shards):
-                    subset = ent.partner_payload(shard, self.n_ranks)
+                for r, (flat, man) in enumerate(rows):
+                    subset = ent.partner_payload(arena_views(flat, man), self.n_ranks)
                     sub_rows.append(pack_bytes(subset, lease=_lease_for(r, ("exch", name))))
                     bytes_staged += sub_rows[-1][0].nbytes
                 packed_partner[name] = sub_rows
@@ -409,6 +522,29 @@ class CheckpointEngine:
     # ------------------------------------------------------------------ #
     # the drain: encode / transfer / verify per (group, entity) unit
     # ------------------------------------------------------------------ #
+    def _executor(self):
+        if self._pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._pool = ThreadPoolExecutor(max_workers=max(1, self.cfg.async_workers),
+                                            thread_name_prefix="ckpt-pipeline")
+        return self._pool
+
+    @contextlib.contextmanager
+    def _worker_stream(self):
+        """The calling thread's own CUDA stream for the drain's work on the
+        card (the compressed encode), so the training step, on the default
+        stream, never waits on it; yields None on the CPU."""
+        if self.device.type != "cuda":
+            yield None
+            return
+        tid = threading.get_ident()
+        stream = self._streams.get(tid)
+        if stream is None:
+            stream = self._streams[tid] = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(stream):
+            yield stream
+
     def _pipeline_units(self, packed) -> list[tuple]:
         """One work unit per (group, entity)."""
         groups = self._groups()
@@ -424,32 +560,78 @@ class CheckpointEngine:
         return units
 
     def _drain(self, pending: _PendingCheckpoint) -> tuple[int, set]:
-        """Unit *i* ENCODEs, then unit *i−1*'s copies TRANSFER to their
-        holder stores, then unit *i−2* VERIFYs its members' staged checksums
-        (the reference's software-pipeline order, on one thread). Nothing
-        here touches a read-only buffer; a fault raises
-        ``FaultDuringCheckpoint`` and the whole snapshot aborts."""
+        """Run the drain to completion. With ``async_workers > 1`` the units
+        shard across the worker pool, each worker draining its own
+        three-stage sub-pipeline (holder stores synchronize their payload
+        writes on the store lock; the copies land in disjoint arenas). This
+        thread keeps one shard, so the pool never deadlocks when the drain is
+        itself a background submission. Nothing here touches a read-only
+        buffer; a fault raises ``FaultDuringCheckpoint`` and the whole
+        snapshot aborts."""
         units = self._pipeline_units(pending.packed)
+        n = len(units)
+        n_shards = max(1, min(self.cfg.async_workers, n))
+        if n_shards == 1:
+            total, verified = self._drain_shard(units, pending)
+        else:
+            shards = [units[w::n_shards] for w in range(n_shards)]
+            futures = [self._executor().submit(self._drain_shard, shard, pending) for shard in shards[1:]]
+            # Join EVERY sibling before raising: an abandoned worker would
+            # keep writing into arenas that the abort discards.
+            err: BaseException | None = None
+            total, verified = 0, set()
+            try:
+                total, verified = self._drain_shard(shards[0], pending)
+            except BaseException as e:
+                err = e
+            for f in futures:
+                try:
+                    sub_total, sub_verified = f.result()
+                    total += sub_total
+                    verified |= sub_verified
+                except BaseException as e:
+                    err = err or e
+            if err is not None:
+                raise err
+        self.stats.last_pipeline_chunks = n
+        return total, verified
+
+    def _drain_shard(self, units: list[tuple], pending: _PendingCheckpoint) -> tuple[int, set]:
+        """One worker's share of the drain, in pipeline order: unit *i*
+        ENCODEs, unit *i−1*'s copies TRANSFER to their holder stores, unit
+        *i−2* VERIFYs its members' staged checksums."""
         n = len(units)
         total = 0
         verified: set = set()
         encoded: dict[int, list[torch.Tensor]] = {}
         eng, gen = self._obs_id, pending.gen
-        for i in range(n + 2):
-            if i < n:
-                u = units[i]
-                with _TR.span("encode", eng=eng, gen=gen, group=u[0], entity=u[3]):
-                    encoded[i] = self._encode_unit(u, pending)
-            if 0 <= i - 1 < n:
-                u = units[i - 1]
-                with _TR.span("transfer", eng=eng, gen=gen, group=u[0], entity=u[3]):
-                    total += self._transfer_unit(u, encoded.pop(i - 1))
-            if 0 <= i - 2 < n:
-                u = units[i - 2]
-                with _TR.span("verify", eng=eng, gen=gen, group=u[0], entity=u[3]):
-                    self._verify_unit(u, verified)
-            self._fault_hook("pipeline_chunk")
-        self.stats.last_pipeline_chunks = n
+        with self._worker_stream() as stream:
+            for i in range(n + 2):
+                if i < n:
+                    u = units[i]
+                    with _TR.span("encode", eng=eng, gen=gen, group=u[0], entity=u[3]):
+                        t = time.perf_counter()
+                        encoded[i] = self._encode_unit(u, pending)
+                        if stream is not None:
+                            stream.synchronize()  # the encoded bytes are on the host
+                        self._h_stage.observe(time.perf_counter() - t, phase="encode")
+                if 0 <= i - 1 < n:
+                    u = units[i - 1]
+                    with _TR.span("transfer", eng=eng, gen=gen, group=u[0], entity=u[3]):
+                        t = time.perf_counter()
+                        nb = self._transfer_unit(u, encoded.pop(i - 1))
+                        dt = time.perf_counter() - t
+                        self._h_stage.observe(dt, phase="transfer")
+                        if dt > 0:
+                            self._h_rate.observe(nb / dt, phase="transfer")
+                        total += nb
+                if 0 <= i - 2 < n:
+                    u = units[i - 2]
+                    with _TR.span("verify", eng=eng, gen=gen, group=u[0], entity=u[3]):
+                        t = time.perf_counter()
+                        self._verify_unit(u, verified)
+                        self._h_stage.observe(time.perf_counter() - t, phase="verify")
+                self._fault_hook("pipeline_chunk")
         return total, verified
 
     def _encode_unit(self, unit, pending: _PendingCheckpoint) -> list[torch.Tensor]:
@@ -512,9 +694,10 @@ class CheckpointEngine:
                 verified.add((m, name))
 
     def finalize_async(self) -> bool | None:
-        """Drain, handshake, and **commit via the pointer swap** — the single
-        commit point. Returns True on success, False on abort, None if
-        nothing is pending."""
+        """Drain the pipeline (or join the background worker), handshake, and
+        **commit via the pointer swap** — the single commit point. Returns
+        True on success, False on abort, None if nothing is pending. An error
+        other than a fault (a bug, a failed pinning) propagates."""
         if self._pending is None:
             return None
         pending = self._pending
@@ -523,7 +706,10 @@ class CheckpointEngine:
         t_wait0 = time.perf_counter()
         try:
             with _TR.span("finalize_wait", eng=eng, gen=gen):
-                pending.bytes_exchanged, pending.verified = self._drain(pending)
+                if pending.future is not None:
+                    pending.bytes_exchanged, pending.verified = pending.future.result()
+                else:
+                    pending.bytes_exchanged, pending.verified = self._drain(pending)
             self.stats.last_finalize_wait_s = time.perf_counter() - t_wait0
 
             self._fault_hook("after_distribute")
@@ -559,12 +745,36 @@ class CheckpointEngine:
 
     def discard_pending(self) -> None:
         """Drop an un-finalized snapshot (e.g. before a restore): it counts as
-        an aborted checkpoint (captured but never committed)."""
+        an aborted checkpoint (captured but never committed). Joins a
+        still-running background drain first, so no worker writes into
+        buffers after they are discarded."""
         if self._pending is not None:
-            self._pending = None
+            pending, self._pending = self._pending, None
+            if pending.future is not None:
+                try:
+                    pending.future.result()
+                except FaultDuringCheckpoint:
+                    pass
             for s in self.stores.values():
                 s.buffer.discard_writable()
             self.stats.aborted += 1
+
+    def drain_done(self) -> bool:
+        """True when ``finalize_async`` would not block on a worker: nothing
+        pending, a background drain already finished, or a drain that
+        ``finalize_async`` runs itself."""
+        pending = self._pending
+        if pending is None or pending.future is None:
+            return True
+        return pending.future.done()
+
+    def close(self) -> None:
+        """Join and drop any pending snapshot and shut the worker pool down.
+        The engine stays usable (the pool is made again when needed)."""
+        self.discard_pending()
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
 
     def _groups(self) -> list[dist.ParityGroup]:
         """The contiguous rank-order group layout."""
@@ -626,23 +836,18 @@ class CheckpointEngine:
         alive = self._alive_fn()
         failed = set(range(self.n_ranks)) - alive
         with _TR.span("restore", eng=self._obs_id, failed=len(failed), mode=self.cfg.restore_mode):
-            recovered = {
-                name: self._recover_entity_shards(name, ent, alive, failed)
-                for name, ent in self._entities.items()
-            }
+            recovered = self._recover_all(alive, failed)
             for name, ent in self._entities.items():
                 ent.restore_shards(recovered[name])
         meta = self.checkpoint_step()
         self.stats.restored += 1
         self.stats.last_restore_s = time.perf_counter() - t0
-        # The reference's record, field for field. In the sync restore its
-        # rebuilt-bytes gauge stays 0 (only the pipelined restore, A5, sets
-        # it); tier escalations (A7) and failure-domain labels (A9) are
-        # not ported.
+        # The reference's record, field for field; tier escalations (A7) and
+        # failure-domain labels (A9) are not ported.
         self.journal.record(
             "recovery", mode=self.cfg.restore_mode, failed=len(failed),
             n_ranks=self.n_ranks, duration_s=self.stats.last_restore_s,
-            bytes_rebuilt=0, escalations=0,
+            bytes_rebuilt=self.stats.last_restore_bytes_rebuilt, escalations=0,
             step=meta.get("step") if isinstance(meta, dict) else None,
             domains="",
         )
@@ -691,10 +896,7 @@ class CheckpointEngine:
         report = ElasticReport(n_old=self.n_ranks, n_new=new_n_ranks)
         with _TR.span("restore", eng=self._obs_id, failed=len(failed),
                       mode=self.cfg.restore_mode, elastic=new_n_ranks):
-            recovered = {
-                name: self._recover_entity_shards(name, ent, alive, failed)
-                for name, ent in self._entities.items()
-            }
+            recovered = self._recover_all(alive, failed)  # pipelined or sync
         with _TR.span("reshard", eng=self._obs_id, elastic=new_n_ranks):
             for name, ent in self._entities.items():
                 plan = self._reshard_entity(name, ent, recovered.pop(name), residency, new_n_ranks)
@@ -707,7 +909,8 @@ class CheckpointEngine:
         # with the old rank space; callers re-protect by checkpointing
         # immediately.
         self.n_ranks = new_n_ranks
-        self.stores = {r: HostStore(r) for r in range(new_n_ranks)}
+        self.stores = self._new_stores(new_n_ranks)
+        self._restore_plan_cache = None  # its units hold the old world's copies
         self.last_elastic_report = report
         self.stats.restored += 1
         self.stats.last_restore_s = time.perf_counter() - t0
@@ -766,6 +969,20 @@ class CheckpointEngine:
                 if table is not None:
                     return table
         return None
+
+    def _recover_all(self, alive: set[int], failed: set[int]) -> dict[str, dict[int, Any]]:
+        """Recover every entity's every shard without mutating an entity: the
+        restore-mode dispatch shared by ``restore`` and ``restore_elastic``.
+        Under the adaptive planner a payload below the crossover takes the
+        serial sync path, whose fixed cost is lower (the same bytes either
+        way). Escalation down a storage-tier ladder is ROADMAP A7."""
+        if self.cfg.restore_mode == "sync" or (
+            self.cfg.restore_chunk_bytes <= 0
+            and self._estimate_restore_bytes() <= self._sync_crossover_bytes()
+        ):
+            return {name: self._recover_entity_shards(name, ent, alive, failed)
+                    for name, ent in self._entities.items()}
+        return self._recover_all_pipelined(alive, failed)
 
     def _recover_entity_shards(
         self, name: str, ent: DistributedEntity, alive: set[int], failed: set[int]
@@ -876,6 +1093,427 @@ class CheckpointEngine:
                 if (origin, name) in mans:
                     return mans[(origin, name)]
         raise dist.DataLostError(f"manifest for rank {origin} entity {name!r} lost")
+
+    # ------------------------------------------------------------------ #
+    # the pipelined restore: plan, then drain TRANSFER i ‖ DECODE i−1 ‖
+    # VERIFY i−2 (+ DEQ) per (group, entity) unit, units and chunks in
+    # parallel across the worker pool
+    # ------------------------------------------------------------------ #
+    def _recover_all_pipelined(self, alive: set[int], failed: set[int]) -> dict[str, dict[int, Any]]:
+        t0 = time.perf_counter()
+        groups = self._groups()
+        shards: dict[str, dict[int, Any]] = {n: {} for n in self._entities}
+        partials: dict[str, dict[int, Any]] = {n: {} for n in self._entities}
+
+        # -- plan: survivor unpacks are local jobs, each failed origin's
+        # (group, entity) one reconstruction unit
+        local_jobs: list[tuple[str, int, Any, Any]] = []  # (name, origin, flat, man)
+        units: list[_RestoreUnit] = []
+        seen_units: set[tuple[int, str]] = set()
+        ref_table = self._restore_ref_sums()
+        # Committed copies are immutable: a repeat restore of the same
+        # topology (survivors, failures, store generations) reuses the
+        # prepped units. The store epochs guard against a wiped and revived
+        # store whose generation count restarted.
+        plan_key = (
+            frozenset(alive), frozenset(failed),
+            tuple((r, st.epoch, st.buffer.generation) for r, st in sorted(self.stores.items())
+                  if st.alive and st.buffer.valid),
+        )
+        cached = (self._restore_plan_cache[1]
+                  if self._restore_plan_cache and self._restore_plan_cache[0] == plan_key else None)
+        for name in self._entities:
+            if name in self._replicated:
+                donor = next((r for r in sorted(alive) if self.stores[r].buffer.valid), None)
+                if donor is None:
+                    raise dist.DataLostError(f"replicated entity {name!r} lost everywhere")
+                flat, man = self.stores[donor].buffer.read_only.own[name]
+                local_jobs.append((name, -1, flat, man))  # -1: fan out to all
+                self.stats.zero_comm_restores += self.n_ranks
+                continue
+            for origin in range(self.n_ranks):
+                if origin in alive and self.stores[origin].buffer.valid:
+                    flat, man = self.stores[origin].buffer.read_only.own[name]
+                    local_jobs.append((name, origin, flat, man))
+                    self.stats.zero_comm_restores += 1
+                    continue
+                gi = self._group_of(origin)
+                if (gi, name) in seen_units:
+                    continue
+                seen_units.add((gi, name))
+                u = cached.get((gi, name)) if cached else None
+                if u is not None:
+                    self.stats.restore_plan_reuses += 1
+                else:
+                    u = self._prep_restore_unit(gi, groups, name, alive, ref_table)
+                units.append(u)
+
+        # -- drain: chunk tasks and survivor unpacks across the worker pool
+        chunk_tasks = [(u, ci) for u in units for ci in range(len(u.bounds))]
+        results: dict[tuple[str, int], Any] = {}
+        workers = max(1, min(self.cfg.async_workers, len(chunk_tasks) + len(local_jobs)))
+        if self.cfg.restore_chunk_bytes <= 0:
+            workers = min(workers, self._effective_workers())
+        if workers > 1:
+            futures = [self._executor().submit(self._restore_chunk_task, u, ci) for u, ci in chunk_tasks]
+            futures += [self._executor().submit(unpack_bytes, flat, man, self.device)
+                        for _, _, flat, man in local_jobs]
+            # Join EVERY future before raising (as in the create drain): an
+            # abandoned task would keep writing into buffers a retry reuses.
+            err: BaseException | None = None
+            for f, task in zip(futures, chunk_tasks + local_jobs):
+                try:
+                    out = f.result()
+                    if len(task) == 4:  # a local unpack
+                        results[(task[0], task[1])] = out
+                except BaseException as e:
+                    err = err or e
+            if err is not None:
+                raise err
+        else:
+            # Serial drain: the literal pipeline per unit, then the local
+            # unpacks, in a fixed chunk order (the mid-restore kill tests'
+            # form).
+            for u in units:
+                nc = len(u.bounds)
+                for i in range(nc + 2):
+                    if i < nc:
+                        self._restore_stage(u, i, "r_transfer")
+                    if 0 <= i - 1 < nc:
+                        self._restore_stage(u, i - 1, "decode")
+                    if 0 <= i - 2 < nc:
+                        self._restore_stage(u, i - 2, "r_verify")
+                        self._restore_stage(u, i - 2, "deq")
+                    self._fault_hook("restore_chunk")
+            for name, origin, flat, man in local_jobs:
+                results[(name, origin)] = unpack_bytes(flat, man, device=self.device)
+
+        # -- finalize: checksum verdicts, unpack rebuilt shards, merge
+        for name, origin, _, _ in local_jobs:
+            payload = results[(name, origin)]
+            if origin < 0:
+                shards[name] = {r: payload for r in range(self.n_ranks)}
+            else:
+                shards[name][origin] = payload
+        for u in units:
+            self._finalize_restore_unit(u, shards, partials)
+        for name, ent in self._entities.items():
+            if name in self._replicated:
+                continue
+            if not shards[name]:
+                raise dist.DataLostError(f"no shard of entity {name!r} recoverable")
+            if partials[name]:
+                ref = shards[name][min(shards[name])]
+                for origin, subset in partials[name].items():
+                    shards[name][origin] = ent.merge_payload(subset, ref, self.n_ranks)
+
+        self.stats.last_restore_decode_s = time.perf_counter() - t0
+        self.stats.last_restore_chunks = len(chunk_tasks)
+        self.stats.last_restore_bytes_rebuilt = sum(b.numel() for u in units for b in u.rebuilt.values())
+        self.stats.last_restore_decompressed_bytes = sum(
+            4 * leaf.out.numel() for u in units if u.decomp for plan in u.decomp.values() for leaf in plan)
+        # every unit finalized clean: admit the plan to the one-slot cache
+        for u in units:
+            u.staged = u.verified = True
+        self._restore_plan_cache = (plan_key, {(u.gi, u.name): u for u in units})
+        return shards
+
+    # -- adaptive restore-chunk planner ----------------------------------- #
+    # Fixed per-chunk overhead and the share of a chunk's time it may take:
+    # together they set the chunk floor, step >= rate * OVERHEAD_S / FRAC.
+    _CHUNK_OVERHEAD_S = 5e-5
+    _CHUNK_OVERHEAD_FRAC = 0.05
+    _CHUNK_MIN = 1 << 16
+    _CHUNK_MAX = 1 << 24
+    # the pipelined path's fixed setup; restores that decode faster than
+    # this are cheaper on the serial sync path
+    _PIPELINE_SETUP_S = 1e-4
+
+    def _effective_workers(self) -> int:
+        """Parallelism the restore drain can realize: min(workers, cores)."""
+        return max(1, min(self.cfg.async_workers, os.cpu_count() or 1))
+
+    def _decode_rate(self) -> float:
+        """Sustained chunk-decode rate (range bytes/s) for the codec: this
+        process's peak-with-decay record, else ``DECODE_RATE_SEED``."""
+        with _DECODE_RATE_LOCK:
+            prior = _DECODE_RATE.get(self.codec.name)
+        return prior if prior is not None else DECODE_RATE_SEED
+
+    def _observe_decode_rate(self, nbytes: int, dt: float) -> None:
+        if nbytes <= 0 or dt <= 0.0:
+            return
+        rate = nbytes / dt
+        self._h_restore_rate.observe(rate, codec=self.codec.name)
+        with _DECODE_RATE_LOCK:
+            prev = _DECODE_RATE.get(self.codec.name)
+            # peak with slow decay: immune to one-off slow chunks
+            _DECODE_RATE[self.codec.name] = rate if prev is None else max(rate, 0.98 * prev)
+
+    def _plan_chunk_step(self) -> int:
+        """Adaptive chunk size: fixed per-chunk overhead under
+        ``_CHUNK_OVERHEAD_FRAC`` of decode time at the measured rate,
+        rounded up to a power of two; with no realizable parallelism,
+        chunking is pure overhead and the step is the ceiling."""
+        if self._effective_workers() <= 1:
+            return self._CHUNK_MAX
+        step = int(self._decode_rate() * self._CHUNK_OVERHEAD_S / self._CHUNK_OVERHEAD_FRAC)
+        step = max(self._CHUNK_MIN, min(self._CHUNK_MAX, step))
+        return 1 << (step - 1).bit_length()
+
+    def _sync_crossover_bytes(self) -> int:
+        """Payload below which the pipelined setup cannot pay for itself."""
+        est = int(self._decode_rate() * self._PIPELINE_SETUP_S)
+        return max(1 << 14, min(1 << 18, est))
+
+    def _estimate_restore_bytes(self) -> int:
+        """One valid survivor's own bytes times the world size."""
+        donor = next((st for st in self.stores.values() if st.alive and st.buffer.valid), None)
+        if donor is None:
+            return 1 << 62  # nothing valid: the pipelined path raises DataLostError
+        per_rank = sum(flat.numel() for flat, _ in donor.buffer.read_only.own.values())
+        return per_rank * max(1, self.n_ranks)
+
+    def _prep_restore_unit(self, gi: int, groups: list, name: str, alive: set[int],
+                           ref_table: dict) -> _RestoreUnit:
+        """Capture what one unit's chunks need: references to the surviving
+        copies (a rank dying mid-restore cannot pull bytes from under the
+        drain), blob arenas on the recovering host, the codec's chunk
+        decoder, the chunk grid, and the DEQ plan of compressed origins."""
+        codec = self.codec
+        grp = groups[gi]
+
+        def _has_data(m: int) -> bool:
+            st = self.stores.get(m)
+            return st is not None and st.alive and st.buffer.valid
+
+        missing_idx = [i for i, m in enumerate(grp.members) if not _has_data(m)]
+        if len(missing_idx) > codec.tolerance():
+            raise dist.DataLostError(f"group {gi} lost {len(missing_idx)} members; "
+                                     f"codec {codec.name!r} tolerates {codec.tolerance()}")
+        first_missing = grp.members[missing_idx[0]]
+        stripe_srcs: dict[int, list[torch.Tensor]] = {}
+        for b, holders in enumerate(codec.placement(groups, gi, self.n_ranks)):
+            stripes: list[torch.Tensor] | None = []
+            for j, member in enumerate(holders):
+                stripe = (self.stores[member].buffer.read_only.parity.get(gi, {}).get((name, b, j))
+                          if _has_data(member) else None)
+                if stripe is None:
+                    stripes = None  # any lost stripe kills the whole blob
+                    break
+                stripes.append(stripe)
+            if stripes is not None:
+                stripe_srcs[b] = stripes
+        present = {}
+        for i, m in enumerate(grp.members):
+            if i not in missing_idx:
+                ro = self.stores[m].buffer.read_only
+                present[i] = ro.own_exch.get(name, ro.own[name])[0]
+
+        # blob arenas live in the recovering host's staging bank (never the
+        # read-only one); a single-stripe blob is adopted by reference
+        host = codec.rebuilder(groups, gi, first_missing, alive)
+        store = self.stores.get(host) if host is not None else None
+        if store is None or not store.alive:
+            cand = [r for r in alive if self.stores[r].alive]
+            if not cand:
+                raise dist.DataLostError(f"no surviving rank can rebuild rank {first_missing}")
+            store = self.stores[min(cand)]
+        blobs: dict[int, torch.Tensor] = {}
+        for b, stripes in stripe_srcs.items():
+            if len(stripes) == 1:
+                blobs[b] = stripes[0].reshape(-1)
+            else:
+                blobs[b] = store.lease(("restore", gi, name, "blob", b), sum(s.numel() for s in stripes))
+        try:
+            rebuilt, decode_chunk = codec.decode_into(
+                present, blobs, missing_idx, lambda i, nb: store.lease(("restore", gi, name, "out", i), nb))
+        except codec_mod.CodecDecodeError as e:
+            raise dist.DataLostError(f"rank {first_missing} (group {gi}) unrecoverable under codec "
+                                     f"{codec.name!r}, entity {name!r}: {e}") from e
+
+        n = max((bb.numel() for bb in blobs.values()), default=0)
+        cb = self.cfg.restore_chunk_bytes
+        step = self._plan_chunk_step() if cb <= 0 else max(4, cb) & ~3
+        bounds = [(lo, min(lo + step, n)) for lo in range(0, n, step)] or [(0, 0)]
+        manifests = {i: self._redundancy_manifest(grp.members[i], name) for i in missing_idx}
+        ref_sums: dict[int, Any] = {}
+        decomp: dict[int, list] = {}
+        for i in missing_idx:
+            compressed = isinstance(manifests[i], tuple) and manifests[i][0] == "compressed"
+            ref_sums[i] = None if compressed else ref_table.get((grp.members[i], name))
+            if compressed and not codec.striped:
+                # the whole compressed copy is adopted at prep, so its scales
+                # are readable now; the int8 -> f32 expansion streams through
+                # the drain's DEQ stage, chunk by chunk
+                plan = self._prep_decomp_plan(manifests[i][1], rebuilt[i].reshape(-1))
+                if plan:
+                    decomp[i] = plan
+        return _RestoreUnit(gi=gi, grp=grp, name=name, missing_idx=missing_idx,
+                            stripe_srcs={b: s for b, s in stripe_srcs.items() if len(s) > 1},
+                            blobs=blobs, rebuilt=rebuilt, decode_chunk=decode_chunk, bounds=bounds,
+                            manifests=manifests, ref_sums=ref_sums,
+                            sums={i: [None] * len(bounds) for i in missing_idx}, decomp=decomp or None)
+
+    def _prep_decomp_plan(self, cman: Manifest, flat: torch.Tensor) -> list[_DeqLeaf]:
+        """One ``_DeqLeaf`` per quantized leaf (``_q``/``_scale`` pairs in the
+        packed manifest), its scales and f32 destination on the engine's
+        device; empty (the monolithic decompress then runs) if any pair is
+        unresolvable."""
+        plan: list[_DeqLeaf] = []
+        by_name = {n: k for k, n in enumerate(cman.names)}
+        for k, n in enumerate(cman.names):
+            if not n.endswith("_q") or cman.dtypes[k] != "int8":
+                continue
+            sk = by_name.get(n[: -len("_q")] + "_scale")
+            if sk is None or cman.dtypes[sk] != "float32":
+                return []
+            q_n = int(torch.Size(cman.shapes[k]).numel())
+            s_off, s_n = cman.offsets[sk], int(torch.Size(cman.shapes[sk]).numel())
+            scales = flat[s_off : s_off + 4 * s_n].clone().view(torch.float32).to(self.device)
+            plan.append(_DeqLeaf(q_off=cman.offsets[k], q_n=q_n, block=q_n // max(s_n, 1), scales=scales,
+                                 out=torch.empty(q_n, dtype=torch.float32, device=self.device)))
+        return plan
+
+    def _restore_ref_sums(self) -> dict:
+        """The replicated capture-time exchange checksums."""
+        for st in self.stores.values():
+            if st.alive and st.buffer.valid:
+                table = st.buffer.read_only.meta.get("exch_checksums")
+                if table:
+                    return table
+        return {}
+
+    def _restore_stage(self, u: _RestoreUnit, ci: int, phase: str) -> None:
+        """One stage of one chunk, timed into ``restore_stage_seconds`` (and
+        a span while the tracer is on); DECODE also feeds the planner's
+        rate."""
+        lo, hi = u.bounds[ci]
+        fn, hist = {
+            "r_transfer": (lambda: self._restore_transfer_chunk(u, lo, hi), self._hr_transfer),
+            "decode": (lambda: u.decode_chunk(lo, hi), self._hr_decode),
+            "r_verify": (lambda: self._restore_verify_chunk(u, ci), self._hr_verify),
+            "deq": (lambda: self._restore_decompress_chunk(u, ci), self._hr_deq),
+        }[phase]
+        t = time.perf_counter()
+        if _TR.enabled:
+            with _TR.span(phase, eng=self._obs_id, group=u.gi, entity=u.name, chunk=ci):
+                fn()
+        else:
+            fn()
+        dt = time.perf_counter() - t
+        hist.observe(dt)
+        if phase == "decode":
+            self._observe_decode_rate(hi - lo, dt)
+
+    def _restore_chunk_task(self, u: _RestoreUnit, ci: int) -> None:
+        """The parallel drain's form of one chunk: its own TRANSFER, DECODE,
+        VERIFY and DEQ (chunks are range-disjoint, so any interleaving gives
+        the serial pipeline's bytes)."""
+        for phase in ("r_transfer", "decode", "r_verify", "deq"):
+            self._restore_stage(u, ci, phase)
+        self._fault_hook("restore_chunk")
+
+    def _restore_transfer_chunk(self, u: _RestoreUnit, lo: int, hi: int) -> None:
+        """TRANSFER: copy the stripe segments covering [lo, hi) into the blob
+        arenas (nothing to move for adopted whole copies, or on a plan-cache
+        hit, whose arenas hold these immutable committed bytes already)."""
+        if u.staged:
+            return
+        for b, stripes in u.stripe_srcs.items():
+            dst, off = u.blobs[b], 0
+            for s in stripes:
+                s = s.reshape(-1)
+                a, z = max(lo, off), min(hi, off + s.numel())
+                if a < z:
+                    dst[a:z].copy_(s[a - off : z - off])
+                off += s.numel()
+
+    def _restore_decompress_chunk(self, u: _RestoreUnit, ci: int) -> None:
+        """DEQ: this chunk's slice of every compressed origin's int8 codes,
+        dequantized on the engine's device by ``dequantize_into`` (B5b on the
+        card) over the whole blocks that cover it; only the slice is written,
+        so chunks write disjoint ranges. The same ``codes · scale`` in f32 as
+        the monolithic decompress, so the same bytes."""
+        if not u.decomp:
+            return
+        lo, hi = u.bounds[ci]
+        for i, plan in u.decomp.items():
+            flat = u.rebuilt[i].reshape(-1)
+            for leaf in plan:
+                a, z = max(lo, leaf.q_off), min(hi, leaf.q_off + leaf.q_n)
+                if a >= z:
+                    continue
+                e0, e1 = a - leaf.q_off, z - leaf.q_off
+                b0, b1 = e0 // leaf.block, -(-e1 // leaf.block)
+                codes = flat[leaf.q_off + b0 * leaf.block : leaf.q_off + b1 * leaf.block]
+                codes = codes.view(torch.int8).to(self.device)
+                out = torch.empty(codes.numel(), dtype=torch.float32, device=self.device)
+                qk.dequantize_into(codes, leaf.scales[b0:b1], out)
+                leaf.out[e0:e1] = out[e0 - b0 * leaf.block : e1 - b0 * leaf.block]
+
+    def _restore_verify_chunk(self, u: _RestoreUnit, ci: int) -> None:
+        """VERIFY: Fletcher partials of the rebuilt chunk; both sums are
+        linear, so partials at word offset *o* recombine to the monolithic
+        ``np_checksum``. A plan-cache hit carries its clean partials."""
+        if u.verified:
+            return
+        lo, hi = u.bounds[ci]
+        for i in u.missing_idx:
+            if u.ref_sums[i] is None:
+                continue
+            end = min(hi, u.manifests[i].total)
+            if lo < end:
+                c1, c2 = np_checksum(u.rebuilt[i].reshape(-1)[lo:end].numpy())
+                u.sums[i][ci] = (lo // 4, c1, c2)
+
+    def _finalize_restore_unit(self, u: _RestoreUnit, shards: dict, partials: dict) -> None:
+        """Checksum verdict and unpack of every rebuilt origin in the unit."""
+        has_subset = hasattr(self._entities[u.name], "partner_payload")
+        for i in u.missing_idx:
+            origin = u.grp.members[i]
+            ref = u.ref_sums[i]
+            if ref is not None:
+                s1 = s2 = 0
+                for part in u.sums[i]:
+                    if part is None:
+                        continue
+                    o, c1, c2 = part
+                    s1 = (s1 + c1) & 0xFFFFFFFF
+                    s2 = (s2 + c2 + o * c1) & 0xFFFFFFFF
+                if (s1, s2) != tuple(ref):
+                    raise IntegrityError(f"reconstructed shard failed checksum validation: "
+                                         f"rank {origin} entity {u.name!r} (group {u.gi})")
+            if self.codec.striped:
+                self.stats.reconstructed_restores += 1
+            else:
+                self.stats.adopted_restores += 1
+            man = u.manifests[i]
+            rebuilt = u.rebuilt[i].reshape(-1)
+            if isinstance(man, tuple) and man[0] == "compressed":
+                if u.decomp and i in u.decomp:
+                    payload = self._finalize_decompressed(rebuilt, man[1], u.decomp[i])
+                else:
+                    payload = self._decompress(rebuilt, man)
+            else:
+                payload = unpack_bytes(rebuilt[: man.total], man, device=self.device)
+            (partials if has_subset else shards)[u.name][origin] = payload
+
+    def _finalize_decompressed(self, flat: torch.Tensor, cman: Manifest, plan: list[_DeqLeaf]) -> Any:
+        """A compressed origin's payload from the DEQ stage's outputs:
+        ``decompress_tree``'s walk, each packed node taking its dequantized
+        leaf (cast to its recorded dtype and shape); the other leaves are
+        copied out of the arena onto the engine's device."""
+        it = iter(plan)
+
+        def assemble(x: Any) -> torch.Tensor:
+            if not _is_packed(x):
+                return x.to(self.device, copy=True)
+            meta = [int(v) for v in x["_meta"].reshape(-1).tolist()]
+            shape, dtype, size = tuple(meta[:-2]), _DTYPES[meta[-2]], meta[-1]
+            return next(it).out[:size].reshape(shape).to(dtype_from_name(dtype))
+
+        return _map(assemble, arena_views(flat, cman), _is_packed)
 
 
 def _row_nbytes(leaves: list[torch.Tensor], coords: list[Any]) -> list[int]:

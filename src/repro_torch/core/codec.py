@@ -48,9 +48,14 @@ class RedundancyCodec:
                           the rank whose host ends up holding ``origin``'s
                           rebuilt shard (elastic residency).
 
-    The arena-aware ``encode_into``/``decode_into``, ``encode_matrix`` and
-    ``blobs_needed`` come with the striped codecs and the pipelined path that
-    use them (ROADMAP A4, A5).
+    decode_into(present, blobs, missing, lease)
+                          the pipelined restore's form of ``decode``: the
+                          rebuilt buffers and a chunk function (lo, hi) that
+                          rebuilds that byte range (the default decodes
+                          eagerly and returns a no-op chunk function).
+
+    The arena-aware ``encode_into``, ``encode_matrix`` and ``blobs_needed``
+    come with the striped codecs that use them (ROADMAP A4).
     """
 
     name: str = "?"
@@ -80,6 +85,17 @@ class RedundancyCodec:
         missing: list[int],
     ) -> dict[int, torch.Tensor]:
         raise NotImplementedError
+
+    def decode_into(
+        self,
+        present: dict[int, torch.Tensor],
+        blobs: dict[int, torch.Tensor],
+        missing: list[int],
+        lease: Callable[[int, int], torch.Tensor],
+    ) -> tuple[dict[int, torch.Tensor], Callable[[int, int], None]]:
+        """Default: the eager ``decode`` with a no-op chunk function (the
+        copy codec's adoption is by reference: nothing to chunk)."""
+        return self.decode(present, blobs, missing), (lambda lo, hi: None)
 
     def rebuilder(
         self, groups: list[dist.ParityGroup], gi: int, origin: int, alive: set[int]

@@ -23,13 +23,18 @@ what extends Algorithm 2's pointer-swap guarantee to buffer reuse.
 Killing the rank wipes the store — in-memory checkpoints die with their host,
 which is exactly the failure model the paper's redundancy exists to survive.
 
-The arenas are pageable host memory; pinned arenas wait for the async
-create path (ROADMAP A5).
+A store whose engine runs on the card leases **pinned** arenas: each is
+allocated once per (bank, key) and page-locked in place
+(``cudaHostRegister``, exactly its bytes), so the capture copies every leaf
+from the card straight into it and a restore reads it back at the link's
+rate. A failed registration raises; no arena silently stays pageable. On
+the CPU the arenas are pageable.
 """
 
 from __future__ import annotations
 
 import threading
+import weakref
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -46,9 +51,26 @@ class StorePayload:
     meta: dict[str, Any] = field(default_factory=dict)
 
 
+def pinned_empty(nbytes: int) -> torch.Tensor:
+    """A uint8 host buffer of ``nbytes``, page-locked for the card. Registered
+    in place rather than taken from PyTorch's pinned allocator, which rounds
+    every block up to a power of two and keeps it cached; unregistered when
+    the buffer is collected. Raises if the registration fails."""
+    buf = torch.empty(nbytes, dtype=torch.uint8)
+    if nbytes:
+        cudart = torch.cuda.cudart()
+        err = int(cudart.cudaHostRegister(buf.data_ptr(), nbytes, 0))
+        if err != 0:
+            raise RuntimeError(f"pinning a {nbytes}-byte host arena failed (cudaError {err})")
+        weakref.finalize(buf, cudart.cudaHostUnregister, buf.data_ptr())
+    return buf
+
+
 class HostStore:
-    def __init__(self, rank: int) -> None:
+    def __init__(self, rank: int, pinned: bool = False) -> None:
         self.rank = rank
+        #: lease page-locked arenas (the engine's device is a card)
+        self.pinned = pinned
         self.buffer = DoubleBuffer(f"host{rank}")
         self.alive = True
         # Bumped on every wipe/revive: a rebuilt store may reuse both arena
@@ -83,7 +105,7 @@ class HostStore:
         with self.lock:
             buf = self._arenas.get(k)
             if buf is None or buf.numel() < nbytes:
-                buf = torch.empty(nbytes, dtype=torch.uint8)
+                buf = pinned_empty(nbytes) if self.pinned else torch.empty(nbytes, dtype=torch.uint8)
                 self._arenas[k] = buf
             return buf[:nbytes]
 

@@ -1,8 +1,9 @@
 """The handshake checksum (Algorithm 2) on the host.
 
-``np_checksum`` is copied from ``repro.core.integrity`` unchanged. It does
-in numpy what the CUDA checksum kernel (``kernels/checksum.py``) does on the
-card, so a device checksum can be checked against the staged host bytes.
+``np_checksum`` and ``IntegrityError`` are copied from
+``repro.core.integrity`` unchanged. ``np_checksum`` does in numpy what the
+CUDA checksum kernel (``kernels/checksum.py``) does on the card, so a device
+checksum can be checked against the staged host bytes.
 """
 
 from __future__ import annotations
@@ -42,3 +43,7 @@ def np_checksum(buf: np.ndarray) -> tuple[int, int]:
         s2 = int(np.dot(u, w[:n])) & 0xFFFFFFFF
     return s1, s2
 
+
+
+class IntegrityError(RuntimeError):
+    """A snapshot failed checksum validation during the handshake."""

@@ -136,6 +136,17 @@ def pack_bytes(
     return out[:total], Manifest(names, shapes, dtypes, offsets, total, paths)
 
 
+def arena_views(flat: torch.Tensor, manifest: Manifest) -> Any:
+    """The nested dict of ``manifest`` as views of ``flat`` (no copy; a
+    leaf whose offset its dtype cannot view is copied, and only it)."""
+    leaves = []
+    for shape, dtype, off in zip(manifest.shapes, manifest.dtypes, manifest.offsets):
+        dt = dtype_from_name(dtype)
+        raw = flat[off : off + int(torch.Size(shape).numel()) * dt.itemsize]
+        leaves.append((raw if off % dt.itemsize == 0 else raw.clone()).view(dt).reshape(shape))
+    return tree_unflatten(manifest.treedef, leaves)
+
+
 def unpack_bytes(flat: torch.Tensor, manifest: Manifest, device: Any = None) -> Any:
     """The nested dict of ``manifest`` read back from ``flat``: owned copies
     (never views of the arena), on ``device`` (``flat``'s by default)."""

@@ -7,10 +7,10 @@ makes the replayed trajectory bitwise identical.
 
 The token stream follows a fixed random bigram permutation (x[t] =
 perm[x[t-1]] with 5% noise resets), so the model can reduce its loss on it
-quickly. The reference's stream is jax.random's threefry; the port's is a CPU
-``torch.Generator`` seeded from ``(seed, step)``, the batch then moved to
-the device, so a card run and a CPU run see the same tokens (not the
-reference's: the streams differ).
+quickly. The draws are the reference's, key for key, on the port's
+threefry (``utils/threefry.py``): the same ``(seed, step)`` gives the same
+int32 tokens as ``repro.data.synthetic``, byte for byte. Batches are made on
+the host and moved to the pipeline's device.
 """
 
 from __future__ import annotations
@@ -21,31 +21,27 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.sharding.mesh import resolve_device
+from repro_torch.utils import threefry
 
 NOISE_P = 0.05
-
-
-def _generator(seed: int, salt: int) -> torch.Generator:
-    return torch.Generator().manual_seed(((seed & 0xFFFFFFFF) << 32) | (salt & 0xFFFFFFFF))
 
 
 def make_batch(cfg: ModelConfig, seed: int, step: int, batch: int, seq: int) -> dict[str, torch.Tensor]:
     """One global batch (int32 CPU tensors) from (seed, step)."""
     if cfg.is_encoder or cfg.vision_tokens:
         raise NotImplementedError(f"{cfg.name}: encoder and VLM batches wait for ROADMAP A10")
+    k1, k2, _ = threefry.split(threefry.fold_in(threefry.PRNGKey(seed), step), 3)
     v = cfg.vocab_size
     # the permutation depends only on the seed: the mapping is stationary
-    perm = torch.randperm(v, generator=_generator(seed ^ 0x5EED, 0xFFFFFFFF))
-    g = _generator(seed, step)
-    x0 = torch.randint(0, v, (batch,), generator=g)
-    noise_mask = torch.rand((batch, seq), generator=g) < NOISE_P
-    noise_tok = torch.randint(0, v, (batch, seq), generator=g)
-    toks = torch.empty((batch, seq), dtype=torch.int64)
+    perm = threefry.permutation(threefry.PRNGKey(seed ^ 0x5EED), v)
+    x0 = threefry.randint(k1, (batch,), 0, v)
+    noise_mask = threefry.bernoulli(k2, NOISE_P, (batch, seq))
+    noise_tok = threefry.randint(threefry.fold_in(k2, 1), (batch, seq), 0, v)
+    toks = torch.empty((batch, seq), dtype=torch.int32)
     prev = x0
     for t in range(seq):
-        prev = torch.where(noise_mask[:, t], noise_tok[:, t], perm[prev])
+        prev = torch.where(noise_mask[:, t], noise_tok[:, t], perm[prev.long()])
         toks[:, t] = prev
-    toks = toks.to(torch.int32)
     return {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
 
 

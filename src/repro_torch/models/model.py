@@ -18,6 +18,7 @@ from repro_torch.models import lm
 from repro_torch.sharding.axes import FSDP_RULES, TP_RULES, ShardingRules
 from repro_torch.sharding.mesh import resolve_device
 from repro_torch.sharding.spec import init_tree, tree_count
+from repro_torch.utils import threefry
 
 
 @dataclass(frozen=True)
@@ -36,10 +37,10 @@ class Model:
     def rules(self) -> ShardingRules:
         return FSDP_RULES if self.cfg.sharding_preset == "fsdp" else TP_RULES
 
-    def init(self, generator: torch.Generator, device: Any = None) -> Any:
-        """Params on ``device`` (``cuda`` unless the caller asks for another),
-        each leaf drawn from its own seed taken from ``generator``."""
-        return init_tree(generator, self.abstract_params, resolve_device(device))
+    def init(self, key: threefry.Key, device: Any = None) -> Any:
+        """Params on ``device`` (``cuda`` unless the caller asks for another)
+        from a threefry key, the reference's draws leaf for leaf."""
+        return init_tree(key, self.abstract_params, resolve_device(device))
 
     def loss(self, params: Any, batch: dict[str, torch.Tensor]):
         return lm.loss_fn(params, batch, self.cfg)

@@ -91,9 +91,10 @@ class ShardPlan:
 class ShardedStateEntity:
     """DistributedEntity over a live state returned by ``get_state``.
 
-    ``snapshot_shards`` copies each leaf to the host once (card leaves: one
-    device-to-host copy each; CPU leaves are read in place) and hands out
-    views of it split along the data dim. ``restore_shards`` writes the
+    ``snapshot_shards`` hands out views of the live leaves (on the card or
+    the CPU) split along the data dim, copying nothing: the engine's capture
+    copies each straight into its host arena before it returns, so the
+    caller may update the state right after. ``restore_shards`` writes the
     restored shards back **in place** into the live tensors (the reference
     builds a new tree and calls a setter), so no second copy of the state is
     made on the card. Exposes ``shard_coords`` (the plan's global-coordinate
@@ -112,7 +113,7 @@ class ShardedStateEntity:
         leaves = self.plan.leaves(self._get())
         shard_leaves: list[list[torch.Tensor]] = [[] for _ in range(n_ranks)]
         for i, leaf in enumerate(leaves):
-            a = leaf.detach().to("cpu")
+            a = leaf.detach()
             dim = self.plan.split_dim(i, n_ranks)
             pieces = [a] * n_ranks if dim is None else a.chunk(n_ranks, dim)
             for r in range(n_ranks):

@@ -22,11 +22,17 @@ the optimizer writes them in place, and so do restores
 ``requires_grad`` aliases of the live params, so the state tensors never
 require grad themselves.
 
+Checkpoints run the reference's default engine (``EngineConfig()``: the
+background drain and the pipelined restore). Under ``checkpoint_mode="sync"``
+a due checkpoint captures and drains before the next step; under
+``"async"`` (alias ``async_checkpoint``) it captures at the step boundary,
+drains behind the next step on the engine's worker, and commits at the
+following barrier.
+
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: overlapped checkpoints (``checkpoint_mode="async"``,
-``async_checkpoint``: A5); the storage-tier ladder (``tier_dir``,
-``disk_path``, ``cold_restart``: A7); the host ``xor``/``rs`` codecs (the
-engine raises: A4).
+item: the storage-tier ladder (``tier_dir``, ``disk_path``,
+``cold_restart``: A7); the host ``xor``/``rs`` codecs (the engine raises:
+A4).
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from repro_torch.runtime.state import ShardPlan, ShardedStateEntity
 from repro_torch.runtime.straggler import StragglerDetector
 from repro_torch.sharding.mesh import make_mesh, resolve_device
 from repro_torch.utils.logging import get_logger
+from repro_torch.utils import threefry
 from repro_torch.utils.pytree import tree_flatten, tree_unflatten
 from repro_torch.utils.timing import TimerRegistry
 
@@ -75,22 +82,20 @@ class TrainerConfig:
     recovery_policy: str = "spare"    # spare | shrink | elastic (N-to-M repartition)
     mtbf_individual_s: float = 3600.0
     checkpoint_period: int | None = None  # None -> Daly-optimal (adaptive)
-    # The reference's default engine with the serial restore, the one the
-    # port's engine runs (the pipelined restore waits for ROADMAP A5).
-    engine: EngineConfig = field(default_factory=lambda: EngineConfig(restore_mode="sync"))
+    engine: EngineConfig = field(default_factory=EngineConfig)
     moment_dtype: Any = torch.float32
     # Not ported (raise NotImplementedError): the disk rung of the
-    # storage-tier ladder and its deprecated alias (ROADMAP A7), overlapped
-    # checkpoints and their deprecated alias (ROADMAP A5).
+    # storage-tier ladder and its deprecated alias (ROADMAP A7).
     tier_dir: str | None = None
     disk_path: str | None = None
+    # "sync" blocks the step loop for the whole create; "async" captures at
+    # the step boundary and drains behind the next step, committing at the
+    # following barrier
     checkpoint_mode: str = "sync"     # sync | async
-    async_checkpoint: bool = False
+    async_checkpoint: bool = False    # deprecated alias of checkpoint_mode="async"
 
 
 def _unported(tcfg: TrainerConfig) -> str | None:
-    if tcfg.checkpoint_mode == "async" or tcfg.async_checkpoint:
-        return "overlapped checkpoints (checkpoint_mode='async') wait for ROADMAP A5"
     if tcfg.tier_dir or tcfg.disk_path:
         return "the storage-tier ladder (tier_dir, disk_path) waits for ROADMAP A7"
     return None
@@ -103,10 +108,7 @@ class Trainer:
         tcfg: TrainerConfig,
         injector: FailureInjector | None = None,
         device: Any = None,
-        data: Any = None,
     ) -> None:
-        """``data`` replaces the synthetic pipeline: any Snapshottable with a
-        ``next()`` that gives a batch on ``device``."""
         if tcfg.checkpoint_mode not in ("sync", "async"):
             raise ValueError(f"checkpoint_mode {tcfg.checkpoint_mode!r}")
         why = _unported(tcfg)
@@ -119,12 +121,10 @@ class Trainer:
         self.timers = TimerRegistry()
 
         # -- data pipeline (its (seed, step) state is a checkpoint entity) ---
-        self.data = data if data is not None else SyntheticDataPipeline(
-            self.cfg, tcfg.batch, tcfg.seq, tcfg.seed, device=self.device)
+        self.data = SyntheticDataPipeline(self.cfg, tcfg.batch, tcfg.seq, tcfg.seed, device=self.device)
 
         # -- live state -------------------------------------------------------
-        gen = torch.Generator(device=self.device).manual_seed(tcfg.seed)
-        params = model.init(gen, self.device)
+        params = model.init(threefry.PRNGKey(tcfg.seed), self.device)
         self.state: dict[str, Any] = {
             "params": params,
             "opt": init_opt_state(params, tcfg.moment_dtype),
@@ -155,6 +155,7 @@ class Trainer:
         self.history: list[dict[str, float]] = []
         self.n_recoveries = 0
         self._last_ckpt_step = -(10**9)
+        self._pending_ckpt_step = -(10**9)  # step of an overlapped checkpoint not yet committed
 
     # ------------------------------------------------------------------ #
     def _build_train_step(self):
@@ -187,6 +188,17 @@ class Trainer:
         while int(self.state["step"]) < num_steps:
             try:
                 self.cluster.barrier("step")
+
+                # Commit an overlapped checkpoint from the previous step (its
+                # drain ran behind that step).
+                pending = self.engine.finalize_async()
+                if pending is not None:
+                    self.engine._fault_hook = lambda phase: None
+                if pending is True:
+                    self._last_ckpt_step = self._pending_ckpt_step
+                    self.scheduler.record_checkpoint_duration(self.timers("checkpoint").mean)
+                elif pending is False:
+                    raise ProcessFaultException(sorted(self.cluster.failed), "checkpoint")
 
                 # Fault injection models hosts dying *during* the step; the
                 # fault surfaces at the next barrier (step granularity).
@@ -223,6 +235,14 @@ class Trainer:
 
                     self.engine._fault_hook = hook
                     ckpt_count += 1
+                    if self.tcfg.checkpoint_mode == "async" or self.tcfg.async_checkpoint:
+                        # capture now; the drain overlaps the next step
+                        with self.timers("checkpoint"):
+                            created = self.engine.checkpoint_async({"step": int(self.state["step"])})
+                        self._pending_ckpt_step = int(self.state["step"])
+                        if not created:
+                            raise ProcessFaultException(sorted(self.cluster.failed), "checkpoint")
+                        continue
                     with self.timers("checkpoint"):
                         ok = self.engine.checkpoint({"step": int(self.state["step"])})
                     self.engine._fault_hook = lambda phase: None
@@ -311,6 +331,7 @@ class Trainer:
         """Rebuild the engine for a new world size; entities carry over and
         re-shard themselves at the next checkpoint."""
         old = self.engine
+        old.close()  # its worker pool; a pending snapshot was discarded by the restore
         new_engine = CheckpointEngine(n_new, self._engine_cfg, device=self.device)
         new_engine._entities = dict(old._entities)
         new_engine._replicated = set(old._replicated)

@@ -11,6 +11,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.utils import threefry
 from repro_torch.utils.pytree import tree_flatten, tree_map, tree_unflatten
 
 
@@ -59,25 +60,25 @@ def draw_normal(shape, std: float, dtype, generator: torch.Generator, device: to
     return x.mul_(std).to(dtype)
 
 
-def init_leaf(spec: ParamSpec, generator: torch.Generator, device: torch.device) -> torch.Tensor:
+def init_leaf(spec: ParamSpec, key: threefry.Key, device: torch.device) -> torch.Tensor:
+    """One leaf on ``device``: the reference's ``std · normal(key)`` in f32,
+    cast to the leaf's dtype, or its constant."""
     std = init_std(spec)
     if std is None:
         fill = torch.zeros if spec.init == "zeros" else torch.ones
         return fill(spec.shape, dtype=spec.dtype, device=device)
-    return draw_normal(spec.shape, std, spec.dtype, generator, device)
+    x = threefry.normal(key, spec.shape, device)
+    return x.mul_(torch.tensor(std, dtype=torch.float32, device=device)).to(spec.dtype)
 
 
-def init_tree(generator: torch.Generator, tree: Any, device: Any = None) -> Any:
-    """Initialize a ParamSpec tree into tensors on ``device`` (the
-    generator's by default). Each leaf draws from its own generator, seeded
-    from one draw of ``generator`` plus the leaf's index in sorted-path
-    order, so a leaf's values do not depend on the leaves drawn before it
-    (the reference splits one key per leaf)."""
-    dev = torch.device(device) if device is not None else generator.device
-    base = int(torch.randint(0, 2**62, (), generator=generator, device=generator.device))
+def init_tree(key: threefry.Key, tree: Any, device: Any = "cpu") -> Any:
+    """Initialize a ParamSpec tree into tensors on ``device`` as the
+    reference does: one key per leaf, ``split`` from ``key`` in sorted-path
+    order, each leaf drawn on the device that holds it."""
+    dev = torch.device(device)
     paths, specs = tree_flatten(tree)
-    leaves = [init_leaf(s, torch.Generator(device=dev).manual_seed(base + i), dev) for i, s in enumerate(specs)]
-    return tree_unflatten(paths, leaves)
+    keys = threefry.split(key, len(specs))
+    return tree_unflatten(paths, [init_leaf(s, k, dev) for s, k in zip(specs, keys)])
 
 
 def tree_count(tree: Any) -> int:

@@ -6,7 +6,8 @@ cases; ``... state OUT.npz`` runs the llama3.2-1b layout and slice cases;
 ``... engine OUT.npz`` runs the host-tier checkpoint engine's cases;
 ``... elastic OUT.npz`` the elastic N-to-M planner, reshard executors and
 ``restore_elastic`` cases; ``... trainer OUT.npz`` the reference ``Trainer``
-through two kills (``TRAINER_CASE``). The arrays go to the ``.npz``, the
+through two kills (``TRAINER_CASE``); ``... async OUT.npz`` the create
+drain's and the pipelined restore's cases (``async_cases``). The arrays go to the ``.npz``, the
 metadata to ``OUT.npz.json``.
 
 The engine cases' entities (``ShardedVec``, ``Counter``, ``engine_state``),
@@ -376,6 +377,252 @@ def run_engine(out_path: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The create drain and the pipelined restore (the copy codec's mirrors of
+# tests/test_async_pipeline.py)
+# ---------------------------------------------------------------------------
+
+ASYNC_RANKS = 8
+ASYNC_CHUNK = 256          # restore_chunk_bytes that gives several chunks per unit
+ASYNC_RESTORE_KILL = 5     # the wiped rank of the restore cases (pairwise partner 1)
+ASYNC_SURVIVOR_KILL = 6    # the survivor the mid-restore cases kill (partner 2)
+
+
+def _vec_setup(make_engine, wrap, n=ASYNC_RANKS, hook=None, **cfg):
+    eng = make_engine(n, hook, **cfg)
+    vec, cnt = ShardedVec(n), Counter()
+    eng.register("state", wrap(vec))
+    eng.register("counter", wrap(cnt))
+    return eng, vec, cnt
+
+
+def _restored(vec) -> np.ndarray:
+    return np.stack([np.asarray(d) for d in vec.data])
+
+
+def _stats(eng, pinned_chunks: bool = False) -> dict:
+    """The engine's counters; with ``pinned_chunks`` (a fixed
+    ``restore_chunk_bytes``) also the pipelined restore's, which under the
+    adaptive planner depend on the rates this process has measured."""
+    names = ["created", "aborted", "restored", "zero_comm_restores", "adopted_restores",
+             "last_bytes_staged", "last_bytes_exchanged", "last_pipeline_chunks"]
+    if pinned_chunks:
+        names += ["last_restore_chunks", "last_restore_bytes_rebuilt", "last_restore_decompressed_bytes",
+                  "restore_plan_reuses"]
+    return {k: getattr(eng.stats, k) for k in names}
+
+
+def _outcome(fn):
+    try:
+        return fn()
+    except Exception as e:  # noqa: BLE001 - the class name is the result
+        return type(e).__name__
+
+
+def async_cases(make_engine, wrap, as_np) -> tuple[dict, dict]:
+    """Every case of the port's ``tests/test_torch_async.py``, run the same
+    way on either engine: ``make_engine(n, fault_hook, **cfg)`` builds one,
+    ``wrap`` adapts an entity, ``as_np`` reads a flat buffer. Returns the
+    committed stores, restored vectors and engine counters of each case."""
+    arrays, meta = {}, {}
+
+    def record(tag, eng, vec=None, pinned_chunks=False, **extra):
+        a, m = dump_engine(eng, as_np)
+        arrays.update({f"{tag}/{k}": v for k, v in a.items()})
+        if vec is not None:
+            arrays[f"{tag}/restored"] = _restored(vec)
+        meta[tag] = {"stores": m["stores"], "stats": _stats(eng, pinned_chunks), **extra}
+
+    # 1. create: blocking, drained in finalize_async, drained in the background
+    # (the default); then a pipelined restore of rank 2
+    for compress in (False, True):
+        for how in ("checkpoint", "foreground", "background"):
+            tag = f"create/{how}/{int(compress)}"
+            eng, vec, cnt = _vec_setup(make_engine, wrap, compress=compress)
+            cnt.step = 7
+            if how == "checkpoint":
+                ok = eng.checkpoint({"step": 7})
+            else:
+                ok = eng.checkpoint_async({"step": 7}, background=how == "background") \
+                    and eng.finalize_async() is True
+            for d in vec.data:
+                d += 123.0
+            eng.stores[2].wipe()
+            got = eng.restore()
+            record(tag, eng, vec, ok=bool(ok), step=int(got["step"]), counter=cnt.step)
+            eng.close()
+
+    # 2. restore: sync vs pipelined, serial and parallel drains, plain and
+    # compressed; the pipelined one twice (the second from the plan cache)
+    for compress in (False, True):
+        for workers in (0, 1, 4):
+            for mode in ("sync", "pipelined"):
+                tag = f"restore/{mode}/{workers}/{int(compress)}"
+                eng, vec, _ = _vec_setup(make_engine, wrap, compress=compress, restore_mode=mode,
+                                         async_workers=workers, restore_chunk_bytes=ASYNC_CHUNK)
+                assert eng.checkpoint({"step": 4})
+                eng.stores[ASYNC_RESTORE_KILL].wipe()
+                for d in vec.data:
+                    d += 7.0
+                steps = [int(eng.restore()["step"])]
+                first = _restored(vec)
+                for d in vec.data:
+                    d += 3.0
+                steps.append(int(eng.restore()["step"]))
+                arrays[f"{tag}/first"] = first
+                record(tag, eng, vec, pinned_chunks=True, steps=steps)
+                eng.close()
+
+    # 3. restore_elastic 8 -> 6 out of each restore mode
+    for mode in ("sync", "pipelined"):
+        tag = f"elastic/{mode}"
+        eng, vec, _ = _vec_setup(make_engine, wrap, restore_mode=mode, async_workers=2)
+        assert eng.checkpoint({"step": 3})
+        eng.stores[5].wipe()
+        got = eng.restore_elastic(6)
+        arrays[f"{tag}/restored"] = _restored(vec)
+        meta[tag] = {"step": int(got["step"]), "n_ranks": eng.n_ranks, "stats": _stats(eng)}
+        eng.close()
+
+    # 4. a rank dying at drain unit k aborts the snapshot; the committed one
+    # stays byte for byte and restores
+    for kill_chunk in (0, 1, 2, "background"):
+        tag = f"kill/{kill_chunk}"
+        state = {"chunks": 0, "armed": False}
+        victim = 3 if kill_chunk == "background" else 6
+        at = 1 if kill_chunk == "background" else kill_chunk
+
+        def hook(phase, state=state, victim=victim, at=at):
+            if phase == "pipeline_chunk" and state["armed"]:
+                if state["chunks"] == at:
+                    state["armed"] = False
+                    eng.stores[victim].wipe()
+                state["chunks"] += 1
+
+        eng, vec, _ = _vec_setup(make_engine, wrap, hook=hook)
+        assert eng.checkpoint({"step": 1})
+        for d in vec.data:
+            d += 5
+        state["armed"] = True
+        captured = eng.checkpoint_async({"step": 2}, background=kill_chunk == "background")
+        finalized = eng.finalize_async()
+        after_abort, _ = dump_engine(eng, as_np)
+        got = eng.restore()
+        arrays.update({f"{tag}/after_abort/{k}": v for k, v in after_abort.items()})
+        record(tag, eng, vec, captured=bool(captured), finalized=finalized, step=int(got["step"]))
+        eng.close()
+
+    # 5. a staged byte flipped after the capture: the drain's VERIFY aborts
+    corrupted = {"done": False}
+
+    def flip(phase):
+        if phase == "pipeline_chunk" and not corrupted["done"]:
+            corrupted["done"] = True
+            flat, _ = eng.stores[0].buffer.writable.own["state"]
+            flat[0] ^= 0xFF
+
+    eng, vec, _ = _vec_setup(make_engine, wrap, n=4)
+    assert eng.checkpoint({"step": 1})
+    eng._fault_hook = flip
+    meta["staged_corruption"] = {"ok": bool(eng.checkpoint({"step": 2})), "stats": _stats(eng)}
+    eng.close()
+
+    # 6. discard_pending joins a background drain; the committed checkpoint restores
+    eng, vec, _ = _vec_setup(make_engine, wrap, n=4)
+    assert eng.checkpoint({"step": 1})
+    assert eng.checkpoint_async({"step": 2})
+    eng.discard_pending()
+    meta["discard"] = {"step": int(eng.restore()["step"]), "stats": _stats(eng)}
+    eng.close()
+
+    # 7. a survivor dying at each chunk of a serial pipelined restore: the
+    # restore completes from the references captured at prep; a second
+    # restore recovers the new failure too
+    chunks = {"n": 0}
+    eng, vec, _ = _vec_setup(make_engine, wrap, restore_chunk_bytes=ASYNC_CHUNK, async_workers=0,
+                             hook=lambda ph: chunks.__setitem__("n", chunks["n"] + (ph == "restore_chunk")))
+    assert eng.checkpoint({"step": 1})
+    eng.stores[ASYNC_RESTORE_KILL].wipe()
+    eng.restore()
+    meta["restore_kill_chunks"] = chunks["n"]
+    eng.close()
+    for kill_chunk in range(chunks["n"]):
+        tag = f"restore_kill/{kill_chunk}"
+        state = {"chunks": 0, "armed": False}
+
+        def hook(phase, state=state, kill_chunk=kill_chunk):
+            if phase == "restore_chunk" and state["armed"]:
+                if state["chunks"] == kill_chunk:
+                    state["armed"] = False
+                    eng.stores[ASYNC_SURVIVOR_KILL].wipe()
+                state["chunks"] += 1
+
+        eng, vec, _ = _vec_setup(make_engine, wrap, hook=hook, restore_chunk_bytes=ASYNC_CHUNK, async_workers=0)
+        assert eng.checkpoint({"step": 1})
+        eng.stores[ASYNC_RESTORE_KILL].wipe()
+        for d in vec.data:
+            d += 3.0
+        state["armed"] = True
+        steps = [int(eng.restore()["step"])]
+        first = _restored(vec)
+        for d in vec.data:
+            d += 11.0
+        steps.append(int(eng.restore()["step"]))
+        arrays[f"{tag}/first"] = first
+        arrays[f"{tag}/restored"] = _restored(vec)
+        meta[tag] = {"steps": steps, "stats": _stats(eng, pinned_chunks=True)}
+        eng.close()
+
+    # 8. the adopted copy corrupted after the commit: the restore's VERIFY
+    # raises under the pipelined restore (the sync one restores the bytes)
+    for mode in ("sync", "pipelined"):
+        eng, vec, _ = _vec_setup(make_engine, wrap, restore_mode=mode, restore_chunk_bytes=ASYNC_CHUNK)
+        assert eng.checkpoint({"step": 1})
+        eng.stores[1].wipe()
+        holder = next(r for r in range(ASYNC_RANKS) if eng.stores[r].alive
+                      and ("state", 0, 0) in eng.stores[r].buffer.read_only.parity.get(1, {}))
+        eng.stores[holder].buffer.read_only.parity[1][("state", 0, 0)][8] ^= 0xFF
+        meta[f"restore_corrupt/{mode}"] = {"holder": holder, "outcome": _outcome(lambda: int(eng.restore()["step"]))}
+        eng.close()
+
+    # 9. the create drain over 1 and 4 workers
+    for workers in (1, 4):
+        tag = f"workers/{workers}"
+        eng, vec, _ = _vec_setup(make_engine, wrap, n=12, async_workers=workers)
+        assert eng.checkpoint_async({"step": 2}) and eng.finalize_async() is True
+        eng.stores[7].wipe()
+        eng.restore()
+        record(tag, eng, vec)
+        eng.close()
+
+    # 10. ragged worlds: every single loss and every pair of losses that are
+    # not each other's copy holders, pipelined, over 10 ranks
+    outcomes = {}
+    for kills in itertools.chain(itertools.combinations(range(10), 1), itertools.combinations(range(10), 2)):
+        eng, vec, _ = _vec_setup(make_engine, wrap, n=10, restore_chunk_bytes=512)
+        assert eng.checkpoint({"step": 1})
+        orig = _restored(vec)
+        for r in kills:
+            eng.stores[r].wipe()
+        for d in vec.data:
+            d *= -1.0
+        out = _outcome(eng.restore)
+        outcomes["+".join(map(str, kills))] = out if isinstance(out, str) else bool(np.array_equal(_restored(vec), orig))
+        eng.close()
+    meta["ragged"] = outcomes
+    return arrays, meta
+
+
+def run_async(out_path: str) -> None:
+    from repro.core.checkpoint import CheckpointEngine, EngineConfig
+
+    def make_engine(n, hook=None, **cfg):
+        return CheckpointEngine(n, EngineConfig(**cfg), fault_hook=hook)
+
+    arrays, meta = async_cases(make_engine, lambda e: e, np.asarray)
+    _save(out_path, arrays, meta)
+
+
+# ---------------------------------------------------------------------------
 # Elastic N-to-M restore
 # ---------------------------------------------------------------------------
 
@@ -672,4 +919,4 @@ def load(out_path: str) -> tuple[dict, dict]:
 
 if __name__ == "__main__":
     {"device_tier": run_device_tier, "state": run_state, "engine": run_engine,
-     "elastic": run_elastic, "trainer": run_trainer}[sys.argv[1]](sys.argv[2])
+     "elastic": run_elastic, "trainer": run_trainer, "async": run_async}[sys.argv[1]](sys.argv[2])

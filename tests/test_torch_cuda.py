@@ -288,11 +288,9 @@ def test_device_tier_compressed_on_the_card_matches_the_cpu(cuda):
                 assert torch.equal(x.view(torch.uint8), y.cpu().view(torch.uint8)), (tag, part)
 
 
-@pytest.mark.parametrize("compress", [False, True])
-def test_engine_on_the_card_matches_the_cpu(cuda, compress):
-    """The host engine with a state on the card (compression and restore on
-    the card) commits the same arenas and restores the same state as with
-    the state on the CPU."""
+def _engine_state():
+    """A small train-state-like tree on the CPU (f32 and bf16 leaves split on
+    the data dim, a replicated f32 leaf, an int32 step) and its ShardPlan."""
     rng = np.random.default_rng(5)
     cpu_state = {
         "opt": {"m": torch.from_numpy(rng.standard_normal((8, 1000)).astype(np.float32)),
@@ -301,12 +299,23 @@ def test_engine_on_the_card_matches_the_cpu(cuda, compress):
         "step": torch.tensor(3, dtype=torch.int32),
     }
     specs = {"opt": {"m": ("data", None), "w16": ("data", None)}, "params": {"embed": (None, None)}, "step": ()}
-    plan = ShardPlan.from_pspecs(cpu_state, specs)
+    return cpu_state, ShardPlan.from_pspecs(cpu_state, specs)
+
+
+def _state_on(cpu_state: dict, dev) -> dict:
+    return {k: ({kk: vv.to(dev, copy=True) for kk, vv in v.items()} if isinstance(v, dict) else v.to(dev, copy=True))
+            for k, v in cpu_state.items()}
+
+
+@pytest.mark.parametrize("compress", [False, True])
+def test_engine_on_the_card_matches_the_cpu(cuda, compress):
+    """The host engine with a state on the card (compression and restore on
+    the card) commits the same arenas and restores the same state as with
+    the state on the CPU."""
+    cpu_state, plan = _engine_state()
     results = {}
     for dev in ("cpu", cuda):
-        state = {k: ({kk: vv.to(dev, copy=True) for kk, vv in v.items()} if isinstance(v, dict)
-                     else v.to(dev, copy=True))
-                 for k, v in cpu_state.items()}
+        state = _state_on(cpu_state, dev)
         eng = CheckpointEngine(4, EngineConfig(compress=compress, restore_mode="sync"), device=dev)
         eng.register("state", ShardedStateEntity(lambda: state, plan))
         eng.register("rng", RngEntity())
@@ -331,6 +340,53 @@ def test_engine_on_the_card_matches_the_cpu(cuda, compress):
     assert a_held.keys() == b_held.keys() and all(torch.equal(a_held[k], b_held[k]) for k in a_held)
     for x, y in zip(a_st, b_st):
         assert torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.parametrize("workers", [1, 4])
+@pytest.mark.parametrize("compress", [False, True])
+def test_default_engine_on_the_card_matches_the_cpu(cuda, compress, workers):
+    """The reference's default engine with the state on the card: the own
+    and exchange arenas are pinned; a background drain over ``workers``
+    workers (under compress, B5a on the workers' own streams) commits the
+    CPU engine's bytes; the pipelined restore (under compress, B5b chunk by
+    chunk) gives the bytes of the sync restore on the card and of the CPU."""
+    cpu_state, plan = _engine_state()
+    results = {}
+    for dev in ("cpu", cuda):
+        for mode in ("pipelined", "sync"):
+            state = _state_on(cpu_state, dev)
+            eng = CheckpointEngine(4, EngineConfig(compress=compress, async_workers=workers, restore_mode=mode,
+                                                   restore_chunk_bytes=4096), device=dev)
+            eng.register("state", ShardedStateEntity(lambda: state, plan))
+            eng.register("rng", RngEntity())
+            before = ops.launch_counts()
+            assert eng.checkpoint_async({"step": 1}) and eng.finalize_async() is True
+            if str(dev) != "cpu":
+                assert all(eng.stores[r]._arenas and all(a.is_pinned() for a in eng.stores[r]._arenas.values())
+                           for r in range(4))
+            arenas = {(r, k): f.clone() for r, st in eng.stores.items() for k, (f, _) in st.buffer.read_only.own.items()}
+            held = {(r, gi, key): t.clone() for r, st in eng.stores.items()
+                    for gi, d in st.buffer.read_only.parity.items() for key, t in d.items()}
+            for leaf in tree_flatten(state)[1]:
+                leaf.fill_(7)
+            eng.stores[2].wipe()
+            eng.restore()
+            torch.cuda.synchronize()
+            after = ops.launch_counts()
+            results[(str(dev), mode)] = (arenas, held, [t.cpu() for t in tree_flatten(state)[1]])
+            if str(dev) != "cpu" and compress:
+                assert after["quantize_blockwise"] - before["quantize_blockwise"] == 2 * 4  # 2 leaves x 4 ranks
+                deq = after["dequantize_blockwise"] - before["dequantize_blockwise"]
+                assert deq == 2 if mode == "sync" else deq > 2  # rank 2's leaves; chunk by chunk
+            if mode == "pipelined":
+                assert eng.stats.last_restore_chunks > 1
+            eng.close()
+    want_ar, want_held, want_st = results[("cpu", "sync")]
+    for key, (ar, hd, st) in results.items():
+        assert ar.keys() == want_ar.keys() and all(torch.equal(ar[k], want_ar[k]) for k in ar), key
+        assert hd.keys() == want_held.keys() and all(torch.equal(hd[k], want_held[k]) for k in hd), key
+        for x, y in zip(st, want_st):
+            assert torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8)), key
 
 
 _GATHER_DTYPES = (torch.float32, torch.bfloat16, torch.int8, torch.int32)
@@ -448,7 +504,8 @@ def test_restore_elastic_on_the_card_matches_the_cpu(cuda, n_old, n_new, kill):
 def test_trainer_on_the_card_matches_the_cpu(cuda, policy, kills):
     """Reduced llama3.2-1b, 20 steps, a checkpoint every 5, hosts killed per
     ``kills``: the card takes the CPU's steps (rollbacks included) from the
-    same initial state and batches; under the elastic policy the restore
+    same initial state and batches, both drawn from the seed by the threefry
+    streams (no copy between them); under the elastic policy the restore
     runs the row gather (B6) on the card."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -459,9 +516,8 @@ def test_trainer_on_the_card_matches_the_cpu(cuda, policy, kills):
     tcfg = TrainerConfig(batch=4, seq=32, total_steps=20, checkpoint_period=5, n_virtual_hosts=4,
                          n_spares=4 if policy == "spare" else 0, recovery_policy=policy)
     runs = [Trainer(model, tcfg, injector=FailureInjector(4, schedule=kills), device=dev) for dev in ("cpu", cuda)]
-    with torch.no_grad():
-        for x, y in zip(tree_flatten(runs[1].state)[1], tree_flatten(runs[0].state)[1]):
-            x.copy_(y)
+    for (p, x), y in zip(zip(*tree_flatten(runs[1].state)), tree_flatten(runs[0].state)[1]):
+        assert torch.equal(x.cpu().reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8)), p  # same draws
     before = ops.launch_counts()["gather_rows"]
     cpu, card = (t.run(20) for t in runs)
     assert [h["step"] for h in card] == [h["step"] for h in cpu]

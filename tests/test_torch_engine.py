@@ -204,8 +204,6 @@ def test_fault_before_the_swap_keeps_the_previous_checkpoint():
 
 
 @pytest.mark.parametrize("cfg,item", [
-    (EngineConfig(), "A5"),
-    (EngineConfig(restore_mode="sync", async_workers=2), "A5"),
     (EngineConfig(restore_mode="sync", parity_group=4), "A4"),
     (EngineConfig(restore_mode="sync", codec="rs", parity_group=4), "A4"),
     (EngineConfig(restore_mode="sync", tiers=("disk",)), "A7"),
@@ -215,12 +213,6 @@ def test_fault_before_the_swap_keeps_the_previous_checkpoint():
 def test_unported_settings_raise_naming_their_roadmap_item(cfg, item):
     with pytest.raises(NotImplementedError, match=item):
         CheckpointEngine(4, cfg, device="cpu")
-
-
-def test_background_drain_raises():
-    eng = _engine(4)
-    with pytest.raises(NotImplementedError, match="A5"):
-        eng.checkpoint_async(background=True)
 
 
 def test_the_engine_runs_on_cuda_unless_asked_for_the_cpu(monkeypatch):

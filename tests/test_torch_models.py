@@ -27,6 +27,7 @@ from repro_torch.launch.steps import state_from_numpy
 from repro_torch.models import attention, build_model, common, lm, mlp
 from repro_torch.models.blocks import block_specs
 from repro_torch.sharding.spec import init_tree, tree_count
+from repro_torch.utils import threefry
 from repro_torch.utils.pytree import tree_flatten, tree_unflatten
 
 BLOCK_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -142,8 +143,8 @@ def test_abstract_params_match_reference():
 def test_init_tree_is_seeded_per_leaf():
     cfg = get_config("llama3.2-1b").reduced()
     specs = lm.abstract_params(cfg)
-    a = init_tree(torch.Generator().manual_seed(5), specs, "cpu")
-    b = init_tree(torch.Generator().manual_seed(5), specs, "cpu")
+    a = init_tree(threefry.PRNGKey(5), specs, "cpu")
+    b = init_tree(threefry.PRNGKey(5), specs, "cpu")
     paths, la = tree_flatten(a)
     for p, x, y in zip(paths, la, tree_flatten(b)[1]):
         assert torch.equal(x, y), p

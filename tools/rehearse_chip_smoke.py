@@ -3,7 +3,7 @@
 CPU, at a small config, in seconds.
 
     python3 tools/rehearse_chip_smoke.py            # all phases through main()
-    python3 tools/rehearse_chip_smoke.py --phase7   # the training loop alone
+    python3 tools/rehearse_chip_smoke.py --phase7   # the training loop alone, both checkpoint modes
 
 It runs a copy of ``chip_smoke.py``'s source in which the card is the CPU:
 ``"cuda"`` strings and ``.cuda()`` calls name the CPU, every entry point of
@@ -11,8 +11,10 @@ the port resolves its default device to the CPU, the CUDA timing, memory
 and device calls are stubbed, nothing is built and no raw kernel is
 launched (the kernel wrappers take their plain versions on CPU tensors), and
 the launch counts read one for every kernel but the row gather, which is
-counted for real (phase 6 checks its exact count). What it finds are wrong
-paths, shapes, arguments and control flow; its times mean nothing.
+counted for real (phase 6 checks its exact count), and every host tensor
+reports itself pinned (the engine on the CPU leases pageable arenas). What
+it finds are wrong paths, shapes, arguments and control flow; its times
+mean nothing.
 """
 
 from __future__ import annotations
@@ -72,6 +74,7 @@ def load_chip_smoke(cfg) -> types.ModuleType:
     torch.cuda.is_available = lambda: True
     torch.cuda.get_device_name = lambda *a: "CPU rehearsal"
     torch.cuda.device_count = lambda: 1
+    torch.Tensor.is_pinned = lambda self, *a: True
     _build.build = lambda *a: {}
     _build.call = _build.stream_of = lambda *a, **k: None
     gathers = [1]
@@ -102,9 +105,10 @@ def main() -> int:
     if not args.phase7:
         return mod.main()
     mod._HOST_START[:] = [mod.host_free_gib(), mod.host_rss_gib()]
-    run, counts = mod.trainer_path(cfg)
-    print(json.dumps(run))
-    print(json.dumps(counts))
+    for mode in ("sync", "async"):
+        run, counts = mod.trainer_path(cfg, mode)
+        print(json.dumps(run))
+        print(json.dumps(counts))
     return 0
 
 
