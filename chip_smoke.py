@@ -19,7 +19,9 @@ printing no result, on any failure or without a card. Phases:
    (quantize: f32/bf16/f16, unaligned inputs, all-zero blocks, values on the
    round-half-even boundaries; gather: f32/bf16/int8/int32 rows of 1 byte to
    512 KiB, unaligned rows, repeated and reversed indices, 0 and 1 output
-   rows), the device tier on the card against the CPU path (f32/bf16/int8
+   rows, the run-table kernel on heads and tails 1-15 bytes off 16, runs
+   under 16 bytes, a permutation, 5,000 runs, and the in-place reshard
+   against the host executor), the device tier on the card against the CPU path (f32/bf16/int8
    leaves, padded shards, ragged groups, every tolerated failure
    combination, compress=True), and the host engine and its
    ``restore_elastic`` with the state on the card against the same engine on
@@ -30,7 +32,8 @@ printing no result, on any failure or without a card. Phases:
    version, with its time, its plain version's, a PyTorch call's where one
    computes the same function, and its bound (the largest of the bytes over
    HBM, the integer work on the ALU and FMA pipes and through dispatch, and
-   f32 work), each resource's time printed;
+   f32 work), each resource's time printed; B5b and ``torch.mul`` in
+   alternating rounds;
 4. device-tier path: the llama3.2-1b train state (~17.3 GB, seeded) on a
    virtual (8, 1) ("data", "model") mesh, with rs g=4 m=2 and with xor g=4:
    snapshot with the device checksum (held against ``np_checksum`` of the
@@ -60,8 +63,9 @@ printing no result, on any failure or without a card. Phases:
    pipelined restore), ``resize(2)``; re-protect with a checkpoint on 2
    ranks, overwrite again, ``restore_elastic(8)``, ``resize(8)``. After each
    restore every leaf is byte-equal to the seeded original, and every leaf
-   with a data axis of every new rank was built by the row gather (B6): 33
-   x 2 and 33 x 8 launches. At full depth 4 -> 3 would hold every split
+   with a data axis of every new rank was built by the row gather (B6)
+   reading the recovered origin shards in place: 33 x 2 and 33 x 8
+   launches, no stacking. At full depth 4 -> 3 would hold every split
    leaf whole on each of 3 new ranks (44.5 GB beside the live state and the
    recovered payloads: more than the card has), so the drill goes 4 -> 2 ->
    8, world sizes that divide every ZeRO-1 dim. Depth is cut further, never
@@ -89,11 +93,14 @@ printing no result, on any failure or without a card. Phases:
    RAM, and the cut is printed.
 
 Phase 3 also runs B6 at the main path's largest gather (the w_up master
-leaf, 4 origins x 512 rows of 512 KiB, gathered for one new rank of the
-4 -> 2 plan), with the copies around it (the axis move and the stacking)
-timed on their own, and the host executor's result for that leaf held
-against the gather's; B6 and ``torch.index_select`` are timed in
-alternating order over ``B6_AB_ROUNDS`` rounds (medians and spreads).
+leaf, 4 origins of (16, 512, 8192) f32, gathered for one new rank of the
+4 -> 2 plan): in place (and for the embedding, split on its last dim)
+against the host executor for every new rank and against ``torch.cat`` of
+the narrowed origin shards; on the reference's stacked matrix (4 x 512
+rows of 512 KiB) against ``torch.index_select``, with the plan's index and
+with a seeded permutation of its rows; each pair in alternating order over
+``B6_AB_ROUNDS`` rounds (medians and spreads); then the leaf's whole
+reshard in place against the stack and gather that preceded it.
 
 Phase 7 runs right after phase 3, then phases 5, 6 and 4: 7 and 5 need the
 most host RAM, and phase 4's staged fetches leave pinned host blocks in
@@ -122,6 +129,7 @@ SEED = 0
 ARCH = "llama3.2-1b"
 # the largest leaf the elastic reshard gathers (phase 3's B6 shape)
 W_UP_MASTER = ("opt", "master", "layers", "slot0", "ffn", "w_up")
+W_EMBED_MASTER = ("opt", "master", "embed")  # split on its last dim: the gather's shortest rows
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores, NVIDIA data sheet
 # Integer work per pipe (CUDA C++ Programming Guide, "Arithmetic
@@ -135,7 +143,7 @@ ALU_OPS_PER_S = 64 * 132 * 1.98e9
 FMA_OPS_PER_S = 64 * 132 * 1.98e9
 DISPATCH_PER_S = 128 * 132 * 1.98e9
 MAIN_RUNS = (("rs", 4, 2, (0, 2)), ("xor", 4, 1, (5,)))
-B6_AB_ROUNDS = 16  # rounds of the B6 / index_select comparison (phase 3)
+B6_AB_ROUNDS = 16  # rounds of phase 3's comparisons in alternating order
 DEVICE_TIER_KERNELS = ("checksum", "xor_reduce", "gf256_matmul", "gf256_matmul_dyn", "quantize_blockwise",
                        "dequantize_blockwise")
 
@@ -213,6 +221,21 @@ def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def alternating_rounds(fns: dict, rounds: int | None = None, reps: int = 10) -> dict[str, dict[str, float]]:
+    """Each function timed ``rounds`` times (``B6_AB_ROUNDS`` by default),
+    the mean of ``reps`` calls each (CUDA events), the order rotated every
+    round and reversed every other one; per function the median, min, max
+    and spread in ms."""
+    names = list(fns)
+    times: dict[str, list[float]] = {k: [] for k in names}
+    for rnd in range(B6_AB_ROUNDS if rounds is None else rounds):
+        order = names[rnd % len(names):] + names[: rnd % len(names)]
+        for name in (order[::-1] if rnd % 2 else order):
+            times[name].append(time_ms(fns[name], reps=reps))
+    return {k: dict(median=statistics.median(v), min=min(v), max=max(v), spread=max(v) - min(v))
+            for k, v in times.items()}
 
 
 def gf_ops(coefs, n_words: int) -> tuple[float, float]:
@@ -473,11 +496,20 @@ def kernel_phase_main(words: int, gen) -> list[dict]:
     for r in range(8):
         rows_q, rows_s = q[r * row : (r + 1) * row], sc[r * row // 256 : (r + 1) * row // 256]
         err = max(err, max_value_err(out[r * row : (r + 1) * row], ref.dequantize_blockwise(rows_q, rows_s)))
+    # B5b against the one PyTorch call that computes it (int8 x f32 promotes
+    # to f32: one rounded product per code), in alternating rounds
+    lib = torch.empty(n, dtype=torch.float32, device="cuda")
+    ab = alternating_rounds({"dequantize_blockwise": lambda: qk.dequantize_into(q, sc, out),
+                             "torch.mul": lambda: torch.mul(q.view(-1, 256), sc.view(-1, 1), out=lib.view(-1, 256))})
+    check(torch.equal(lib.view(torch.int32), out.view(torch.int32)), "torch.mul differs from dequantize_blockwise")
+    log(f"dequantize_blockwise against torch.mul, {B6_AB_ROUNDS} rounds in alternating order, ms: " + json.dumps(ab))
+    del lib
     record("dequantize_blockwise", "src/repro_torch/kernels/csrc/quantize.cu", "src/repro/kernels/quantize.py:60",
-           err, time_ms(lambda: qk.dequantize_into(q, sc, out)),
+           err, ab["dequantize_blockwise"]["median"],
            time_ms(lambda: [ref.dequantize_blockwise(q[r * row : (r + 1) * row], sc[r * row // 256 : (r + 1) * row // 256])
                             for r in range(8)], reps=1),
-           n + 4 * (n // 256) + 4 * n, flops=2 * n)
+           n + 4 * (n // 256) + 4 * n, flops=2 * n, lib=ab["torch.mul"]["median"])
+    results[-1]["vs_torch_mul"] = ab
     del q, sc, out
     torch.cuda.empty_cache()
     for r in results:
@@ -500,21 +532,40 @@ def layout_and_plan(cfg, n_ranks: int):
     return mesh, layout, ShardPlan.from_pspecs(layout.sds, layout.pspecs)
 
 
-def gather_kernel_main(cfg, gen) -> dict:
-    """B6 at the main path's largest gather: the w_up master leaf, four
-    origin shards of (16, 512, 8192) f32 (512 rows of 512 KiB along the
-    split dim), stacked as the card executor stacks them and gathered for
-    new rank 0 of the drill's 4 -> 2 plan (rank 2 killed). Bit-equal to the
-    plain version; the host executor gives the same bytes for every new
-    rank; the axis move and the stacking copies are timed on their own."""
+def stack_rows(sources: dict, axis: int):
+    """The reference's input to its row gather (and this port's before the
+    run table): the origin shards stacked in origin order into one (rows,
+    row_elems) matrix with ``axis`` leading, one ``torch.cat`` of the
+    moved-axis views; with each origin's first row in it."""
+    import torch
+
+    base, off = {}, 0
+    for o in sorted(sources):
+        base[o], off = off, off + sources[o].shape[axis]
+    stacked = torch.cat([sources[o].movedim(axis, 0) for o in sorted(sources)])
+    return stacked.reshape(stacked.shape[0], -1), base
+
+
+def segment_index(segments, base: dict):
+    """The plan's segments (in ``dst_start`` order) as an int32 row index
+    into ``stack_rows``' matrix, on the CPU."""
+    import torch
+
+    return torch.cat([torch.arange(s.src_start, s.src_start + s.rows, dtype=torch.int64) + base[s.origin]
+                      for s in sorted(segments, key=lambda s: s.dst_start)]).to(torch.int32)
+
+
+def leaf_case(cfg, gen, path=None):
+    """A leaf's four origin shards of the drill (the w_up master leaf by
+    default: (16, 512, 8192) f32), drawn from ``gen`` on the card, and the
+    drill's 4 -> 2 plan for it (rank 2 killed): (sources, the split axis,
+    bytes per row along it, the plan)."""
     import torch
 
     from repro_torch.elastic.plan import plan_repartition
-    from repro_torch.elastic.reshard import reshard_leaves, reshard_leaves_device, segment_index, stack_rows
-    from repro_torch.kernels import _build, ref, reshard as rk
 
-    _, layout, plan = layout_and_plan(cfg, ENGINE_RANKS)
-    i = plan.treedef.index(W_UP_MASTER)
+    _, _, plan = layout_and_plan(cfg, ENGINE_RANKS)
+    i = plan.treedef.index(W_UP_MASTER if path is None else path)
     axis, shape = plan.dims[i], list(plan.shapes[i])
     shape[axis] //= ENGINE_RANKS
     sources = {o: torch.randn(shape, generator=gen, device="cuda") for o in range(ENGINE_RANKS)}
@@ -522,66 +573,113 @@ def gather_kernel_main(cfg, gen) -> dict:
     row_bytes = sources[0].numel() * 4 // shape[axis]
     # residency after killing rank 2: survivors 0, 1, 3 renumber to 0, 1, 2;
     # rank 2's copy is adopted on its pairwise partner 0; dense rank 2 leaves
-    p = plan_repartition(coords, 2, {0: 0, 1: 1, 2: 0, 3: None}, [row_bytes])
+    return sources, axis, row_bytes, plan_repartition(coords, 2, {0: 0, 1: 1, 2: 0, 3: None}, [row_bytes])
 
-    stacked, base, tail = stack_rows(sources, axis)
-    idx_host = segment_index(p.segments[0], base)
+
+def gather_kernel_main(cfg, gen) -> dict:
+    """B6 at the main path's largest gather, the w_up master leaf: four
+    origin shards of (16, 512, 8192) f32 gathered for new rank 0 of the
+    drill's 4 -> 2 plan (rank 2 killed).
+
+    Stacked, the reference's form (4 x 512 rows of 512 KiB, 1,024
+    gathered): the kernel and ``torch.index_select`` on the same matrix in
+    alternating rounds, with the plan's index (one run) and with a seeded
+    permutation of the same rows (1,024 runs), bit-equal. In place, the
+    executor's form, for new rank 0 of w_up (two strided runs of 16 rows of
+    16.8 MB) and of the embedding (split on its last dim: two strided runs
+    of 128,256 rows of 2 KiB): the host executor gives the same bytes for
+    every new rank, and the kernel is timed against
+    ``torch.cat`` of the narrowed origin shards (the host executor's form
+    as one PyTorch call). Then the whole reshard of w_up for new rank 0, in
+    place against the stack and gather this executor did before."""
+    import torch
+
+    from repro_torch.elastic.reshard import leaf_runs, reshard_leaf_device, reshard_leaves, reshard_leaves_device
+    from repro_torch.kernels import _build, ops, ref, reshard as rk
+
+    sources, axis, row_bytes, p = leaf_case(cfg, gen)
+    shape, segs = list(sources[0].shape), p.segments[0]
+    stream = _build.stream_of(sources[0].device)
+    err = 0
+
+    # in place: the host executor's bytes for every new rank, then the
+    # kernel against torch.cat for new rank 0
+    in_place = {}
+    for name, path in (("w_up", None), ("embed", W_EMBED_MASTER)):
+        srcs, ax, _, pl = (sources, axis, row_bytes, p) if path is None else leaf_case(cfg, gen, path)
+        dev = reshard_leaves_device(pl, {o: [t] for o, t in srcs.items()}, [ax])
+        host = reshard_leaves(pl, {o: [t.cpu()] for o, t in srcs.items()}, [ax])
+        for j in range(2):
+            check(torch.equal(dev[j][0].cpu().view(torch.int32), host[j][0].contiguous().view(torch.int32)),
+                  f"gather_rows: {name}, new rank {j} differs from the host executor")
+        res, lib = dev[0][0], torch.empty_like(dev[0][0])
+        del dev, host
+        leaf_segs = sorted(pl.segments[0], key=lambda s: s.dst_start)
+        views = [srcs[s.origin].narrow(ax, s.src_start, s.rows) for s in leaf_segs]
+        table, order, _ = leaf_runs(srcs, leaf_segs, ax)
+        *args, keep = rk.kernel_table([srcs[o] for o in order], res, table)
+        fns = {"gather_rows": lambda args=args: _build.call("copy_runs", *args, stream),
+               "torch.cat": lambda views=views, lib=lib, ax=ax: torch.cat(views, dim=ax, out=lib)}
+        fns["torch.cat"]()
+        res.zero_()
+        rk.copy_runs_into([srcs[o] for o in order], res, table)
+        err = max(err, max_abs_err([(res, lib)]))
+        in_place[name] = dict(runs=table.tolist(), ms=alternating_rounds(fns))
+        del res, lib, views, keep
+        if path is not None:
+            del srcs
+    torch.cuda.empty_cache()
+
+    stacked, base = stack_rows(sources, axis)
+    idx_host = segment_index(segs, base)
     idx = idx_host.to("cuda")
     out = torch.empty((idx.numel(), stacked.shape[1]), dtype=stacked.dtype, device="cuda")
-    rk.gather_rows_into(stacked, idx_host, out)
-    err = max_abs_err([(out, ref.gather_rows(stacked, idx))])
-    check(err == 0, f"gather_rows: kernel differs from its plain version (max |err| {err})")
-
-    # the host executor on the same full-width leaf, every new rank
-    dev = reshard_leaves_device(p, {o: [t] for o, t in sources.items()}, [axis])
-    host = reshard_leaves(p, {o: [t.cpu()] for o, t in sources.items()}, [axis])
-    for j in range(2):
-        check(torch.equal(dev[j][0].cpu().view(torch.int32), host[j][0].view(torch.int32)),
-              f"gather_rows: new rank {j} differs from the host executor")
-    del dev, host
-
-    unit = rk.unit_bytes(row_bytes, stacked.data_ptr(), out.data_ptr())
-    stream = _build.stream_of(stacked.device)
-    idx64 = idx.long()
     lib_out = torch.empty_like(out)
-
-    def b6():
-        _build.call("gather_rows", stacked.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(), row_bytes,
-                    unit, stream)
-
-    def lib():
-        torch.index_select(stacked, 0, idx64, out=lib_out)
-
-    # B6 against torch.index_select in alternating order (B6 first in even
-    # rounds, index_select first in odd ones): medians, with the spread
-    times: dict[str, list[float]] = {"b6": [], "lib": []}
-    for rnd in range(B6_AB_ROUNDS):
-        for name in (("b6", "lib") if rnd % 2 == 0 else ("lib", "b6")):
-            times[name].append(time_ms(b6 if name == "b6" else lib, reps=10))
-    check(torch.equal(lib_out.view(torch.int32), out.view(torch.int32)), "index_select differs from B6")
-    ab = {k: dict(median=statistics.median(v), min=min(v), max=max(v), spread=max(v) - min(v))
-          for k, v in times.items()}
-    ms, library_ms = ab["b6"]["median"], ab["lib"]["median"]
+    perm = idx_host[torch.randperm(idx_host.numel(), generator=torch.Generator().manual_seed(SEED))]
+    stacked_ab = {}
+    for name, index in (("plan", idx_host), ("permutation", perm)):
+        table = rk.index_runs(index, row_bytes)
+        *args, keep = rk.kernel_table([stacked], out, table)
+        index_card = index.to("cuda", torch.int64)
+        fns = {"gather_rows": lambda: _build.call("copy_runs", *args, stream),
+               "index_select": lambda: torch.index_select(stacked, 0, index_card, out=lib_out)}
+        fns["index_select"]()
+        out.zero_()
+        rk.copy_runs_into([stacked], out, table)
+        err = max(err, max_abs_err([(out, lib_out)]))
+        err = max(err, max_abs_err([(out, ref.gather_rows(stacked, index_card))]))
+        stacked_ab[name] = dict(runs=table.shape[0], ms=alternating_rounds(fns))
+        del keep
+    check(err == 0, f"gather_rows: kernel differs from its plain version (max |err| {err})")
+    ms = stacked_ab["plan"]["ms"]["gather_rows"]["median"]
+    library_ms = stacked_ab["plan"]["ms"]["index_select"]["median"]
     plain_ms = time_ms(lambda: ref.gather_rows(stacked, idx))
-    moved = [sources[o].movedim(axis, 0).contiguous() for o in range(ENGINE_RANKS)]
-    copies = dict(
-        movedim_ms=time_ms(lambda: [sources[o].movedim(axis, 0).contiguous() for o in range(ENGINE_RANKS)]),
-        stack_ms=time_ms(lambda: torch.cat(moved)),
-        stack_rows_ms=time_ms(lambda: stack_rows(sources, axis)),  # the port's one copy: cat of moved views
-    )
+
+    def stack_and_gather():  # the parent's executor: stack, gather, a moved-axis view
+        st, _ = stack_rows(sources, axis)
+        out = ops.gather_rows(st, idx_host)
+        return out.reshape((idx_host.numel(), *shape[:axis], *shape[axis + 1 :])).movedim(0, axis)
+
+    reshard = alternating_rounds({"in place": lambda: reshard_leaf_device(sources, segs, axis),
+                                  "stack + gather": stack_and_gather}, rounds=8, reps=3)
     # bytes: each selected source row read once, each output row written once, the indices
     rows_read = int(torch.unique(idx).numel())
     nbytes = (rows_read + idx.numel()) * row_bytes + 4 * idx.numel()
     b_ms, b_by = bound(nbytes, 0)
+    unit = rk.unit_bytes(row_bytes, stacked.data_ptr(), out.data_ptr())
     log(f"kernel gather_rows at the w_up master leaf ({ENGINE_RANKS} x {shape[axis]} rows of {row_bytes} B "
-        f"-> {idx.numel()} rows, unit {unit} B): {ms:.3f} ms (plain {plain_ms:.3f}, index_select "
-        f"{library_ms:.3f}, bound {b_ms:.3f} ms by {b_by}); copies around it: " + json.dumps(copies))
-    log(f"gather_rows against index_select, {B6_AB_ROUNDS} rounds in alternating order, ms: " + json.dumps(ab))
-    del sources, stacked, out, moved
+        f"-> {idx.numel()} rows, unit {unit} B): {ms:.4f} ms (plain {plain_ms:.3f}, "
+        f"index_select {library_ms:.4f}, bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}% of it)")
+    log(f"gather_rows against index_select, {B6_AB_ROUNDS} rounds in alternating order, ms: " + json.dumps(stacked_ab))
+    log(f"gather_rows in place against torch.cat, {B6_AB_ROUNDS} rounds in alternating order, ms: "
+        + json.dumps(in_place))
+    log("reshard of the leaf for new rank 0, in place against the stack and gather, ms: " + json.dumps(reshard))
+    del sources, stacked, out, lib_out
     torch.cuda.empty_cache()
     return dict(name="gather_rows", source="src/repro_torch/kernels/csrc/reshard.cu",
                 replaces="src/repro/kernels/reshard.py:48", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms, b6_vs_index_select=ab, **copies)
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms, vs_index_select=stacked_ab,
+                in_place=in_place, reshard_leaf=reshard)
 
 
 # ---------------------------------------------------------------------------
@@ -1109,22 +1207,23 @@ def elastic_host_need_gib(layout, plan) -> float:
 def elastic_device_need_gb(layout, plan, n_old: int, n_new: int, failed: int) -> float:
     """Card memory a restore_elastic holds at its peak: the live state, the
     recovered payloads (survivors' full shards, adopted copies' split
-    leaves; replicated leaves of an adopted copy are shared), the new split
-    shards, and the largest stacked leaf."""
+    leaves; replicated leaves of an adopted copy are shared) and the new
+    split shards, which the row gather writes from the payloads in place."""
     from repro_torch.utils.pytree import tree_flatten
 
     sizes = [int(math.prod(sd.shape)) * sd.dtype.itemsize for sd in tree_flatten(layout.sds)[1]]
     split = [b for i, b in enumerate(sizes) if plan.split_dim(i, n_old) is not None]
     repl = sum(sizes) - sum(split)
     recovered = (n_old - failed) * (repl + sum(split) // n_old) + failed * sum(split) // n_old
-    return (sum(sizes) + recovered + sum(split) + max(split)) / 1e9
+    return (sum(sizes) + recovered + sum(split)) / 1e9
 
 
 @contextlib.contextmanager
 def device_timers(*targets):
-    """CUDA events around every call of each (module, function name) while
-    the block runs, and the card memory allocated as each call starts;
-    yields {name: [(start, end, allocated bytes), ...]}."""
+    """CUDA events and the host clock around every call of each (module or
+    class, function name) while the block runs, and the card memory
+    allocated as each call starts; yields {name: [(start, end, allocated
+    bytes, host seconds), ...]}."""
     import torch
 
     saved, events = [], {}
@@ -1135,10 +1234,11 @@ def device_timers(*targets):
         def timed(*args, _fn=fn, _ev=events[name], **kw):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             allocated = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
             start.record()
             out = _fn(*args, **kw)
             end.record()
-            _ev.append((start, end, allocated))
+            _ev.append((start, end, allocated, time.perf_counter() - t0))
             return out
 
         saved.append((mod, name, fn))
@@ -1159,26 +1259,29 @@ def elastic_transition(eng, cluster, state, layout, mesh, plan, n_new: int) -> d
 
     import torch
 
-    from repro_torch.elastic import reshard as reshard_mod
+    from repro_torch.core import checkpoint
     from repro_torch.kernels import ops, reshard as rk
     from repro_torch.launch.steps import init_train_state
     from repro_torch.obs.trace import tracer
+    from repro_torch.runtime.state import ShardedStateEntity
     from repro_torch.utils.pytree import tree_flatten
 
     n_old = eng.n_ranks
     failed = n_old - len(cluster.alive())
     log(f"elastic {n_old} -> {n_new}: card memory expected at the peak about "
         f"{elastic_device_need_gb(layout, plan, n_old, n_new, failed):.1f} GB "
-        f"(live state + recovered payloads + new split shards + the largest stacked leaf)")
+        f"(live state + recovered payloads + new split shards)")
     tr = tracer()
     tr.reset()
     tr.enable()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     allocated0 = torch.cuda.memory_allocated()
+    segments0 = torch.cuda.memory_stats().get("segment.all.allocated", 0)
     before = ops.launch_counts()["gather_rows"]
     t0 = time.perf_counter()
-    with device_timers((rk, "gather_rows_into"), (reshard_mod, "stack_rows")) as ev:
+    with device_timers((rk, "copy_runs_into"), (checkpoint, "reshard_leaves_device"),
+                       (ShardedStateEntity, "restore_shards")) as ev:
         meta = eng.restore_elastic(n_new)
         torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
@@ -1190,10 +1293,15 @@ def elastic_transition(eng, cluster, state, layout, mesh, plan, n_new: int) -> d
     for e in tr.events():
         spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"]
     tr.reset()
-    gather_ms = sum(a.elapsed_time(b) for a, b, _ in ev["gather_rows_into"])
-    stack_ms = sum(a.elapsed_time(b) for a, b, _ in ev["stack_rows"])
-    allocated = dict(before_gb=allocated0 / 1e9, first_stack_gb=ev["stack_rows"][0][2] / 1e9,
-                     last_stack_gb=ev["stack_rows"][-1][2] / 1e9, after_gb=torch.cuda.memory_allocated() / 1e9)
+    gathers = ev["copy_runs_into"]
+    gather_ms = sum(e[0].elapsed_time(e[1]) for e in gathers)
+    allocated = dict(before_gb=allocated0 / 1e9, first_gather_gb=gathers[0][2] / 1e9,
+                     last_gather_gb=gathers[-1][2] / 1e9, after_gb=torch.cuda.memory_allocated() / 1e9,
+                     segments_allocated=torch.cuda.memory_stats().get("segment.all.allocated", 0) - segments0)
+    # host seconds (and card ms) of the reshard's parts: the executor, its
+    # launches, the copies into the live leaves
+    parts = {name: dict(host_s=sum(e[3] for e in ev[name]), card_ms=sum(e[0].elapsed_time(e[1]) for e in ev[name]))
+             for name in ("reshard_leaves_device", "copy_runs_into", "restore_shards")}
     rep = eng.last_elastic_report
     axised = sum(d is not None for d in plan.dims)
     check(launches == axised * n_new, f"elastic {n_old} -> {n_new}: {launches} gather launches, "
@@ -1213,8 +1321,7 @@ def elastic_transition(eng, cluster, state, layout, mesh, plan, n_new: int) -> d
                 bytes_total=rep.bytes_total, bytes_moved=rep.bytes_moved,
                 bytes_lower_bound=rep.bytes_lower_bound, movement_ratio=rep.movement_ratio,
                 gather_launches=launches, gather_ms=gather_ms,
-                gather_share=gather_ms / 1e3 / eng.stats.last_restore_s,
-                stack_ms=stack_ms, stack_share=stack_ms / 1e3 / eng.stats.last_restore_s,
+                gather_share=gather_ms / 1e3 / eng.stats.last_restore_s, reshard_parts=parts,
                 adopted=eng.stats.adopted_restores, zero_comm=eng.stats.zero_comm_restores,
                 peak_device_gb=peak / 1e9, allocated=allocated, host_free_gib=host_free_gib(),
                 host_peak_rss_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20)

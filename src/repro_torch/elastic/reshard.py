@@ -3,9 +3,12 @@
 
 The host executor (``reshard_leaves``) slices and concatenates CPU tensors,
 as the reference does with numpy. The card executor routes the row movement
-through the row-gather kernel (``ops.gather_rows``, B6): the program that
-builds each new rank's shard directly in device memory from the recovered
-rows, which the engine has already unpacked onto the card.
+through the run-table copy (B6, ``kernels/reshard.py``): each new shard of a
+split leaf is one launch that reads the origin shards where the engine
+unpacked them on the card and writes the new shard in the leaf's own layout.
+The reference stacks a leaf's origin shards into one matrix first, because
+its Pallas gather takes one array; the kernel here takes addresses, so
+nothing is stacked.
 
 Both are bit-exact: the tests hold them against each other and against the
 reference leaf by leaf.
@@ -13,10 +16,12 @@ reference leaf by leaf.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.elastic.plan import RepartitionPlan, Segment
-from repro_torch.kernels import ops
+from repro_torch.kernels import reshard as rk
 
 
 def _segments_by_leaf(plan: RepartitionPlan, j: int) -> dict[int, list[Segment]]:
@@ -58,44 +63,48 @@ def reshard_leaves(
 # the card executor (B6)
 # ---------------------------------------------------------------------------
 
-def stack_rows(sources: dict[int, torch.Tensor], axis: int) -> tuple[torch.Tensor, dict[int, int], tuple[int, ...]]:
-    """The sources stacked in origin order into one (rows, row_elems) matrix
-    with ``axis`` leading: one copy (``torch.cat`` of the moved-axis views).
-    Returns the matrix, each origin's first row in it, and the trailing
-    shape of a row."""
+def leaf_runs(sources: dict[int, torch.Tensor], segments: list[Segment], axis: int
+              ) -> tuple[torch.Tensor, list[int], tuple[int, ...]]:
+    """The run table that builds one new shard of a split leaf from its
+    origin shards in place. Viewed as (outer, rows, inner) around ``axis``,
+    a plan segment is one strided run: per outer slice, ``rows x inner``
+    contiguous elements in its origin and in the new shard. A run whose
+    slices lie back to back on both sides is one contiguous run, and
+    contiguous runs that continue each other merge. Returns the table
+    (source numbers index the origins in sorted order), that order, and the
+    new shard's shape. A few runs per leaf: built in plain Python, which
+    costs less than array operations at this size."""
     order = sorted(sources)
-    base: dict[int, int] = {}
-    off = 0
-    for origin in order:
-        base[origin] = off
-        off += sources[origin].shape[axis]
-    stacked = torch.cat([sources[o].movedim(axis, 0) for o in order])
-    return stacked.reshape(stacked.shape[0], -1), base, tuple(stacked.shape[1:])
-
-
-def segment_index(segments: list[Segment], base: dict[int, int]) -> torch.Tensor:
-    """The plan's segments (in ``dst_start`` order) as a flat int32 row-index
-    vector into the stacked matrix, on the CPU."""
-    segs = sorted(segments, key=lambda s: s.dst_start)
-    return torch.cat([
-        torch.arange(s.src_start, s.src_start + s.rows, dtype=torch.int64) + base[s.origin] for s in segs
-    ]).to(torch.int32)
-
-
-def gather_leaf(stacked: torch.Tensor, idx: torch.Tensor, tail: tuple[int, ...], axis: int) -> torch.Tensor:
-    """One new shard of a leaf: one ``ops.gather_rows`` call (B6 on the card),
-    the rows reshaped and the axis moved back (a view)."""
-    out = ops.gather_rows(stacked, idx)
-    return out.reshape((idx.shape[0], *tail)).movedim(0, axis)
+    first = sources[order[0]]
+    outer, inner = math.prod(first.shape[:axis]), math.prod(first.shape[axis + 1 :])
+    row = inner * first.element_size()
+    segs = sorted((s for s in segments if s.rows > 0), key=lambda s: s.dst_start)
+    rows_new = sum(s.rows for s in segs)
+    new_step = rows_new * row
+    runs: list[list[int]] = []
+    for s in segs if outer and row else ():
+        k, nbytes, src_step = order.index(s.origin), s.rows * row, sources[s.origin].shape[axis] * row
+        run = [k, s.src_start * row, s.dst_start * row, nbytes, outer, src_step, new_step]
+        if outer == 1 or src_step == new_step == nbytes:
+            run[3:] = [nbytes * outer, 1, 0, 0]
+            last = runs[-1] if runs else None
+            if (last is not None and last[4] == 1 and last[0] == k and last[1] + last[3] == run[1]
+                    and last[2] + last[3] == run[2]):
+                last[3] += run[3]
+                continue
+        runs.append(run)
+    shape = (*first.shape[:axis], rows_new, *first.shape[axis + 1 :])
+    return torch.tensor(runs, dtype=torch.int64).reshape(-1, len(rk.COLUMNS)), order, shape
 
 
 def reshard_leaf_device(sources: dict[int, torch.Tensor], segments: list[Segment], axis: int) -> torch.Tensor:
-    """Row-gather path for one leaf of one new rank (the reference's
-    signature): each source viewed as (rows, row_elems) with ``axis``
-    leading, stacked into one matrix, the plan's segments flattened into a
-    row-index vector, one gather. Returns a tensor on the sources' device."""
-    stacked, base, tail = stack_rows(sources, axis)
-    return gather_leaf(stacked, segment_index(segments, base), tail, axis)
+    """One new shard of one split leaf (the reference's signature): one
+    launch of the run-table copy over ``leaf_runs``, reading the origin
+    shards in place, writing a contiguous tensor on their device."""
+    table, order, shape = leaf_runs(sources, segments, axis)
+    first = sources[order[0]]
+    out = torch.empty(shape, dtype=first.dtype, device=first.device)
+    return rk.copy_runs_into([sources[o].contiguous() for o in order], out, table)
 
 
 def reshard_leaves_device(
@@ -103,23 +112,31 @@ def reshard_leaves_device(
     payload_leaves: dict[int, list[torch.Tensor]],
     axes: list[int | None],
 ) -> list[list[torch.Tensor]]:
-    """``reshard_leaves`` through the row gather: the same new shards, built
-    on the payloads' device. Where the reference's ``reshard_leaf_device``
-    stacks a leaf's sources on every call, this stacks each leaf once and
-    launches one gather per new rank from it (the same result); the stacked
-    matrix is freed before the next leaf's. Replicated leaves are passed on
-    by reference, as in ``reshard_leaves``."""
-    out: list[list[torch.Tensor]] = [[] for _ in range(plan.n_new)]
+    """``reshard_leaves`` through the run-table copy: the same new shards,
+    built on the payloads' device, one launch per split leaf per new rank.
+    The new shards are views of one allocation, 256-byte aligned: one
+    request to the card's allocator, where one per shard cost a fresh
+    device allocation each. Replicated leaves are passed on by reference,
+    as in ``reshard_leaves``."""
+    out: list[list[torch.Tensor | None]] = [[] for _ in range(plan.n_new)]
     by_rank = [_segments_by_leaf(plan, j) for j in range(plan.n_new)]
+    jobs, size = [], 0
     for i in sorted(plan.targets[0]):
-        axis = axes[i]
-        if axis is None:
-            for j in range(plan.n_new):
-                (seg,) = by_rank[j][i]
-                out[j].append(payload_leaves[seg.origin][i])
-            continue
-        stacked, base, tail = stack_rows({o: leaves[i] for o, leaves in payload_leaves.items()}, axis)
+        sources = {o: leaves[i] for o, leaves in payload_leaves.items()}
         for j in range(plan.n_new):
-            out[j].append(gather_leaf(stacked, segment_index(by_rank[j][i], base), tail, axis))
-        del stacked
+            if axes[i] is None:
+                (seg,) = by_rank[j][i]
+                out[j].append(sources[seg.origin])
+                continue
+            table, order, shape = leaf_runs(sources, by_rank[j][i], axes[i])
+            first = sources[order[0]]
+            jobs.append((j, len(out[j]), [sources[o].contiguous() for o in order], table, shape, first.dtype, size))
+            size += -(-math.prod(shape) * first.element_size() // 256) * 256
+            out[j].append(None)
+    if jobs:
+        buffer = torch.empty(size, dtype=torch.uint8, device=jobs[0][2][0].device)
+        for j, at, sources, table, shape, dtype, offset in jobs:
+            nbytes = math.prod(shape) * sources[0].element_size()
+            new = buffer[offset : offset + nbytes].view(dtype).view(shape)
+            out[j][at] = rk.copy_runs_into(sources, new, table)
     return out

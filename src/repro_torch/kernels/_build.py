@@ -52,7 +52,7 @@ _SIGNATURES = {
     "rs_decode": ("rs_decode", "repro_rs_decode", [_U64P, _I, _U64P, _I, _P, _I64, _P]),
     "quantize": ("quantize", "repro_quantize", [_P, _I, _I64, _I64, _P, _P, _P]),
     "dequantize": ("quantize", "repro_dequantize", [_P, _P, _I64, _P, _P]),
-    "gather_rows": ("reshard", "repro_gather_rows", [_P, _P, _P, _I64, _I64, _I, _P]),
+    "copy_runs": ("reshard", "repro_copy_runs", [_P, _P, _I64, _I64, _P]),
 }
 
 _lock = threading.Lock()

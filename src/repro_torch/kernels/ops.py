@@ -149,10 +149,12 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[i] = src[idx[i]] for src (rows, cols) of any dtype, idx (rows_out,)
     int32 (on the CPU or on ``src``'s device).
 
-    The move of the elastic reshard on the card: the repartition plan's row
-    segments flatten into ``idx`` and one gather builds the new shard. No
-    column padding: the kernel copies each row in the widest units that
-    divide it. An index outside ``[0, rows)`` raises."""
+    The reference's form of the elastic reshard's move (its plan's row
+    segments flattened into ``idx`` over the stacked origin shards); the
+    port's executor gives the same kernel its runs directly
+    (``elastic/reshard.py``). Here consecutive indices merge into one run
+    and one launch copies the runs. No column padding. An index outside
+    ``[0, rows)`` raises."""
     if src.ndim != 2 or idx.ndim != 1:
         raise ValueError(f"gather_rows: expected (rows, cols) and (rows_out,), got "
                          f"{tuple(src.shape)} and {tuple(idx.shape)}")

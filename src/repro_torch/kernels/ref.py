@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the kernels: checksum, XOR parity, GF(2^8)
-encode/decode, blockwise int8 quantize/dequantize, the reshard row gather.
+encode/decode, blockwise int8 quantize/dequantize, the reshard row gather
+and the run-table copy that carries it on the card.
 
 Each function repeats its CUDA kernel's arithmetic with no tiling. The
 wrappers take them for CPU tensors only; ``chip_smoke.py`` holds each
@@ -144,3 +145,17 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     reference's ``jnp.take(src, idx, axis=0)``)."""
     assert src.ndim == 2 and idx.ndim == 1
     return src.index_select(0, idx.long())
+
+
+def copy_runs(sources: Sequence[torch.Tensor], out: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The run table's copies one by one: row j of run ``(k, s, d, n, rows,
+    s_step, d_step)`` copies bytes ``[s + j * s_step, +n)`` of ``sources[k]``
+    to bytes ``[d + j * d_step, +n)`` of ``out`` (contiguous tensors, viewed
+    as flat bytes)."""
+    dst = out.reshape(-1).view(torch.uint8)
+    srcs = [s.reshape(-1).view(torch.uint8) for s in sources]
+    for k, s, d, n, rows, s_step, d_step in table.tolist():
+        x = srcs[k]
+        dst.as_strided((rows, n), (d_step, 1), dst.storage_offset() + d).copy_(
+            x.as_strided((rows, n), (s_step, 1), x.storage_offset() + s))
+    return out

@@ -454,6 +454,101 @@ def test_gather_rows_raises_on_an_index_out_of_range_on_the_card(cuda):
             ops.gather_rows(src, torch.tensor(bad, dtype=torch.int32, device=cuda))
 
 
+def _gather_case(case: str, rng, device):
+    """(source, index) of one card case of the run-table gather: rows of 1-15
+    bytes (runs under 16 bytes), 2- and 4-byte rows, a permutation of
+    4-KiB rows, 5,000 runs (past the kernel's by-value table), no rows."""
+    if case == "short":
+        return _rows(rng, 40, 7, device), torch.from_numpy(rng.integers(0, 40, 90))
+    if case == "two_byte":
+        return _rows(rng, 1000, 2, device).view(torch.bfloat16), torch.from_numpy(rng.integers(0, 1000, 3000))
+    if case == "four_byte":
+        return _rows(rng, 1000, 4, device).view(torch.float32), torch.from_numpy(rng.integers(0, 1000, 3000))
+    if case == "permutation":
+        return _rows(rng, 256, 4096, device), torch.from_numpy(rng.permutation(256))
+    if case == "many":
+        idx = rng.permutation(6000)[:5000]
+        idx[np.r_[False, idx[1:] == idx[:-1] + 1]] = 0  # no two consecutive: 5,000 runs
+        return _rows(rng, 6000, 12, device), torch.from_numpy(idx)
+    assert case == "zero"
+    return _rows(rng, 8, 64, device), torch.zeros(0, dtype=torch.int64)
+
+
+@pytest.mark.parametrize("case", ["short", "two_byte", "four_byte", "permutation", "many", "zero"])
+def test_copy_runs_gather_matches_its_plain_version(cuda, case):
+    """The run-table kernel equals ``ref.gather_rows`` bit for bit, in one
+    launch per call (none for no rows)."""
+    src, idx = _gather_case(case, np.random.default_rng(len(case)), cuda)
+    idx = idx.to(torch.int32)
+    row_bytes = src.shape[1] * src.element_size()
+    table = rk.index_runs(idx, row_bytes)
+    if case == "many":
+        assert table.shape[0] == 5000 > rk.INLINE_RUNS
+    out = torch.empty((idx.numel(), src.shape[1]), dtype=src.dtype, device=cuda)
+    before = ops.launch_counts()["gather_rows"]
+    rk.copy_runs_into([src], out, table)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["gather_rows"] == before + (idx.numel() > 0)
+    assert torch.equal(out.view(torch.uint8), ref.gather_rows(src, idx.to(cuda)).view(torch.uint8))
+
+
+@pytest.mark.parametrize("src_offset,out_offset", [(1, 1), (3, 7), (15, 0), (0, 13), (8, 8), (5, 12)])
+def test_copy_runs_heads_and_tails_off_16_bytes(cuda, src_offset, out_offset):
+    """Source and output 1-15 bytes past a 16-byte boundary, rows of 4,100
+    bytes, runs of 1-3 rows: 16-byte middles where the two addresses agree
+    modulo 16 with their head and tail bytes, narrower units where they do
+    not; bit-equal to the plain gather."""
+    rng = np.random.default_rng(src_offset * 16 + out_offset)
+    rows, row_bytes = 9, 4100
+    src = _rows(rng, rows, row_bytes, cuda, src_offset)
+    idx = torch.tensor([4, 5, 6, 0, 8, 8, 1, 2], dtype=torch.int32)
+    raw = torch.zeros(idx.numel() * row_bytes + out_offset, dtype=torch.uint8, device=cuda)
+    out = raw[out_offset:].view(idx.numel(), row_bytes)
+    rk.copy_runs_into([src], out, rk.index_runs(idx, row_bytes))
+    assert torch.equal(out, ref.gather_rows(src, idx.to(cuda)))
+    assert int(raw[:out_offset].count_nonzero()) == 0
+
+
+@pytest.mark.parametrize("n_old,n_new", [(4, 2), (2, 8), (4, 3), (3, 4)])
+def test_reshard_in_place_on_the_card_matches_the_host_executor(cuda, n_old, n_new):
+    """``reshard_leaves_device`` on card shards (one launch per split leaf
+    per new rank, the origin shards read in place) gives the host
+    executor's bytes, for leaves split on their first, middle and last dims
+    in f32, bf16, int8 and int32: strided runs of a few bytes (row by row),
+    of 0.5-3 KiB (aligned rows, units across rows) and of 24-96 KiB (across
+    chunks)."""
+    from repro_torch.elastic import plan_repartition, reshard_leaves, reshard_leaves_device
+
+    rng = np.random.default_rng(n_old * 10 + n_new)
+    state = {
+        "m": torch.from_numpy(rng.standard_normal((2, 24, 300)).astype(np.float32)),
+        "w16": torch.from_numpy(rng.standard_normal((24, 70)).astype(np.float32)).to(torch.bfloat16),
+        "n": torch.from_numpy(rng.standard_normal(24).astype(np.float32)),
+        "q": torch.from_numpy(rng.integers(-9, 9, (3, 5, 24)).astype(np.int8)),
+        "i": torch.from_numpy(rng.integers(-9, 9, (48, 3)).astype(np.int32)),
+        "r": torch.from_numpy(rng.standard_normal((6, 4)).astype(np.float32)),
+        "w": torch.from_numpy(rng.standard_normal((64, 24, 128)).astype(np.float32)),
+        "big": torch.from_numpy(rng.standard_normal((3, 48, 2048)).astype(np.float32)),
+    }
+    specs = {"m": (None, "data", None), "w16": ("data", None), "n": ("data",), "q": (None, None, "data"),
+             "i": ("data", None), "r": (None, None), "w": (None, "data", None), "big": (None, "data", None)}
+    plan = ShardPlan.from_pspecs(state, specs)
+    coords = plan.shard_coords(n_old)
+    shards = ShardedStateEntity(lambda: state, plan).snapshot_shards(n_old)
+    host_leaves = {o: [t.clone() for t in tree_flatten(s)[1]] for o, s in enumerate(shards)}
+    card_leaves = {o: [t.to(cuda) for t in leaves] for o, leaves in host_leaves.items()}
+    axes = [ls.axis for ls in coords[0]]
+    p = plan_repartition(coords, n_new, {o: o if o < n_new else None for o in range(n_old)})
+    before = ops.launch_counts()["gather_rows"]
+    card = reshard_leaves_device(p, card_leaves, axes)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["gather_rows"] - before == sum(a is not None for a in axes) * n_new
+    for j, new in enumerate(reshard_leaves(p, host_leaves, axes)):
+        for i, (x, y) in enumerate(zip(card[j], new)):
+            assert x.is_cuda and x.shape == y.shape and x.dtype == y.dtype, (j, i)
+            assert torch.equal(x.cpu().reshape(-1).view(torch.uint8), y.contiguous().reshape(-1).view(torch.uint8)), (j, i)
+
+
 @pytest.mark.parametrize("n_old,n_new,kill", [(4, 2, None), (4, 6, 1), (2, 8, None), (8, 3, 5)])
 def test_restore_elastic_on_the_card_matches_the_cpu(cuda, n_old, n_new, kill):
     """restore_elastic with the state on the card (every split leaf of every

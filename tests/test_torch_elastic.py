@@ -24,6 +24,7 @@ from repro_torch.core.checkpoint import CheckpointEngine, EngineConfig
 from repro_torch.core.distribution import DataLostError
 from repro_torch.core.serialization import LeafSlice
 from repro_torch.elastic import plan_repartition, reshard_leaf_device, reshard_leaves, reshard_leaves_device
+from repro_torch.elastic.reshard import leaf_runs
 from repro_torch.kernels import ops, ref
 from repro_torch.launch.steps import state_from_numpy, state_to_numpy
 from repro_torch.runtime.state import RngEntity, ShardedStateEntity, ShardPlan
@@ -157,11 +158,14 @@ def test_host_executor_matches_the_reference(jx, dtype, n_old, n_new):
 @pytest.mark.parametrize("dtype,n_old,n_new", EXEC)
 def test_gather_executor_on_the_cpu_matches_the_reference(jx, dtype, n_old, n_new):
     """``reshard_leaf_device`` (one leaf, one new rank) and
-    ``reshard_leaves_device`` (every leaf, stacked once) on CPU tensors give
-    the bytes of the reference's Pallas gather, leaf by leaf."""
+    ``reshard_leaves_device`` (every leaf), their run tables copied by
+    ``ref.copy_runs`` from the origin shards in place, give the bytes of the
+    reference's Pallas gather and of the host executor, leaf by leaf, in
+    contiguous tensors."""
     p, leaves, axes, names = _exec_inputs(dtype, n_old, n_new)
     key = f"exec/{dtype}/{n_old}-{n_new}"
     whole = reshard_leaves_device(p, leaves, axes)
+    host = reshard_leaves(p, leaves, axes)
     for j in range(n_new):
         for i, axis in enumerate(axes):
             segs = [s for s in p.segments[j] if s.leaf == i]
@@ -170,7 +174,54 @@ def test_gather_executor_on_the_cpu_matches_the_reference(jx, dtype, n_old, n_ne
                 continue
             want = jx[0][f"{key}/device/{j}/{names[i]}"]
             assert _same(_np(reshard_leaf_device({o: leaves[o][i] for o in leaves}, segs, axis)), want)
-            assert _same(_np(whole[j][i]), want), (j, names[i])
+            assert whole[j][i].is_contiguous() and _same(_np(whole[j][i]), want), (j, names[i])
+            assert _same(_np(host[j][i]), want), (j, names[i])
+
+
+@pytest.mark.parametrize("dtype,n_old,n_new", EXEC)
+def test_leaf_runs_tile_each_new_shard(dtype, n_old, n_new):
+    """Each split leaf's run table per new rank: its rows tile the new
+    shard's bytes, each lies inside its origin shard, there is at most one
+    run per plan segment, and none continues the run before it."""
+    p, leaves, axes, names = _exec_inputs(dtype, n_old, n_new)
+    for j in range(n_new):
+        for i, axis in enumerate(axes):
+            if axis is None:
+                continue
+            segs = [s for s in p.segments[j] if s.leaf == i]
+            sources = {o: leaves[o][i] for o in leaves}
+            table, order, shape = leaf_runs(sources, segs, axis)
+            assert order == sorted(leaves) and 1 <= len(table) <= len(segs)
+            first = sources[order[0]]
+            assert shape[axis] == sum(s.rows for s in segs) and shape[:axis] == tuple(first.shape[:axis])
+            covered = np.zeros(int(np.prod(shape)) * first.element_size(), np.int64)
+            for k, s_off, d_off, nbytes, rows, s_step, d_step in table.tolist():
+                assert s_off + (rows - 1) * s_step + nbytes <= sources[order[k]].numel() * first.element_size()
+                for r in range(rows):
+                    covered[d_off + r * d_step : d_off + r * d_step + nbytes] += 1
+            assert (covered == 1).all(), (j, names[i])
+            src, s_off, d_off, nbytes, rows = (c.numpy() for c in table.unbind(1)[:5])
+            assert not ((rows[1:] == 1) & (rows[:-1] == 1) & (src[1:] == src[:-1])
+                        & (s_off[1:] == s_off[:-1] + nbytes[:-1]) & (d_off[1:] == d_off[:-1] + nbytes[:-1])).any()
+
+
+def test_leaf_runs_make_back_to_back_slices_one_run():
+    """A segment is one strided run over the outer slices; where its slices
+    lie back to back in the origin and in the new shard (one outer slice, or
+    the whole of both), it is one contiguous run, and contiguous runs that
+    continue each other merge."""
+    from repro_torch.elastic.plan import Segment
+
+    sources = {o: torch.zeros((4, 6, 2)) for o in (0, 1)}
+    halves = [Segment(0, 0, 0, 0, 6, True), Segment(0, 1, 0, 6, 6, False)]
+    table, order, shape = leaf_runs(sources, halves, 1)
+    assert order == [0, 1] and shape == (4, 12, 2)
+    assert table.tolist() == [[0, 0, 0, 48, 4, 48, 96], [1, 0, 48, 48, 4, 48, 96]]
+    whole = leaf_runs(sources, [Segment(0, 1, 0, 0, 6, False)], 1)[0]
+    assert whole.tolist() == [[1, 0, 0, 192, 1, 0, 0]]
+    flat = {0: torch.zeros((6, 2))}
+    pieces = [Segment(0, 0, 0, 0, 2, True), Segment(0, 0, 2, 2, 3, True)]
+    assert leaf_runs(flat, pieces, 0)[0].tolist() == [[0, 0, 0, 40, 1, 0, 0]]
 
 
 @pytest.mark.parametrize("rows,cols,rows_out", [(4, 2, 6), (16, 128, 5), (9, 300, 9), (3, 1, 8)])
@@ -196,8 +247,9 @@ def test_gather_rows_raises_on_an_index_out_of_range(bad):
 
 
 def test_restore_shards_takes_m_strided_shards():
-    """ShardedStateEntity writes M != N new shards in place, including the
-    non-contiguous moved-axis views the gather executor returns."""
+    """ShardedStateEntity writes M != N new shards in place: the contiguous
+    ones the run-table executor builds in the leaf's own layout, and the
+    strided narrow views the host executor returns."""
     state_np, specs = oracle.elastic_engine_state()
     state = state_from_numpy(state_np, device="cpu")
     plan = _plan(state_np, specs)
@@ -206,14 +258,17 @@ def test_restore_shards_takes_m_strided_shards():
     # CPU shards are views of the live state: copy them before it is zeroed
     leaves = {o: [t.clone() for t in tree_flatten(s)[1]] for o, s in enumerate(ent.snapshot_shards(4))}
     p = plan_repartition(coords, 6, {o: o for o in range(4)})
-    new = reshard_leaves_device(p, leaves, [ls.axis for ls in coords[0]])
-    assert any(not t.is_contiguous() for shard in new for t in shard)
-    for leaf in tree_flatten(state)[1]:
-        leaf.zero_()
+    axes = [ls.axis for ls in coords[0]]
+    card, host = reshard_leaves_device(p, leaves, axes), reshard_leaves(p, leaves, axes)
+    assert all(t.is_contiguous() for shard in card for t in shard)
+    assert any(not t.is_contiguous() for shard in host for t in shard)
     paths = tree_flatten(state)[0]
-    ent.restore_shards({j: tree_unflatten(paths, new[j]) for j in range(6)})
-    for a, b in zip(tree_flatten(state_to_numpy(state))[1], tree_flatten(state_np)[1]):
-        assert _same(a, b)
+    for new in (card, host):
+        for leaf in tree_flatten(state)[1]:
+            leaf.zero_()
+        ent.restore_shards({j: tree_unflatten(paths, new[j]) for j in range(6)})
+        for a, b in zip(tree_flatten(state_to_numpy(state))[1], tree_flatten(state_np)[1]):
+            assert _same(a, b)
 
 
 # ---------------------------------------------------------------------------

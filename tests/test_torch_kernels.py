@@ -15,7 +15,8 @@ from repro.core.integrity import np_checksum
 from repro.kernels import ops as jops
 from repro_torch.core import gf256 as tgf256
 from repro_torch.core.integrity import np_checksum as port_np_checksum
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import reshard as rk
 from repro_torch.kernels import rs_encode as rse
 from repro_torch.launch.steps import state_from_numpy, state_to_numpy
 
@@ -225,3 +226,99 @@ def test_gf256_host_maths_match():
             tgf256.erasure_decode_matrix(6, coef, present, rows, missing),
             jgf.erasure_decode_matrix(6, coef, present, rows, missing),
         )
+
+
+# ---------------------------------------------------------------------------
+# the reshard row gather as a run table (B6)
+# ---------------------------------------------------------------------------
+
+def _index(kind: str, rows: int, rng) -> np.ndarray:
+    return {"permutation": lambda: rng.permutation(rows),
+            "repeated": lambda: np.array([3, 3, 4, 5, 5, 0, 1, 2, 2, 2]) % rows,
+            "runs": lambda: np.r_[np.arange(2, rows), np.arange(0, 4), rows - 1],
+            "reversed": lambda: np.arange(rows)[::-1],
+            "one": lambda: np.array([rows // 2]),
+            "empty": lambda: np.zeros(0, np.int64)}[kind]().astype(np.int32)
+
+
+_INDEX_KINDS = ["permutation", "repeated", "runs", "reversed", "one", "empty"]
+
+
+@pytest.mark.parametrize("row_bytes", [4, 2, 300])
+@pytest.mark.parametrize("kind", _INDEX_KINDS)
+def test_index_runs_merge_consecutive_rows_only(kind, row_bytes):
+    """One run per stretch of consecutive indices; duplicates and any order
+    kept. Expanding the table gives the index back, the runs tile the output
+    in order, and no run continues the one before it."""
+    idx = _index(kind, 12, np.random.default_rng(row_bytes))
+    table = rk.index_runs(torch.from_numpy(idx), row_bytes)
+    assert table.dtype == torch.int64 and table.shape[1] == 7
+    breaks = int(np.sum(idx[1:] != idx[:-1] + 1)) if idx.size else -1
+    assert table.shape[0] == breaks + 1
+    src, s_off, d_off, nbytes, rows = (c.numpy() for c in table.unbind(1)[:5])
+    assert (src == 0).all() and (rows == 1).all() and (nbytes > 0).all()
+    assert (s_off % row_bytes == 0).all() and (nbytes % row_bytes == 0).all()
+    assert np.array_equal(d_off, np.r_[0, np.cumsum(nbytes)[:-1]]) if idx.size else d_off.size == 0
+    got = [r for s, n in zip(s_off, nbytes) for r in range(s // row_bytes, (s + n) // row_bytes)]
+    assert got == idx.tolist()
+    assert not ((s_off[1:] == s_off[:-1] + nbytes[:-1]).any())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32", "uint8"])
+@pytest.mark.parametrize("kind", ["permutation", "repeated", "runs", "empty"])
+def test_gather_rows_through_the_run_table_matches(dtype, kind):
+    """``ops.gather_rows`` on CPU tensors (its run table copied by
+    ``ref.copy_runs``) equals ``ref.gather_rows`` and the reference's Pallas
+    gather (interpret mode) bit for bit, and launches nothing."""
+    rng = np.random.default_rng(len(kind))
+    dt = ml_dtypes.bfloat16 if dtype == "bfloat16" else np.dtype(dtype)
+    src = rng.integers(-100, 100, (12, 37)).astype(dt)
+    idx = _index(kind, 12, rng)
+    before = ops.launch_counts()["gather_rows"]
+    got = ops.gather_rows(_t(src), torch.from_numpy(idx))
+    assert ops.launch_counts()["gather_rows"] == before
+    assert torch.equal(got.view(torch.uint8), ref.gather_rows(_t(src), torch.from_numpy(idx)).view(torch.uint8))
+    if idx.size:  # the reference's Pallas call takes no empty grid
+        assert _eq(got, jops.gather_rows(jnp.asarray(src), jnp.asarray(idx)))
+
+
+def _runs(*rows) -> torch.Tensor:
+    """A table from (source, src offset, dst offset, bytes[, rows, src step,
+    dst step]) tuples."""
+    return torch.tensor([r + (1, 0, 0)[len(r) - 4 :] for r in rows], dtype=torch.int64).reshape(-1, 7)
+
+
+@pytest.mark.parametrize("table,match", [
+    (_runs((0, 0, 0, 0)), "empty"),
+    (_runs((0, 60, 0, 8)), "outside"),
+    (_runs((0, 0, 30, 8)), "outside"),
+    (_runs((0, -4, 0, 4)), "outside"),
+    (_runs((0, 0, 0, 4, 0, 4, 4)), "empty"),
+    (_runs((0, 0, 0, 4, 5, 16, 4)), "outside"),
+    (_runs((0, 0, 0, 4, 3, 4, 16)), "outside"),
+    (_runs((1, 0, 0, 4)), "source outside"),
+    (_runs((0, 0, 0, 4)).to(torch.int32), "int64"),
+    (_runs((0, 0, 0, 4))[:, :4], r"\(n, 7\)"),
+])
+def test_copy_runs_rejects_a_run_outside_its_tensors(table, match):
+    src, out = torch.zeros(16), torch.zeros(8)
+    with pytest.raises((IndexError, ValueError), match=match):
+        rk.copy_runs_into([src], out, table)
+
+
+def test_copy_runs_copies_between_dtypes_and_sources():
+    """Runs from two sources of other dtypes land byte for byte, a strided
+    one row by row; runs may come in any order and leave bytes untouched."""
+    a = torch.arange(10, dtype=torch.int32)
+    b = torch.arange(40, dtype=torch.uint8)
+    out = torch.full((32,), 0xEE, dtype=torch.uint8).view(torch.int16)
+    table = _runs((1, 3, 17, 5), (0, 4, 0, 7), (1, 30, 8, 2), (1, 10, 24, 2, 3, 5, 3))
+    rk.copy_runs_into([a, b], out, table)
+    flat = out.view(torch.uint8)
+    assert flat[:7].tolist() == a.view(torch.uint8)[4:11].tolist()
+    assert flat[8:10].tolist() == [30, 31] and flat[17:22].tolist() == [3, 4, 5, 6, 7]
+    assert flat[24:32].tolist() == [10, 11, 0xEE, 15, 16, 0xEE, 20, 21]
+    assert flat[7] == flat[10] == flat[16] == flat[22] == 0xEE
+    with pytest.raises(ValueError, match="contiguous"):
+        rk.copy_runs_into([a[::2]], out, _runs((0, 0, 0, 4)))
+

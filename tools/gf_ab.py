@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Compare the GF(2^8) kernels (B3 ``rs_encode``, B4 ``rs_decode``) of this
-tree with those built from another kernel source directory, on one GPU in
-one process.
+"""Compare the GF(2^8) kernels (B3 ``rs_encode``, B4 ``rs_decode``), or the
+row gather (B6, ``--kernel gather_rows``), of this tree with those built
+from another kernel source directory, on one GPU in one process.
 
 Run from the repository root on a machine with the CUDA toolkit and a card:
 
     python3 tools/gf_ab.py --other <csrc dir> [--other <csrc dir> ...] [--decode-only] [--reps 20]
+    python3 tools/gf_ab.py --kernel gather_rows --other <csrc dir> [--reps 20]
 
 Each ``<csrc dir>`` is another version of ``src/repro_torch/kernels/csrc``
 (for example the parent commit's, unpacked under a git-ignored directory
@@ -20,6 +21,15 @@ generator), in the order this, other, other, this, this,
 other, each time the mean of ``--reps`` launches (CUDA events), and checks
 that the two versions' outputs are bit-equal. ``--decode-only`` leaves B3
 out, for other versions whose ``repro_rs_encode`` takes other arguments.
+
+``--kernel gather_rows`` builds each version's ``reshard`` library instead
+and times B6 at ``chip_smoke.py`` phase 3's stacked w_up shape (4 x 512
+rows of 524,288 B, 1,024 gathered for new rank 0 of the 4 -> 2 plan), with
+the plan's index and with a seeded permutation of its rows, in the same
+order, bit-equality checked. A version exporting ``repro_copy_runs`` (the
+run-table kernel) takes this tree's run table; one exporting
+``repro_gather_rows`` (the index kernel it replaced) takes the index vector
+on the card.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, type=Path, action="append", help="another kernel source directory")
     ap.add_argument("--decode-only", action="store_true", help="time B4 only")
+    ap.add_argument("--kernel", choices=("gf", "gather_rows"), default="gf", help="the kernels to compare")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
@@ -53,7 +64,10 @@ def main() -> int:
         print("gf_ab: no CUDA device", file=sys.stderr)
         return 1
     print(smoke.gpu_line(), flush=True)
-    names = ("rs_decode",) if args.decode_only else ("rs_encode", "rs_decode")
+    if args.kernel == "gather_rows":
+        names = ("reshard",)
+    else:
+        names = ("rs_decode",) if args.decode_only else ("rs_encode", "rs_decode")
     csrc, build_dir = _build.CSRC, _build.BUILD_DIR
 
     def build(tag: str, src: Path) -> dict[str, Path]:
@@ -72,6 +86,8 @@ def main() -> int:
 
     others = {f"other{n}": src for n, src in enumerate(args.other, 1)}
     libs = {"this": build("this", csrc), **{tag: build(tag, src) for tag, src in others.items()}}
+    if args.kernel == "gather_rows":
+        return gather_ab(smoke, libs, others, args.reps)
     sigs = {name: _build._SIGNATURES[name] for name in ("rs_encode", "rs_decode")}
 
     def fn(tag: str, name: str):
@@ -128,6 +144,63 @@ def main() -> int:
             ms[t].append(smoke.time_ms(run[t], reps=args.reps))
         print(f"{case}: this {ms['this']} ms, {other} ({others[other]}) {ms['other']} ms, bit-equal {equal}",
               flush=True)
+    print(smoke.gpu_line(), flush=True)
+    return 0 if ok else 1
+
+
+def gather_ab(smoke, libs: dict, others: dict, reps: int) -> int:
+    """B6 of this tree against each other version's, at phase 3's stacked
+    w_up shape, with the plan's index and a permutation of its rows."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, reshard as rk
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sources, axis, row_bytes, plan = smoke.leaf_case(get_config(smoke.ARCH), gen)
+    stacked, base = smoke.stack_rows(sources, axis)
+    del sources
+    plan_idx = smoke.segment_index(plan.segments[0], base)
+    perm = plan_idx[torch.randperm(plan_idx.numel(), generator=torch.Generator().manual_seed(0))]
+    outs = {t: torch.empty((plan_idx.numel(), stacked.shape[1]), dtype=stacked.dtype, device="cuda")
+            for t in ("this", "other")}
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def gather(tag: str, lib_tag: str, idx: torch.Tensor):
+        """A zero-argument launch of ``libs[lib_tag]``'s gather into
+        ``outs[tag]``, and what it holds alive."""
+        lib, out = ctypes.CDLL(str(libs[lib_tag]["reshard"])), outs[tag]
+        if hasattr(lib, "repro_copy_runs"):
+            f = lib.repro_copy_runs
+            f.argtypes, f.restype = _build._SIGNATURES["copy_runs"][2], ctypes.c_int
+            *table, keep = rk.kernel_table([stacked], out, rk.index_runs(idx, row_bytes))
+            return (lambda: f(*table, stream)), keep
+        f = lib.repro_gather_rows
+        p, i64 = ctypes.c_void_p, ctypes.c_int64
+        f.argtypes, f.restype = [p, p, p, i64, i64, ctypes.c_int, p], ctypes.c_int
+        on_card = idx.to("cuda")
+        unit = rk.unit_bytes(row_bytes, stacked.data_ptr(), out.data_ptr())
+        return (lambda: f(stacked.data_ptr(), on_card.data_ptr(), out.data_ptr(), on_card.numel(), row_bytes, unit,
+                          stream)), on_card
+
+    ok = True
+    for (case, idx), other in ((c, o) for c in (("plan's index", plan_idx), ("permutation", perm)) for o in others):
+        (this_fn, keep_this), (other_fn, keep_other) = gather("this", "this", idx), gather("other", other, idx)
+        run = {"this": this_fn, "other": other_fn}
+        for t, fill in (("other", 0), ("this", 7)):
+            outs[t].view(torch.int32).fill_(fill)
+            if run[t]() != 0:
+                print(f"B6 {case}: the {t} kernel failed to launch", flush=True)
+                return 1
+        torch.cuda.synchronize()
+        equal = torch.equal(outs["this"].view(torch.int32), outs["other"].view(torch.int32))
+        ok &= equal
+        ms: dict[str, list[float]] = {"this": [], "other": []}
+        for t in ("this", "other", "other", "this", "this", "other"):
+            ms[t].append(smoke.time_ms(run[t], reps=reps))
+        print(f"B6 {case} ({rk.index_runs(idx, row_bytes).shape[0]} runs): this {ms['this']} ms, {other} "
+              f"({others[other]}) {ms['other']} ms, bit-equal {equal}", flush=True)
+        del keep_this, keep_other
     print(smoke.gpu_line(), flush=True)
     return 0 if ok else 1
 

@@ -10,9 +10,9 @@ It runs a copy of ``chip_smoke.py``'s source in which the card is the CPU:
 the port resolves its default device to the CPU, the CUDA timing, memory
 and device calls are stubbed, nothing is built and no raw kernel is
 launched (the kernel wrappers take their plain versions on CPU tensors), and
-the launch counts read one for every kernel but the row gather, which is
-counted for real (phase 6 checks its exact count), and every host tensor
-reports itself pinned (the engine on the CPU leases pageable arenas). What
+the launch counts read one for every kernel but the row gather, whose
+run-table copies are counted for real (phase 6 checks the exact count), and
+every host tensor reports itself pinned (the engine on the CPU leases pageable arenas). What
 it finds are wrong paths, shapes, arguments and control flow; its times
 mean nothing.
 """
@@ -39,7 +39,7 @@ import torch  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import checkpoint  # noqa: E402
-from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import _build, ops, reshard  # noqa: E402
 
 KERNELS = ("checksum", "xor_reduce", "gf256_matmul", "gf256_matmul_dyn", "quantize_blockwise",
            "dequantize_blockwise")
@@ -77,14 +77,15 @@ def load_chip_smoke(cfg) -> types.ModuleType:
     torch.Tensor.is_pinned = lambda self, *a: True
     _build.build = lambda *a: {}
     _build.call = _build.stream_of = lambda *a, **k: None
+    torch.Tensor.pin_memory = lambda self, *a: self
     gathers = [1]
-    gather = ops.gather_rows
+    copy_runs = reshard.copy_runs_into
 
-    def counted_gather(*a, **k):
-        gathers[0] += 1
-        return gather(*a, **k)
+    def counted_copy(sources, out, table, *a, **k):
+        gathers[0] += table.shape[0] > 0
+        return copy_runs(sources, out, table, *a, **k)
 
-    ops.gather_rows = counted_gather
+    reshard.copy_runs_into = counted_copy
     ops.launch_counts = lambda: {**{k: 1 for k in KERNELS}, "gather_rows": gathers[0]}
     ops.reset_launch_counts = lambda: None
     checkpoint.reshard_leaves = checkpoint.reshard_leaves_device  # the engine picks the host one on the CPU
