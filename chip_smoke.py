@@ -35,7 +35,9 @@ printing no result, on any failure or without a card. Phases:
    f32 work), each resource's time printed; B5b and ``torch.mul`` in
    alternating rounds;
 4. device-tier path: the llama3.2-1b train state (~17.3 GB, seeded) on a
-   virtual (8, 1) ("data", "model") mesh, with rs g=4 m=2 and with xor g=4:
+   virtual (8, 1) ("data", "model") mesh, with rs g=4 m=2, with xor g=4 and
+   with lrc g=4 (2 local XOR rows over 2 Cauchy rows, ranks 0 and 1 of one
+   local subgroup killed):
    snapshot with the device checksum (held against ``np_checksum`` of the
    staged host bytes), staged fetch to pinned host memory (twice: first
    with fresh pinned buffers, then reusing them), ranks killed, parity
@@ -90,7 +92,17 @@ printing no result, on any failure or without a card. Phases:
    the step-3 checkpoint (a host copy, or where the host has no room for
    one, each leaf's ``np_checksum``). Its engine holds two committed
    generations at once: depth is cut, never width, if the host lacks the
-   RAM, and the cut is printed.
+   RAM, and the cut is printed;
+8. striped host codecs: the GF(2^8) backend probe's rates (run once, after
+   phase 3, for every backend: ``table``, ``swar``, and ``torch`` on the
+   card), then the seeded state of phase 5's depth over 8 ranks through two
+   cycles of phase 5's form with ``gf_backend="torch"`` (every encode range
+   and decode chunk through B4): ``EngineConfig(codec="rs", parity_group=4,
+   rs_parity=2)`` losing hosts 0 and 2, and ``EngineConfig(parity_group=4,
+   async_workers=4)`` (xor) losing host 5. Each prints the create's times
+   and spans, the parity bytes held against the exchange bytes a copy would
+   hold, the restores' times, chunks and decode spans, and the card and host
+   peaks; every leaf must come back byte-equal and B4 must launch in each.
 
 Phase 3 also runs B6 at the main path's largest gather (the w_up master
 leaf, 4 origins of (16, 512, 8192) f32, gathered for one new rank of the
@@ -102,9 +114,9 @@ with a seeded permutation of its rows; each pair in alternating order over
 ``B6_AB_ROUNDS`` rounds (medians and spreads); then the leaf's whole
 reshard in place against the stack and gather that preceded it.
 
-Phase 7 runs right after phase 3, then phases 5, 6 and 4: 7 and 5 need the
-most host RAM, and phase 4's staged fetches leave pinned host blocks in
-PyTorch's cache. The kernels' launch counts are set to 0 before each of the
+Phase 7 runs right after phase 3, then phases 5, 8, 6 and 4: 7, 5 and 8
+need the most host RAM, and phase 4's staged fetches leave pinned host
+blocks in PyTorch's cache. The kernels' launch counts are set to 0 before each of the
 paths and read after it; every kernel a path runs must have launched in it
 (phase 7's copy codec launches none).
 
@@ -142,7 +154,9 @@ F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores, NVIDIA d
 ALU_OPS_PER_S = 64 * 132 * 1.98e9
 FMA_OPS_PER_S = 64 * 132 * 1.98e9
 DISPATCH_PER_S = 128 * 132 * 1.98e9
-MAIN_RUNS = (("rs", 4, 2, (0, 2)), ("xor", 4, 1, (5,)))
+# (codec, g, m, killed ranks); lrc: 2 local XOR rows over m=2 Cauchy rows,
+# ranks 0 and 1 both in its first local subgroup
+MAIN_RUNS = (("rs", 4, 2, (0, 2)), ("xor", 4, 1, (5,)), ("lrc", 4, 2, (0, 1)))
 B6_AB_ROUNDS = 16  # rounds of phase 3's comparisons in alternating order
 DEVICE_TIER_KERNELS = ("checksum", "xor_reduce", "gf256_matmul", "gf256_matmul_dyn", "quantize_blockwise",
                        "dequantize_blockwise")
@@ -1013,14 +1027,16 @@ def d2h_meter():
         checkpoint.pack_bytes, hoststore.pinned_empty = pack, pin
 
 
-def engine_cycle(state, originals, plan, cfg_kw: dict) -> dict:
-    """A background create (``checkpoint_async`` then ``finalize_async``) →
-    overwrite the live state → wipe rank 2's host store → the pipelined
-    restore, then every leaf checked against the originals: byte-exact,
-    except rank 2's quantized leaves under compress, which must equal the
-    plain dequantize(quantize(x)) of the originals bit for bit. Then the
-    same committed generation restored by the sync restore and checked the
-    same way: the two restores give the same bytes."""
+def engine_cycle(state, originals, plan, cfg_kw: dict, n_ranks: int = ENGINE_RANKS, kills=(2,)) -> dict:
+    """A background create (``checkpoint_async`` then ``finalize_async``) on
+    ``n_ranks`` hosts → overwrite the live state → wipe the ``kills`` hosts'
+    stores → the pipelined restore, then every leaf checked against the
+    originals: byte-exact, except the killed ranks' quantized leaves under
+    compress with the copy codec, which must equal the plain
+    dequantize(quantize(x)) of the originals bit for bit. Then the same
+    committed generation restored by the sync restore and checked the same
+    way: the two restores give the same bytes. The host's resident set is
+    sampled throughout (its peak over the cycle)."""
     import resource
 
     import torch
@@ -1033,7 +1049,7 @@ def engine_cycle(state, originals, plan, cfg_kw: dict) -> dict:
     from repro_torch.utils.pytree import tree_flatten
 
     compress = bool(cfg_kw.get("compress"))
-    eng = CheckpointEngine(ENGINE_RANKS, EngineConfig(**cfg_kw))
+    eng = CheckpointEngine(n_ranks, EngineConfig(**cfg_kw))
     rng = RngEntity()
     rng.seed, rng.counter = SEED, 17
     eng.register("state", ShardedStateEntity(lambda: state, plan))
@@ -1043,6 +1059,7 @@ def engine_cycle(state, originals, plan, cfg_kw: dict) -> dict:
     tr.reset()
     tr.enable()
     free0 = host_free_gib()
+    rss = rss_sampler()
     torch.cuda.synchronize()
     with d2h_meter() as d2h:
         check(eng.checkpoint_async({"step": 1}), "checkpoint_async: the capture failed")
@@ -1050,6 +1067,8 @@ def engine_cycle(state, originals, plan, cfg_kw: dict) -> dict:
     check(eng.finalize_async() is True, "finalize_async: the handshake failed")
     create = create_line(eng.stats)
     free1 = host_free_gib()
+    exch = sum(st.buffer.read_only.own_exch.get("state", st.buffer.read_only.own["state"])[0].numel()
+               for st in eng.stores.values())
     pinned = all(a.is_pinned() for st in eng.stores.values() for a in st._arenas.values())
     check(pinned, "an arena of the engine on the card is not pinned")
     # the host checksum's rate on this machine, over rank 0's own buffer
@@ -1067,26 +1086,27 @@ def engine_cycle(state, originals, plan, cfg_kw: dict) -> dict:
         check(meta["step"] == 1 and (rng.seed, rng.counter) == (SEED, 17), "restore: meta or rng entity")
         quantized = exact = 0
         for i, (x, o) in enumerate(zip(live, tree_flatten(originals)[1])):
-            d = plan.split_dim(i, ENGINE_RANKS)
+            d = plan.split_dim(i, n_ranks)
             if d is None:
                 check(torch.equal(_int_view(x), _int_view(o)), f"leaf {i} (replicated) differs after restore")
                 exact += 1
                 continue
-            for r, (xs, os) in enumerate(zip(x.chunk(ENGINE_RANKS, d), o.chunk(ENGINE_RANKS, d))):
-                if r == 2 and compress and o.is_floating_point() and os.numel() >= 256:
+            for r, (xs, os) in enumerate(zip(x.chunk(n_ranks, d), o.chunk(n_ranks, d))):
+                if r in kills and compress and o.is_floating_point() and os.numel() >= 256:
                     flat = os.reshape(-1)
                     pad = torch.zeros(-(-flat.numel() // 8192) * 8192, dtype=flat.dtype, device=flat.device)
                     pad[: flat.numel()] = flat
                     want = ref.dequantize_blockwise(*ref.quantize_blockwise(pad))[: flat.numel()].to(o.dtype)
                     check(torch.equal(_int_view(xs.reshape(-1)), _int_view(want)),
-                          f"leaf {i} rank 2: not the plain dequantize(quantize(x))")
+                          f"leaf {i} rank {r}: not the plain dequantize(quantize(x))")
                     quantized += 1
                 else:
                     check(torch.equal(_int_view(xs), _int_view(os)), f"leaf {i} rank {r} differs after restore")
                     exact += 1
         return dict(**restore_line(eng.stats, pipelined), exact_pieces=exact, quantized_pieces=quantized)
 
-    eng.stores[2].wipe()
+    for r in kills:
+        eng.stores[r].wipe()
     pipelined = overwrite_and_restore(True)
     check(pipelined["restore_chunks"] > 0, "the default engine's restore did not run the pipeline")
     tr.disable()
@@ -1108,10 +1128,40 @@ def engine_cycle(state, originals, plan, cfg_kw: dict) -> dict:
                adopted=stats.adopted_restores, zero_comm=stats.zero_comm_restores,
                host_free_before_gib=free0, host_free_after_create_gib=free1,
                host_peak_rss_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
+               host_cycle_peak_rss_gib=rss(), reconstructed=stats.reconstructed_restores,
                peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if eng.codec.striped:
+        # redundancy held on the hosts against the exchange bytes the copy
+        # codec would hold (one whole copy of every exchange set)
+        out.update(parity_bytes=stats.last_bytes_exchanged, exchange_bytes=exch,
+                   parity_per_exchange_byte=stats.last_bytes_exchanged / max(exch, 1),
+                   memory_overhead=eng.codec.memory_overhead(eng.codec.group_size(n_ranks), n_ranks))
     eng.close()
     del eng
     return out
+
+
+def rss_sampler(period_s: float = 0.25):
+    """Start sampling this process's resident set every ``period_s`` on a
+    thread; the returned function stops it and gives the peak in GiB."""
+    import threading
+
+    samples = [host_rss_gib()]
+    done = threading.Event()
+
+    def run():
+        while not done.wait(period_s):
+            samples.append(host_rss_gib())
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+
+    def stop() -> float:
+        done.set()
+        t.join()
+        return max(samples + [host_rss_gib()])
+
+    return stop
 
 
 def engine_path(cfg) -> tuple[dict, list[dict]]:
@@ -1167,6 +1217,94 @@ def engine_path(cfg) -> tuple[dict, list[dict]]:
     del state, originals
     for name in ("quantize_blockwise", "dequantize_blockwise"):
         check(counts[name] > 0, f"kernel {name} was launched no time on the engine path")
+    return counts, runs
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the striped host codecs (rs, xor) with the GF(2^8) products on the card
+# ---------------------------------------------------------------------------
+
+STRIPED_RANKS = 8
+# (name, EngineConfig fields, wiped hosts): rs g=4 m=2 losing two hosts of
+# group 0 (whose blobs live whole on group 1; group 1 loses two stripes of
+# each of its blobs and no data), and xor g=4 drained and restored over 4
+# workers losing host 5; both with every GF product through B4
+STRIPED_CYCLES = (
+    ("rs", {"codec": "rs", "parity_group": 4, "rs_parity": 2, "gf_backend": "torch"}, (0, 2)),
+    ("xor, 4 workers", {"parity_group": 4, "async_workers": 4, "gf_backend": "torch"}, (5,)),
+)
+
+
+def striped_host_need_gib(layout, plan) -> float:
+    """Host RAM one striped cycle holds at its peak: all ranks' own arenas,
+    the exchange arenas, the held stripes and the encode scratch (rs: half
+    the exchange bytes each), the restore's blob and output arenas and the
+    sync restore's rebuilt buffers (at most the exchange bytes), and
+    ``np_checksum``'s weight table."""
+    from repro_torch.utils.pytree import tree_flatten
+
+    sizes = [int(math.prod(sd.shape)) * sd.dtype.itemsize for sd in tree_flatten(layout.sds)[1]]
+    split = sum(b for i, b in enumerate(sizes) if plan.split_dim(i, STRIPED_RANKS) is not None)
+    repl = sum(sizes) - split
+    own_max_words = (repl + split // STRIPED_RANKS) // 4
+    weights = 4 * (1 << max(own_max_words - 1, 1).bit_length())
+    need = STRIPED_RANKS * repl + split + split + split + split + weights
+    return need / 2**30
+
+
+def striped_path(cfg) -> tuple[dict, list[dict]]:
+    """The host engine over 8 ranks under STRIPED_CYCLES, on a seeded train
+    state of PATH_LAYERS layers (fewer if the host lacks the RAM); every
+    cycle must launch the GF(2^8) kernel B4. Returns the kernels' launch
+    counts over this path alone."""
+    import gc
+
+    import torch
+
+    from repro_torch.core import gf256
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import init_train_state
+    from repro_torch.utils.pytree import tree_flatten, tree_map
+
+    log("gf256 backends (probe: k=4, m=2, 256 KiB sources, best of 5; torch on the card): "
+        + json.dumps({k: gf256._PROBE_GBPS.get(k) for k in gf256.available_backends()})
+        + f" GB/s; the probe picks {gf256._SELECTED[0]}")
+    free = host_free_settled_gib()
+    layers = min(cfg.num_layers, PATH_LAYERS)
+    mesh, layout, plan = layout_and_plan(replace(cfg, num_layers=layers), STRIPED_RANKS)
+    need = striped_host_need_gib(layout, plan)
+    while need + HOST_HEADROOM_GIB > free and layers > 1:
+        layers //= 2
+        mesh, layout, plan = layout_and_plan(replace(cfg, num_layers=layers), STRIPED_RANKS)
+        need = striped_host_need_gib(layout, plan)
+    check(need + HOST_HEADROOM_GIB <= free, f"striped path: {need:.1f} GiB of host RAM needed, {free:.1f} free")
+    log(f"striped: {layers} of {cfg.num_layers} layers, width kept (PATH_LAYERS {PATH_LAYERS}, for the run's "
+        f"time; fewer only for the host's RAM), {STRIPED_RANKS} ranks: {free:.1f} GiB host RAM free, "
+        f"{need:.1f} GiB needed")
+    state = init_train_state(layout, mesh, torch.Generator(device="cuda").manual_seed(SEED))
+    originals = tree_map(lambda t: t.clone(), state)
+    runs = []
+    ops.reset_launch_counts()  # this path's counts start here
+    try:
+        for name, cfg_kw, kills in STRIPED_CYCLES:
+            for x, o in zip(tree_flatten(state)[1], tree_flatten(originals)[1]):
+                x.copy_(o)
+            torch.cuda.reset_peak_memory_stats()
+            before = ops.launch_counts()
+            run = engine_cycle(state, originals, plan, cfg_kw, n_ranks=STRIPED_RANKS, kills=kills)
+            after = ops.launch_counts()
+            run["launches"] = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            run["killed"] = list(kills)
+            check(run["launches"].get("gf256_matmul_dyn", 0) > 0, f"striped {name}: B4 was launched no time")
+            check(run["reconstructed"] == 2 * len(kills), f"striped {name}: {run['reconstructed']} shards rebuilt")
+            runs.append(run)
+            log(f"striped {name}: " + json.dumps(run))
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        gf256.set_backend(None)  # the cycles forced the torch backend process-wide
+    counts = ops.launch_counts()
+    del state, originals
     return counts, runs
 
 
@@ -1644,6 +1782,15 @@ def main() -> int:
     kernels.append(gather_kernel_main(cfg, torch.Generator(device="cuda").manual_seed(SEED)))
     torch.cuda.empty_cache()
 
+    # the GF(2^8) backend probe, once per process, before any path resets
+    # the launch counts (the engines' planners seed from its rates)
+    from repro_torch.core import gf256
+
+    t0 = time.perf_counter()
+    best = gf256.active_backend_name()
+    log(f"gf256 probe ({time.perf_counter() - t0:.2f} s): picks {best}; GB/s "
+        + json.dumps({k: gf256.probed_gbps(k, float("nan")) for k in gf256.available_backends()}))
+
     # the trainer first: it needs the most host RAM (two committed
     # generations), and runs before any staged fetch caches pinned blocks
     counts7 = {}
@@ -1658,6 +1805,9 @@ def main() -> int:
     # path's staged fetches leave pinned host blocks in PyTorch's cache
     counts5, runs5 = engine_path(cfg)
     log(f"engine path launches: {json.dumps(counts5)}")
+    gc.collect()
+    counts8, runs8 = striped_path(cfg)
+    log(f"striped path launches: {json.dumps(counts8)}")
     counts6, runs6 = elastic_path(cfg)
     log(f"elastic path launches: {json.dumps(counts6)}")
     gc.collect()
@@ -1672,7 +1822,7 @@ def main() -> int:
     counts4, runs4 = device_tier_path(state, layout, mesh)
     log(f"device-tier path launches: {json.dumps(counts4)}")
     for k in kernels:
-        k["launches"] = counts4[k["name"]] + counts5[k["name"]] + counts6[k["name"]] + counts7[k["name"]]
+        k["launches"] = sum(c[k["name"]] for c in (counts4, counts5, counts6, counts7, counts8))
         k["route"] = "cuda"
         check(k["launches"] > 0, f"kernel {k['name']} was launched no time on the main paths")
     log(f"total {time.perf_counter() - t_start:.1f} s")

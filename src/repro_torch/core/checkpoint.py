@@ -8,7 +8,15 @@ swap of every double buffer. A fault anywhere before the swap leaves every
 read-only buffer untouched.
 
 Algorithm 4 (``restore``): survivors restore their own shards with zero
-communication; a lost shard is adopted from a surviving partner copy.
+communication; a lost shard is adopted from a surviving partner copy, or
+rebuilt by the codec from its group's survivors and redundancy blobs.
+
+Codecs (``core/codec.py``): ``copy`` (whole partner copies) and the striped
+``xor``, ``rs`` and ``lrc``, whose blobs are striped over holder groups.
+Their encode runs as GF(2^8) matrix products over planned byte ranges
+(``_encode_blobs_chunked``) and their restore as the codec's chunked decode,
+both through ``gf256``'s active backend: on the card (B4) when it is
+``torch``, which ``cfg.gf_backend`` forces and the backend probe may pick.
 
 The reference's default engine runs as it is:
 
@@ -20,7 +28,10 @@ The reference's default engine runs as it is:
   background worker (``async_workers > 0``, the default), sharded across
   ``async_workers`` workers. Under ``compress`` the encode quantizes on the
   card (B5a) on the worker's own CUDA stream, which the training step never
-  waits on.
+  waits on; the GF(2^8) products of the striped codecs run on that stream
+  too. Striped blobs are encoded into per-(group, entity) scratch arenas,
+  pinned on the card and reused across creates, and TRANSFER copies each
+  stripe into its holder's arena.
 * restore: ``restore_mode="pipelined"`` (the default) drains the chunked
   TRANSFER/DECODE/VERIFY/DEQ pipeline, the dequantization on the card (B5b)
   chunk by chunk, with a generation-keyed plan cache and the adaptive chunk
@@ -29,11 +40,10 @@ The reference's default engine runs as it is:
   world size (on the card every split leaf of every new rank is built by
   the row-gather kernel B6).
 
-What this slice does not run raises ``NotImplementedError`` naming its
-ROADMAP item instead of quietly running another path: ``xor``/``rs``/``lrc``
-on the host (A4, which also brings the chunked encode planner and the GF
-backend probe that seeds the decode planner), storage tiers and ``delta``
-(A7, so also the cold N-to-M restart), ``topology`` (A9).
+What this port does not run yet raises ``NotImplementedError`` naming its
+ROADMAP item instead of quietly running another path: storage tiers and
+``delta`` (A7, so also the cold N-to-M restart and the incremental parity
+patch), ``topology`` (A9).
 
 Host stores hold ``torch.uint8`` CPU arenas; the handshake checksums them
 on the host with ``np_checksum``, as the reference does. Restored payloads
@@ -55,7 +65,9 @@ import torch
 
 from repro_torch.core import codec as codec_mod
 from repro_torch.core import distribution as dist
-from repro_torch.core.hoststore import HostStore, StorePayload
+from repro_torch.core import gf256
+from repro_torch.core import parity as parity_mod
+from repro_torch.core.hoststore import HostStore, StorePayload, pinned_empty
 from repro_torch.core.integrity import IntegrityError, np_checksum
 from repro_torch.core.serialization import Manifest, arena_views, dtype_from_name, pack_bytes, unpack_bytes
 from repro_torch.core.snapshot import Snapshottable
@@ -77,17 +89,13 @@ _TR = tracer()  # process-global span tracer (no-op spans while disabled)
 # Engines number themselves so multi-engine traces stay attributable.
 _ENGINE_SEQ = itertools.count()
 
-#: Process-wide decode-rate record (range bytes/s, peak with slow decay, per
-#: codec name): a fresh engine sizes its first restore's chunks from the last
-#: engine's measured rate.
+#: Process-wide decode- and encode-rate records (range bytes/s, peak with
+#: slow decay, per codec name): a fresh engine sizes its first chunks from
+#: the last engine's measured rate, else from the GF backend probe.
 _DECODE_RATE: dict[str, float] = {}
 _DECODE_RATE_LOCK = threading.Lock()
-
-#: The decode rate (range bytes/s) the restore planner starts from before
-#: any restore in the process has measured one. The reference seeds it from
-#: its host GF(2^8) backend probe (``gf256.probed_gbps() * 1e9 / 4``); the
-#: port has no host GF backend until ROADMAP A4, whose probe replaces this.
-DECODE_RATE_SEED = 1e9
+_ENCODE_RATE: dict[str, float] = {}
+_ENCODE_RATE_LOCK = threading.Lock()
 
 
 class DistributedEntity(Protocol):
@@ -135,7 +143,7 @@ class EngineConfig:
     delta: bool = False            # differential checkpointing (ROADMAP A7)
     delta_chunk_bytes: int = 1 << 20
     delta_crossover: float = 0.6
-    gf_backend: str = ""           # host GF(2^8) backend (ROADMAP A4)
+    gf_backend: str = ""           # force a GF(2^8) backend: "table" | "swar" | "torch"
     tiers: tuple = ()              # persistent storage-tier ladder (ROADMAP A7)
 
 
@@ -148,8 +156,6 @@ def _unported(cfg: EngineConfig) -> str | None:
         return "delta: differential checkpointing waits for ROADMAP A7"
     if cfg.topology is not None:
         return "topology: failure-domain-aware placement waits for ROADMAP A9"
-    if cfg.gf_backend:
-        return "gf_backend: the host GF(2^8) backends wait for ROADMAP A4"
     return None
 
 
@@ -340,6 +346,10 @@ class CheckpointEngine:
         # fully successful pipelined restore (one slot: restore arenas are
         # leased by (group, entity) key, so two plans would alias them).
         self._restore_plan_cache: tuple[Any, dict[tuple[int, str], _RestoreUnit]] | None = None
+        # ((group, entity), blob) -> the striped encode's accumulator: pinned
+        # on the card, reused across creates (TRANSFER copies the stripes out
+        # before the next drain re-leases it)
+        self._enc_scratch: dict[Any, torch.Tensor] = {}
         self._obs_id = next(_ENGINE_SEQ)
         self.stats = CheckpointStats()
         self.registry = self.stats.registry
@@ -361,9 +371,8 @@ class CheckpointEngine:
         self.journal = EventJournal(None, self.registry)
         self.last_elastic_report: ElasticReport | None = None  # of the last N-to-M restore
         self.codec = codec_mod.make_codec(cfg)
-        if self.codec.striped:
-            raise NotImplementedError(
-                f"codec {self.codec.name!r}: striped codecs on the host wait for ROADMAP A4")
+        if cfg.gf_backend:
+            gf256.set_backend(cfg.gf_backend)
 
     def _new_stores(self, n_ranks: int) -> dict[int, HostStore]:
         """One store per rank, leasing pinned arenas when the engine's device
@@ -511,6 +520,9 @@ class CheckpointEngine:
             for name, rows in packed.items():
                 flat, man = rows[r]
                 payload.own[name] = (flat, man)
+                if self.codec.striped and packed_partner[name] is not packed[name]:
+                    # survivors present their exchange subset to the decode
+                    payload.own_exch[name] = packed_partner[name][r]
                 if self.cfg.validate:
                     payload.meta.setdefault("checksums", {})[name] = np_checksum(flat.numpy())
             if self.cfg.validate:
@@ -532,18 +544,21 @@ class CheckpointEngine:
 
     @contextlib.contextmanager
     def _worker_stream(self):
-        """The calling thread's own CUDA stream for the drain's work on the
-        card (the compressed encode), so the training step, on the default
-        stream, never waits on it; yields None on the CPU."""
-        if self.device.type != "cuda":
-            yield None
-            return
-        tid = threading.get_ident()
-        stream = self._streams.get(tid)
-        if stream is None:
-            stream = self._streams[tid] = torch.cuda.Stream(self.device)
-        with torch.cuda.stream(stream):
-            yield stream
+        """The calling thread's own CUDA stream for the drain's and the
+        restore's work on the card (the compressed encode, the GF(2^8)
+        products), so the training step, on the default stream, never waits
+        on it; yields None on the CPU. Inside, the ``torch`` GF backend runs
+        on the engine's device."""
+        with gf256.compute_device(self.device):
+            if self.device.type != "cuda":
+                yield None
+                return
+            tid = threading.get_ident()
+            stream = self._streams.get(tid)
+            if stream is None:
+                stream = self._streams[tid] = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(stream):
+                yield stream
 
     def _pipeline_units(self, packed) -> list[tuple]:
         """One work unit per (group, entity)."""
@@ -638,31 +653,108 @@ class CheckpointEngine:
         """ENCODE stage: one group's exchange buffers of one entity into
         redundancy blobs (under ``compress``, each member's buffer is first
         int8-compressed on the engine's device and its manifest replaced by
-        the tagged compressed one). Also records each uncompressed member's
-        exchange checksum into the replicated ``exch_sums`` table."""
+        the tagged compressed one; a striped codec's members also keep the
+        compressed bytes in ``own_exch``, the only bytes its parity decodes
+        against). Also records each uncompressed member's exchange checksum
+        into the replicated ``exch_sums`` table. A codec with a GF(2^8)
+        generator encodes in planned byte ranges into the scratch arenas."""
         gi, grp, placements, name = unit
+        codec = self.codec
+        n_out = len(placements)
         bufs = []
         for m in grp.members:
             flat, man = pending.packed[name][m]
-            if self.cfg.compress and self.codec.compressible:
+            if self.cfg.compress and codec.compressible:
                 flat, man = self._compress(flat, man)
                 pending.manifests[(m, name)] = man
+                if codec.striped:
+                    st = self.stores.get(m)
+                    payload = st.buffer.writable if st is not None and st.alive else None
+                    if payload is not None:
+                        with st.lock:
+                            payload.own_exch[name] = (flat, man)
             elif self.cfg.validate:
                 # Compressed blobs skip restore-verify (their manifest is
                 # tagged); everything else gets a capture-state reference.
                 pending.exch_sums[(m, name)] = np_checksum(flat.numpy())
             bufs.append(flat)
-        return self.codec.encode(bufs, len(placements))
+        key = (gi, name)
+
+        def lease(b: int, nbytes: int) -> torch.Tensor:
+            buf = self._enc_scratch.get((key, b))
+            if buf is None or buf.numel() < nbytes:
+                buf = pinned_empty(nbytes) if self.device.type == "cuda" else torch.empty(nbytes, dtype=torch.uint8)
+                self._enc_scratch[(key, b)] = buf
+            return buf[:nbytes]
+
+        G = codec.encode_matrix(len(bufs)) if self.cfg.encode_chunk_bytes >= 0 else None
+        if G is not None and codec.striped and G.shape[0] >= n_out:
+            return self._encode_blobs_chunked(G[:n_out], bufs, n_out, lease)
+        return codec.encode_into(bufs, n_out, lease)
+
+    # -- adaptive encode-chunk planner (the restore planner's create-side twin)
+    def _encode_rate(self) -> float:
+        """Sustained encode rate (range bytes/s) for the codec: this
+        process's peak-with-decay record, else the GF backend probe (the
+        same /4 seed as the decode planner: both run the same product)."""
+        with _ENCODE_RATE_LOCK:
+            prior = _ENCODE_RATE.get(self.codec.name)
+        if prior is not None:
+            return prior
+        return max(gf256.probed_gbps() * 1e9 / 4.0, 1e6)
+
+    def _observe_encode_rate(self, nbytes: int, dt: float) -> None:
+        if nbytes <= 0 or dt <= 0.0:
+            return
+        rate = nbytes / dt
+        with _ENCODE_RATE_LOCK:
+            prev = _ENCODE_RATE.get(self.codec.name)
+            _ENCODE_RATE[self.codec.name] = rate if prev is None else max(rate, 0.98 * prev)
+
+    def _plan_encode_step(self) -> int:
+        """Create-side chunk size, the restore planner's rule: a fixed
+        ``encode_chunk_bytes``, else the measured rate times the overhead
+        budget, a power of two within the clamps; with no realizable
+        parallelism one range of the ceiling."""
+        cb = self.cfg.encode_chunk_bytes
+        if cb > 0:
+            return max(4, cb) & ~3
+        if self._effective_workers() <= 1:
+            return self._CHUNK_MAX
+        step = int(self._encode_rate() * self._CHUNK_OVERHEAD_S / self._CHUNK_OVERHEAD_FRAC)
+        step = max(self._CHUNK_MIN, min(self._CHUNK_MAX, step))
+        return 1 << (step - 1).bit_length()
+
+    def _encode_blobs_chunked(self, G, bufs, n_out, lease) -> list[torch.Tensor]:
+        """One unit's blobs as planned [lo, hi) ranges of the GF matrix
+        product ``rs_encode`` runs whole (per-byte math: the same bytes),
+        each range's rate fed back to the planner."""
+        n = gf256.padded_len(bufs)
+        blobs = [lease(b, n) for b in range(n_out)]
+        step = self._plan_encode_step()
+        for lo in range(0, n, step):
+            hi = min(lo + step, n)
+            t = time.perf_counter()
+            gf256.gf_matrix_addmul_into(blobs, bufs, G, lo, hi, accumulate=False)
+            self._observe_encode_rate(hi - lo, time.perf_counter() - t)
+        return blobs
 
     def _transfer_unit(self, unit, blobs: list[torch.Tensor]) -> int:
-        """TRANSFER stage: whole copies are stored by reference on every
-        holder store (no copy; the referenced flat is the origin's arena view
-        from the same staging bank, so it commits and retires with the rest
-        of the snapshot)."""
+        """TRANSFER stage: a striped codec's blobs are cut into stripes
+        (``parity.stripe_bounds`` over the holder group's size) and each is
+        copied into an arena of its holder store (blobs live in transient
+        scratch). Whole copies are stored by reference (the referenced flat
+        is the origin's arena view from the same staging bank, so it commits
+        and retires with the rest of the snapshot)."""
         gi, grp, placements, name = unit
+        by_ref = not self.codec.striped
         total = 0
         for b, (blob, holders) in enumerate(zip(blobs, placements)):
             blob = blob.reshape(-1)
+            if by_ref:
+                stripes = [blob] * len(holders)
+            else:
+                stripes = [blob[lo:hi] for lo, hi in parity_mod.stripe_bounds(blob.numel(), len(holders))]
             for j, member in enumerate(holders):
                 st = self.stores[member]
                 # Capture the payload reference once: a kill wipes the store
@@ -670,9 +762,14 @@ class CheckpointEngine:
                 payload = st.buffer.writable if st.alive else None
                 if payload is None:
                     continue
+                piece = stripes[j]
+                if not by_ref:
+                    dst = st.lease(("parity", gi, name, b, j), piece.numel())
+                    dst.copy_(piece)
+                    piece = dst
                 with st.lock:
-                    payload.parity.setdefault(gi, {})[(name, b, j)] = blob
-                total += blob.nbytes
+                    payload.parity.setdefault(gi, {})[(name, b, j)] = piece
+                total += piece.nbytes
         return total
 
     def _verify_unit(self, unit, verified: set) -> None:
@@ -975,14 +1072,16 @@ class CheckpointEngine:
         restore-mode dispatch shared by ``restore`` and ``restore_elastic``.
         Under the adaptive planner a payload below the crossover takes the
         serial sync path, whose fixed cost is lower (the same bytes either
-        way). Escalation down a storage-tier ladder is ROADMAP A7."""
-        if self.cfg.restore_mode == "sync" or (
-            self.cfg.restore_chunk_bytes <= 0
-            and self._estimate_restore_bytes() <= self._sync_crossover_bytes()
-        ):
-            return {name: self._recover_entity_shards(name, ent, alive, failed)
-                    for name, ent in self._entities.items()}
-        return self._recover_all_pipelined(alive, failed)
+        way). The ``torch`` GF backend runs on the engine's device here.
+        Escalation down a storage-tier ladder is ROADMAP A7."""
+        with gf256.compute_device(self.device):
+            if self.cfg.restore_mode == "sync" or (
+                self.cfg.restore_chunk_bytes <= 0
+                and self._estimate_restore_bytes() <= self._sync_crossover_bytes()
+            ):
+                return {name: self._recover_entity_shards(name, ent, alive, failed)
+                        for name, ent in self._entities.items()}
+            return self._recover_all_pipelined(alive, failed)
 
     def _recover_entity_shards(
         self, name: str, ent: DistributedEntity, alive: set[int], failed: set[int]
@@ -1036,7 +1135,8 @@ class CheckpointEngine:
         # 2. Codec rebuild: gather the group's surviving shards + intact
         # redundancy blobs and ask the codec to decode the missing ones. The
         # copy codec's group is the singleton {origin}: present={}, and
-        # decode adopts any surviving whole copy (communication!).
+        # decode adopts any surviving whole copy (communication!); a striped
+        # blob is joined from its stripes.
         groups = self._groups()
         gi = self._group_of(origin)
         grp = groups[gi]
@@ -1054,20 +1154,26 @@ class CheckpointEngine:
                     f"group {gi} lost {len(missing_idx)} members; "
                     f"codec {self.codec.name!r} tolerates {self.codec.tolerance()}"
                 )
-            blobs: dict[int, torch.Tensor] = {}
+            stripe_sets: dict[int, list[torch.Tensor]] = {}
             for b, holders in enumerate(self.codec.placement(groups, gi, self.n_ranks)):
-                # whole copies: one stripe per blob, adopted by reference
                 stripes = [
                     self.stores[member].buffer.read_only.parity.get(gi, {}).get((name, b, j))
                     if _has_data(member) else None
                     for j, member in enumerate(holders)
                 ]
-                if all(s is not None for s in stripes):
-                    blobs[b] = stripes[0]
-            present = {
-                i: self.stores[m].buffer.read_only.own[name][0]
-                for i, m in enumerate(grp.members) if i not in missing_idx
-            }
+                if all(s is not None for s in stripes):  # any lost stripe kills the blob
+                    stripe_sets[b] = stripes
+            present = {}
+            for i, m in enumerate(grp.members):
+                if i not in missing_idx:
+                    ro = self.stores[m].buffer.read_only
+                    present[i] = ro.own_exch.get(name, ro.own[name])[0]
+            # join only the blobs the codec's row selection reads (None: all)
+            needed = self.codec.blobs_needed(sorted(present), sorted(stripe_sets), missing_idx)
+            if needed is not None:
+                stripe_sets = {b: st for b, st in stripe_sets.items() if b in needed}
+            # a single-stripe blob (a whole copy) is adopted by reference
+            blobs = {b: st[0] if len(st) == 1 else parity_mod.join_stripes(st) for b, st in stripe_sets.items()}
             try:
                 rebuilt_map = self.codec.decode(present, blobs, missing_idx)
             except codec_mod.CodecDecodeError as e:
@@ -1078,7 +1184,10 @@ class CheckpointEngine:
             if decode_cache is not None:
                 decode_cache[gi] = rebuilt_map
         rebuilt = rebuilt_map[grp.members.index(origin)].reshape(-1)
-        self.stats.adopted_restores += 1
+        if self.codec.striped:
+            self.stats.reconstructed_restores += 1
+        else:
+            self.stats.adopted_restores += 1
         man = self._redundancy_manifest(origin, name)
         kind = "partial" if has_subset else "full"
         if isinstance(man, tuple) and man[0] == "compressed":
@@ -1235,10 +1344,14 @@ class CheckpointEngine:
 
     def _decode_rate(self) -> float:
         """Sustained chunk-decode rate (range bytes/s) for the codec: this
-        process's peak-with-decay record, else ``DECODE_RATE_SEED``."""
+        process's peak-with-decay record, else the GF backend probe
+        (``probed_gbps`` measures k=4 sources' bytes per second, so /4 is
+        the per-range rate)."""
         with _DECODE_RATE_LOCK:
             prior = _DECODE_RATE.get(self.codec.name)
-        return prior if prior is not None else DECODE_RATE_SEED
+        if prior is not None:
+            return prior
+        return max(gf256.probed_gbps() * 1e9 / 4.0, 1e6)
 
     def _observe_decode_rate(self, nbytes: int, dt: float) -> None:
         if nbytes <= 0 or dt <= 0.0:
@@ -1309,6 +1422,12 @@ class CheckpointEngine:
             if i not in missing_idx:
                 ro = self.stores[m].buffer.read_only
                 present[i] = ro.own_exch.get(name, ro.own[name])[0]
+        # repair locality: the blobs the codec's decode will not read are
+        # neither leased nor transferred (an LRC single loss moves one local
+        # parity)
+        needed = codec.blobs_needed(sorted(present), sorted(stripe_srcs), missing_idx)
+        if needed is not None:
+            stripe_srcs = {b: s for b, s in stripe_srcs.items() if b in needed}
 
         # blob arenas live in the recovering host's staging bank (never the
         # read-only one); a single-stripe blob is adopted by reference
@@ -1325,6 +1444,13 @@ class CheckpointEngine:
                 blobs[b] = stripes[0].reshape(-1)
             else:
                 blobs[b] = store.lease(("restore", gi, name, "blob", b), sum(s.numel() for s in stripes))
+        multi = {b: s for b, s in stripe_srcs.items() if len(s) > 1}
+        if multi and not codec.decode_chunked():
+            # a codec that decodes eagerly inside decode_into reads its blobs
+            # now: join them up front (TRANSFER then has nothing to copy)
+            for b, stripes in multi.items():
+                blobs[b].copy_(parity_mod.join_stripes(stripes))
+            multi = {}
         try:
             rebuilt, decode_chunk = codec.decode_into(
                 present, blobs, missing_idx, lambda i, nb: store.lease(("restore", gi, name, "out", i), nb))
@@ -1349,8 +1475,7 @@ class CheckpointEngine:
                 plan = self._prep_decomp_plan(manifests[i][1], rebuilt[i].reshape(-1))
                 if plan:
                     decomp[i] = plan
-        return _RestoreUnit(gi=gi, grp=grp, name=name, missing_idx=missing_idx,
-                            stripe_srcs={b: s for b, s in stripe_srcs.items() if len(s) > 1},
+        return _RestoreUnit(gi=gi, grp=grp, name=name, missing_idx=missing_idx, stripe_srcs=multi,
                             blobs=blobs, rebuilt=rebuilt, decode_chunk=decode_chunk, bounds=bounds,
                             manifests=manifests, ref_sums=ref_sums,
                             sums={i: [None] * len(bounds) for i in missing_idx}, decomp=decomp or None)
@@ -1408,10 +1533,13 @@ class CheckpointEngine:
 
     def _restore_chunk_task(self, u: _RestoreUnit, ci: int) -> None:
         """The parallel drain's form of one chunk: its own TRANSFER, DECODE,
-        VERIFY and DEQ (chunks are range-disjoint, so any interleaving gives
-        the serial pipeline's bytes)."""
-        for phase in ("r_transfer", "decode", "r_verify", "deq"):
-            self._restore_stage(u, ci, phase)
+        VERIFY and DEQ on the worker's own stream (chunks are range-disjoint,
+        so any interleaving gives the serial pipeline's bytes)."""
+        with self._worker_stream() as stream:
+            for phase in ("r_transfer", "decode", "r_verify", "deq"):
+                self._restore_stage(u, ci, phase)
+            if stream is not None:
+                stream.synchronize()  # the caller reads the DEQ outputs on its own stream
         self._fault_hook("restore_chunk")
 
     def _restore_transfer_chunk(self, u: _RestoreUnit, lo: int, hi: int) -> None:

@@ -1,5 +1,6 @@
 """Device-tier snapshot/restore programs on one card (port of
-``repro.core.device_tier`` for codecs ``copy``, ``xor`` and ``rs``).
+``repro.core.device_tier`` for codecs ``copy``, ``xor``, ``rs`` and
+``lrc``).
 
 The reference runs one shard per TPU under ``shard_map`` and moves buffers
 with ``ppermute``. Here every virtual rank of a :class:`VirtualMesh` lives on
@@ -27,8 +28,13 @@ the quantize kernel (B5a) covers all rows (blocks never cross a row). The
 codes and scales travel along the same permutation as the uncompressed
 copy.
 
-What waits (ROADMAP): ``emit_full_blobs=True``, ``codec="lrc"``,
-``build_mirror_program`` and the copy codec's ``restore_fn``.
+``codec="lrc"`` encodes with ``codec.lrc_generator``'s rows (``lrc_locals``
+local XOR rows over ``rs_parity`` Cauchy rows) through the encode kernel
+B3, and its restore solves through the codec's cheapest invertible row set
+(a single loss: one local parity) with the decode kernel B4.
+
+What waits (ROADMAP): ``emit_full_blobs=True``, ``build_mirror_program``
+and the copy codec's ``restore_fn``.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.core import codec as codec_mod
 from repro_torch.core import distribution as dist
 from repro_torch.core import gf256
 from repro_torch.core.serialization import dtype_name
@@ -61,7 +68,21 @@ from repro_torch.utils.pytree import tree_flatten, tree_map, tree_unflatten
 log = get_logger("core.device_tier")
 _TR = tracer()
 
-_CODECS = ("copy", "xor", "rs")
+_CODECS = ("copy", "xor", "rs", "lrc")
+
+
+def _n_parity(codec: str, g: int, rs_parity: int, lrc_locals: int) -> int:
+    """Redundancy blobs per group: lrc's locals (at most g) plus globals."""
+    return {"copy": 0, "xor": 1, "rs": rs_parity, "lrc": min(lrc_locals, max(g, 1)) + rs_parity}[codec]
+
+
+def _generator(codec: str, g: int, rs_parity: int, lrc_locals: int) -> np.ndarray:
+    """The (n_parity, g) GF(2^8) generator of a striped codec."""
+    if codec == "xor":
+        return np.ones((1, g), np.uint8)
+    if codec == "lrc":
+        return codec_mod.lrc_generator(g, lrc_locals, rs_parity)
+    return gf256.cauchy_matrix(rs_parity, g)
 # bucket dtypes the quantize kernel reads as they are; others are cast to f32
 _QUANT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -332,10 +353,11 @@ def build_snapshot_program(
     scheme: str = "pairwise",
     include_own_copy: bool = True,
     validate: bool = True,
-    codec: str = "copy",       # "copy" | "xor" | "rs"
+    codec: str = "copy",       # "copy" | "xor" | "rs" | "lrc"
     parity_group: int = 0,     # group size g for the striped codecs
-    rs_parity: int = 2,        # m parity blobs for "rs"
+    rs_parity: int = 2,        # m parity blobs for "rs" (global parities for "lrc")
     compress: bool = False,    # int8 partner copies (copy codec only)
+    lrc_locals: int = 2,       # local XOR rows for "lrc"
 ) -> SnapshotProgram:
     if codec not in _CODECS:
         raise ValueError(f"codec {codec!r}: this port runs {_CODECS}")
@@ -345,7 +367,7 @@ def build_snapshot_program(
     striped = codec != "copy"
     if striped and parity_group < 1:
         raise ValueError("striped codecs need parity_group (the group size)")
-    n_parity = {"copy": 0, "xor": 1, "rs": rs_parity}[codec]
+    n_parity = _n_parity(codec, parity_group, rs_parity, lrc_locals)
     g = parity_group if striped else 1
     if striped and n_parity > _build.MAX_M:
         raise ValueError(f"at most {_build.MAX_M} parity blobs per group")
@@ -411,7 +433,7 @@ def build_snapshot_program(
         pcie_payload = fused_bytes if not compress else fused_bytes // 4
     pcie_bytes = (own_bytes if include_own_copy else 0) + pcie_payload
 
-    gen = gf256.cauchy_matrix(rs_parity, g) if codec == "rs" else None
+    gen = _generator(codec, g, rs_parity, lrc_locals) if codec in ("rs", "lrc") else None
 
     def _permuted(bucket: FusedBucket, x: torch.Tensor) -> torch.Tensor:
         """The copy codec: rows of ``x`` (one per bucket coordinate) moved
@@ -648,19 +670,24 @@ def striped_decode_rows(
     codec: str,
     rs_parity: int,
     failed: set[int] | tuple[int, ...],
+    lrc_locals: int = 2,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Host precompute for the restore: per failure-axis coordinate ONE decode
     row over the ``g + m`` inputs ``[group data 0..g-1, blobs 0..m-1]``.
 
     Survivors get their one-hot identity row; each failed coordinate gets its
-    row of ``gf256.erasure_decode_matrix``. Returns ``(rows (size, g+m)
-    uint32, mask (ng·g,) uint32)``; raises ``ValueError`` when the failure set
-    exceeds the codec's tolerance or destroys the blobs needed to cover it.
+    row of ``gf256.erasure_decode_matrix``. For ``lrc`` the rows it solves
+    through are the codec's own cheapest invertible set (a single loss: one
+    local parity, zero coefficients outside its subgroup). Returns ``(rows
+    (size, g+m) uint32, mask (ng·g,) uint32)``; raises ``ValueError`` when
+    the failure set exceeds the codec's tolerance or destroys the blobs
+    needed to cover it.
     """
-    if codec not in ("xor", "rs"):
-        raise ValueError(f"codec {codec!r}: this port decodes ('xor', 'rs')")
+    if codec not in ("xor", "rs", "lrc"):
+        raise ValueError(f"codec {codec!r}: this port decodes ('xor', 'rs', 'lrc')")
     g = parity_group
-    coef = np.ones((1, g), np.uint8) if codec == "xor" else gf256.cauchy_matrix(rs_parity, g)
+    coef = _generator(codec, g, rs_parity, lrc_locals)
+    helper = codec_mod.LRCCodec(g, lrc_locals, rs_parity) if codec == "lrc" else None
     m = coef.shape[0]
     failed = set(failed)
     groups = dist.parity_groups(axis_size, g)
@@ -677,19 +704,26 @@ def striped_decode_rows(
             rows[grp.members[q], q] = 1
         if not missing:
             continue
-        if len(missing) > m:
+        if helper is None and len(missing) > m:
             raise ValueError(f"group {gi} lost {len(missing)} members; codec {codec!r} tolerates {m}")
         # a blob is usable iff every holder of its stripes survives
         usable = [
             b for b in range(m)
             if all(h not in failed for h in groups[dist.blob_holder_group(ng, gi, b)].members)
         ]
-        if len(usable) < len(missing):
+        if helper is not None:
+            try:
+                sel = helper._decode_rows(sorted(usable), missing, present)
+            except codec_mod.CodecDecodeError as exc:
+                raise ValueError(str(exc)) from exc
+        elif len(usable) < len(missing):
             raise ValueError(
                 f"group {gi}: {len(missing)} losses but only "
                 f"{len(usable)} intact redundancy blobs (codec {codec!r})"
             )
-        D = gf256.erasure_decode_matrix(g, coef, present, usable[: len(missing)], missing)
+        else:
+            sel = usable[: len(missing)]
+        D = gf256.erasure_decode_matrix(g, coef, present, sel, missing)
         for t, q in enumerate(missing):
             rows[grp.members[q]] = D[t]
     return rows.astype(np.uint32), mask
@@ -714,6 +748,7 @@ def build_striped_restore_program(
     codec: str = "xor",
     parity_group: int = 1,
     rs_parity: int = 2,
+    lrc_locals: int = 2,
 ) -> StripedRestoreProgram:
     """The inverse of the striped snapshot program.
 
@@ -729,11 +764,11 @@ def build_striped_restore_program(
     tensors are overwritten (the reference returns new arrays). This saves a
     second copy of the exchanged state on the card.
     """
-    if codec not in ("xor", "rs"):
-        raise ValueError(f"codec {codec!r}: this port restores ('xor', 'rs')")
+    if codec not in ("xor", "rs", "lrc"):
+        raise ValueError(f"codec {codec!r}: this port restores ('xor', 'rs', 'lrc')")
     if parity_group < 1:
         raise ValueError("parity_group must be >= 1")
-    n_parity = {"xor": 1, "rs": rs_parity}[codec]
+    n_parity = _n_parity(codec, parity_group, rs_parity, lrc_locals)
     g = parity_group
 
     # Same bucketing as the snapshot program: the parity payload this program
@@ -741,7 +776,7 @@ def build_striped_restore_program(
     snap = build_snapshot_program(
         mesh, state_sds, state_pspecs, redundancy_axis=redundancy_axis,
         include_own_copy=False, validate=False, codec=codec,
-        parity_group=parity_group, rs_parity=rs_parity,
+        parity_group=parity_group, rs_parity=rs_parity, lrc_locals=lrc_locals,
     )
     buckets = snap.buckets
     paths, leaves_sds = tree_flatten(state_sds)

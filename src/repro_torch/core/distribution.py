@@ -6,8 +6,9 @@ engine need, copied: the scheme registry with ``pairwise``/``neighbor``/
 ``mirror``, ``multi_copy_shifts``, ``perm_pairs`` and ``inverse_perm`` (the
 rank permutations a partner copy travels along), Algorithm 4's
 ``recovery_plan`` with ``DataLostError``, ``parity_groups``/``group_of``
-(the striped codecs' group partition) and ``blob_holder_group`` (where each
-group's redundancy blobs live). "Rank" is a failure-domain index: a host of
+(the striped codecs' group partition), ``blob_holder_group`` (where each
+group's redundancy blobs live) and ``parity_recovery_plan`` (Algorithm 4
+for XOR groups). "Rank" is a failure-domain index: a host of
 the engine, or a coordinate of the virtual mesh's redundancy axis.
 """
 
@@ -178,6 +179,11 @@ def group_of(rank: int, group_size: int) -> int:
     return rank // group_size
 
 
+def rank_group_map(groups: list[ParityGroup]) -> dict[int, int]:
+    """rank -> group index for a group list."""
+    return {r: gi for gi, g in enumerate(groups) for r in g.members}
+
+
 def blob_holder_group(n_groups: int, gi: int, b: int) -> int:
     """Holder group of group ``gi``'s redundancy blob ``b``: neighbor
     ``gi+1+b`` (wrapping, skipping ``gi`` itself unless it is the only group
@@ -186,3 +192,15 @@ def blob_holder_group(n_groups: int, gi: int, b: int) -> int:
     others = [(gi + 1 + t) % n_groups for t in range(n_groups)]
     others = [h for h in others if h != gi] or [gi]
     return others[b % len(others)]
+
+
+def parity_recovery_plan(n_prev: int, failed: set[int], group_size: int) -> dict[int, int]:
+    """Algorithm 4 for XOR parity-group mode: origin_prev_rank -> new_rank
+    that reconstructs (or locally restores) its blocks. A thin wrapper over
+    the codec layer's generic plan: one failure per group, and every stripe
+    of the group's parity blob (on the next group, wrapping) intact; the
+    lowest surviving member rebuilds, and a singleton group's stripe holder
+    adopts its parity, which IS its snapshot."""
+    from repro_torch.core.codec import XorCodec, codec_recovery_plan
+
+    return codec_recovery_plan(n_prev, failed, XorCodec(group_size))

@@ -29,10 +29,10 @@ a due checkpoint captures and drains before the next step; under
 drains behind the next step on the engine's worker, and commits at the
 following barrier.
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: the storage-tier ladder (``tier_dir``, ``disk_path``,
-``cold_restart``: A7); the host ``xor``/``rs`` codecs (the engine raises:
-A4).
+Any engine codec runs (``TrainerConfig.engine``: ``copy``, or the striped
+``xor``, ``rs`` and ``lrc``). Not ported yet, each raising
+``NotImplementedError`` naming its ROADMAP item: the storage-tier ladder
+(``tier_dir``, ``disk_path``, ``cold_restart``: A7).
 """
 
 from __future__ import annotations

@@ -28,7 +28,8 @@ import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 # (name, codec, parity_group, rs_parity)
-CASES = (("copy", "copy", 0, 2), ("xor2", "xor", 2, 1), ("rs2", "rs", 2, 2), ("rs3", "rs", 3, 2))
+CASES = (("copy", "copy", 0, 2), ("xor2", "xor", 2, 1), ("rs2", "rs", 2, 2), ("rs3", "rs", 3, 2),
+         ("lrc2", "lrc", 2, 2))  # lrc: lrc_locals 2 (both sides' default) over rs_parity globals
 
 
 def device_tier_state():
@@ -206,6 +207,17 @@ ENGINE_MODES = {
 ENGINE_RANKS = 8
 ENGINE_DIM = 1000  # >= 256, so compress_tree quantizes the vector (padded to 8192)
 
+# the ShardedStateEntity + RngEntity cases over 4 ranks (rank 2 wiped):
+# tag -> EngineConfig fields; the striped codecs in groups of 2, each
+# group's blobs on the other, plain and int8-compressed
+ENGINE_STATE_CASES = {
+    "state0": {}, "state1": {"compress": True},
+    **{f"{name}{int(c)}": {**cfg, "compress": c}
+       for name, cfg in (("xor", {"parity_group": 2}), ("rs", {"codec": "rs", "parity_group": 2, "rs_parity": 2}),
+                         ("lrc", {"codec": "lrc", "parity_group": 2}))
+       for c in (False, True)},
+}
+
 
 class ShardedVec:
     """tests/test_engine.py's sharded entity (per-rank unique contents)."""
@@ -265,9 +277,10 @@ def man_json(man) -> dict:
 
 
 def dump_engine(eng, as_np) -> tuple[dict, dict]:
-    """Every committed store of an engine: own arenas and held copies (bytes)
-    and their manifests, the handshake and exchange checksums, the
-    replicated manifest table. ``as_np`` turns a flat buffer into numpy."""
+    """Every committed store of an engine: own arenas, the striped codecs'
+    exchange sets and held copies or stripes (bytes) and their manifests,
+    the handshake and exchange checksums, the replicated manifest table.
+    ``as_np`` turns a flat buffer into numpy."""
     arrays, stores = {}, {}
     for r, st in sorted(eng.stores.items()):
         ro = st.buffer.read_only
@@ -278,6 +291,9 @@ def dump_engine(eng, as_np) -> tuple[dict, dict]:
         for name, (flat, man) in sorted(ro.own.items()):
             arrays[f"{r}/own/{name}"] = as_np(flat)
             d["own"][name] = man_json(man)
+        for name, (flat, man) in sorted(ro.own_exch.items()):  # striped codecs' exchange sets
+            arrays[f"{r}/own_exch/{name}"] = as_np(flat)
+            d.setdefault("own_exch", {})[name] = man_json(man)
         for gi, held in sorted(ro.parity.items()):
             for (name, b, j), piece in sorted(held.items()):
                 arrays[f"{r}/parity/{gi}/{name}/{b}/{j}"] = as_np(piece)
@@ -349,15 +365,14 @@ def run_engine(out_path: str) -> None:
 
     arrays, meta = engine_vec_cases(make_engine, lambda e: e, np.asarray, lambda vec, r: vec.data[r])
 
-    # ShardedStateEntity + RngEntity over 4 ranks, compressed and not
+    # ShardedStateEntity + RngEntity over 4 ranks: ENGINE_STATE_CASES
     state_np, specs = engine_state()
     sds = jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), state_np)
     ps = jtu.tree_map(lambda t: P(*t), specs, is_leaf=lambda x: isinstance(x, tuple))
     plan = ShardPlan.from_pspecs(sds, ps)
-    for compress in (False, True):
-        tag = f"state{int(compress)}"
+    for tag, cfg in ENGINE_STATE_CASES.items():
         box = {"s": jax.tree.map(np.copy, state_np)}
-        eng = make_engine(4, compress=compress)
+        eng = make_engine(4, **cfg)
         rng = RngEntity()
         rng.seed, rng.counter = 7, 3
         eng.register("state", ShardedStateEntity(lambda: box["s"], lambda s: box.update(s=s), plan))
@@ -403,7 +418,7 @@ def _stats(eng, pinned_chunks: bool = False) -> dict:
     """The engine's counters; with ``pinned_chunks`` (a fixed
     ``restore_chunk_bytes``) also the pipelined restore's, which under the
     adaptive planner depend on the rates this process has measured."""
-    names = ["created", "aborted", "restored", "zero_comm_restores", "adopted_restores",
+    names = ["created", "aborted", "restored", "zero_comm_restores", "adopted_restores", "reconstructed_restores",
              "last_bytes_staged", "last_bytes_exchanged", "last_pipeline_chunks"]
     if pinned_chunks:
         names += ["last_restore_chunks", "last_restore_bytes_rebuilt", "last_restore_decompressed_bytes",
@@ -609,7 +624,119 @@ def async_cases(make_engine, wrap, as_np) -> tuple[dict, dict]:
         outcomes["+".join(map(str, kills))] = out if isinstance(out, str) else bool(np.array_equal(_restored(vec), orig))
         eng.close()
     meta["ragged"] = outcomes
+    striped_async_cases(make_engine, wrap, record, arrays, meta)
     return arrays, meta
+
+
+# the striped codecs' mirrors of the cases above (tests/test_async_pipeline.py
+# and tests/test_codec.py run them under xor and rs): groups of 4 over 12
+# ranks, each codec's kill set within its tolerance
+STRIPED = {"xor": {"parity_group": 4}, "rs": {"codec": "rs", "parity_group": 4, "rs_parity": 2},
+           "lrc": {"codec": "lrc", "parity_group": 4}}
+STRIPED_KILLS = {"xor": (5,), "rs": (4, 6), "lrc": (4, 6)}
+STRIPED_RANKS = 12
+
+
+def striped_async_cases(make_engine, wrap, record, arrays: dict, meta: dict) -> None:
+    """Per striped codec: the create drain over 1 and 4 workers; sync and
+    pipelined restores over 0 and 4 workers (rs also int8-compressed), each
+    twice; a survivor killed at every chunk of a serial pipelined rs
+    restore; a held rs stripe corrupted after the commit; every single and
+    double loss over 10 ranks (a ragged last group of 2)."""
+    n = STRIPED_RANKS
+    for codec, cfg in STRIPED.items():
+        for workers in (1, 4):
+            tag = f"striped/{codec}/workers/{workers}"
+            eng, vec, _ = _vec_setup(make_engine, wrap, n=n, async_workers=workers, **cfg)
+            assert eng.checkpoint_async({"step": 2}) and eng.finalize_async() is True
+            for r in STRIPED_KILLS[codec]:
+                eng.stores[r].wipe()
+            eng.restore()
+            record(tag, eng, vec)
+            eng.close()
+        for compress in (False, True) if codec == "rs" else (False,):
+            for workers in (0, 4):
+                for mode in ("sync", "pipelined"):
+                    tag = f"striped/{codec}/restore/{mode}/{workers}/{int(compress)}"
+                    eng, vec, _ = _vec_setup(make_engine, wrap, n=n, compress=compress, restore_mode=mode,
+                                             async_workers=workers, restore_chunk_bytes=ASYNC_CHUNK, **cfg)
+                    assert eng.checkpoint({"step": 4})
+                    for r in STRIPED_KILLS[codec]:
+                        eng.stores[r].wipe()
+                    for d in vec.data:
+                        d += 7.0
+                    steps = [int(eng.restore()["step"])]
+                    first = _restored(vec)
+                    for d in vec.data:
+                        d += 3.0
+                    steps.append(int(eng.restore()["step"]))
+                    arrays[f"{tag}/first"] = first
+                    record(tag, eng, vec, pinned_chunks=True, steps=steps)
+                    eng.close()
+
+    # rank 1 wiped; survivor 5 (group 1, holder of one of group 0's blobs)
+    # killed at each chunk of the serial restore; the second restore rebuilds
+    # both from the blobs that remain
+    rs = STRIPED["rs"]
+    chunks = {"n": 0}
+    eng, vec, _ = _vec_setup(make_engine, wrap, n=n, restore_chunk_bytes=ASYNC_CHUNK, async_workers=0,
+                             hook=lambda ph: chunks.__setitem__("n", chunks["n"] + (ph == "restore_chunk")), **rs)
+    assert eng.checkpoint({"step": 1})
+    eng.stores[1].wipe()
+    eng.restore()
+    meta["striped/restore_kill_chunks"] = chunks["n"]
+    eng.close()
+    for kill_chunk in range(chunks["n"]):
+        tag = f"striped/restore_kill/{kill_chunk}"
+        state = {"chunks": 0, "armed": False}
+
+        def hook(phase, state=state, kill_chunk=kill_chunk):
+            if phase == "restore_chunk" and state["armed"]:
+                if state["chunks"] == kill_chunk:
+                    state["armed"] = False
+                    eng.stores[5].wipe()
+                state["chunks"] += 1
+
+        eng, vec, _ = _vec_setup(make_engine, wrap, n=n, hook=hook, restore_chunk_bytes=ASYNC_CHUNK,
+                                 async_workers=0, **rs)
+        assert eng.checkpoint({"step": 1})
+        eng.stores[1].wipe()
+        for d in vec.data:
+            d += 3.0
+        state["armed"] = True
+        steps = [int(eng.restore()["step"])]
+        first = _restored(vec)
+        for d in vec.data:
+            d += 11.0
+        steps.append(int(eng.restore()["step"]))
+        arrays[f"{tag}/first"] = first
+        arrays[f"{tag}/restored"] = _restored(vec)
+        meta[tag] = {"steps": steps, "stats": _stats(eng, pinned_chunks=True)}
+        eng.close()
+
+    # a byte of a stripe group 0's decode reads, flipped after the commit
+    for mode in ("sync", "pipelined"):
+        eng, vec, _ = _vec_setup(make_engine, wrap, n=n, restore_mode=mode, restore_chunk_bytes=ASYNC_CHUNK, **rs)
+        assert eng.checkpoint({"step": 1})
+        eng.stores[1].wipe()
+        eng.stores[4].buffer.read_only.parity[0][("state", 0, 0)][8] ^= 0xFF
+        meta[f"striped/restore_corrupt/{mode}"] = {"outcome": _outcome(lambda: int(eng.restore()["step"]))}
+        eng.close()
+
+    for codec, cfg in STRIPED.items():
+        outcomes = {}
+        for kills in itertools.chain(itertools.combinations(range(10), 1), itertools.combinations(range(10), 2)):
+            eng, vec, _ = _vec_setup(make_engine, wrap, n=10, restore_chunk_bytes=512, **cfg)
+            assert eng.checkpoint({"step": 1})
+            orig = _restored(vec)
+            for r in kills:
+                eng.stores[r].wipe()
+            for d in vec.data:
+                d *= -1.0
+            out = _outcome(eng.restore)
+            outcomes["+".join(map(str, kills))] = out if isinstance(out, str) else bool(np.array_equal(_restored(vec), orig))
+            eng.close()
+        meta[f"striped/{codec}/ragged"] = outcomes
 
 
 def run_async(out_path: str) -> None:
@@ -732,35 +859,16 @@ def elastic_engine_cases(setup, as_np) -> tuple[dict, dict]:
     record the restored state, the meta step, the world, the ElasticReport
     with its plans, the restore counters and the journal's "resize" record;
     then re-protect with a checkpoint on M and dump its committed stores.
-    ``setup(n, compress)`` returns (engine, live) where ``live`` has
+    ``setup(n, compress, **cfg)`` returns (engine, live) where ``live`` has
     ``zero()``, ``leaves()`` (path -> numpy) and ``rng()``. Also records
-    whether losing rank 2 and its pairwise partner raises."""
+    whether losing rank 2 and its pairwise partner raises, and runs
+    ``ELASTIC_STRIPED``."""
     arrays, meta = {}, {}
     for tag, n_old, n_new, kill, compress in elastic_cases():
-        eng, live = setup(n_old, compress)
-        assert eng.checkpoint({"step": 7})
-        live.zero()
-        if kill is not None:
-            eng.stores[kill].wipe()
-        got = eng.restore_elastic(n_new)
-        rep = eng.last_elastic_report
-        m = {
-            "meta_step": int(got["step"]), "n_ranks": eng.n_ranks, "stores": sorted(eng.stores),
-            "report": [rep.n_old, rep.n_new, rep.bytes_total, rep.bytes_moved, rep.bytes_lower_bound,
-                       rep.movement_ratio],
-            "plans": {name: plan_json(p) for name, p in sorted(rep.plans.items())},
-            "adopted": eng.stats.adopted_restores, "zero_comm": eng.stats.zero_comm_restores,
-            "resize": [{k: v for k, v in ev.items() if k not in ("ts", "duration_s")}
-                       for ev in eng.journal.events("resize")],
-            "rng": live.rng(),
-        }
-        for path, leaf in live.leaves().items():
-            arrays[f"{tag}/restored/{path}"] = leaf
-        assert eng.checkpoint({"step": 8})  # the new world re-protects itself
-        a, d = dump_engine(eng, as_np)
-        arrays.update({f"{tag}/{k}": v for k, v in a.items()})
-        m.update(d)
-        meta[tag] = m
+        _elastic_case(setup, as_np, arrays, meta, tag, n_old, n_new, () if kill is None else (kill,),
+                      {"compress": compress})
+    for tag, n_old, n_new, kills, cfg in ELASTIC_STRIPED:
+        _elastic_case(setup, as_np, arrays, meta, tag, n_old, n_new, kills, cfg)
     eng, _ = setup(8, False)
     assert eng.checkpoint({"step": 1})
     for r in (2, 6):
@@ -771,6 +879,45 @@ def elastic_engine_cases(setup, as_np) -> tuple[dict, dict]:
     except Exception as e:  # noqa: BLE001 - the class name is the result
         meta["lost"] = type(e).__name__
     return arrays, meta
+
+
+# tests/test_codec.py::test_elastic_restore_after_rs_burst and its xor and lrc
+# twins: (tag, N, M, wiped ranks, EngineConfig fields)
+_RS = {"codec": "rs", "parity_group": 4, "rs_parity": 2}
+ELASTIC_STRIPED = (
+    *[(f"rs-burst-8-{m}", 8, m, (1, 2), _RS) for m in (3, 6, 12)],
+    ("rs-burst-8-6/c1", 8, 6, (1, 2), {**_RS, "compress": True}),
+    ("xor-8-6", 8, 6, (5,), {"parity_group": 4}),
+    ("lrc-burst-8-6", 8, 6, (1, 2), {"codec": "lrc", "parity_group": 4}),
+)
+
+
+def _elastic_case(setup, as_np, arrays, meta, tag, n_old, n_new, kills, cfg) -> None:
+    eng, live = setup(n_old, **cfg)
+    assert eng.checkpoint({"step": 7})
+    live.zero()
+    for r in kills:
+        eng.stores[r].wipe()
+    got = eng.restore_elastic(n_new)
+    rep = eng.last_elastic_report
+    m = {
+        "meta_step": int(got["step"]), "n_ranks": eng.n_ranks, "stores": sorted(eng.stores),
+        "report": [rep.n_old, rep.n_new, rep.bytes_total, rep.bytes_moved, rep.bytes_lower_bound,
+                   rep.movement_ratio],
+        "plans": {name: plan_json(p) for name, p in sorted(rep.plans.items())},
+        "adopted": eng.stats.adopted_restores, "zero_comm": eng.stats.zero_comm_restores,
+        "reconstructed": eng.stats.reconstructed_restores,
+        "resize": [{k: v for k, v in ev.items() if k not in ("ts", "duration_s")}
+                   for ev in eng.journal.events("resize")],
+        "rng": live.rng(),
+    }
+    for path, leaf in live.leaves().items():
+        arrays[f"{tag}/restored/{path}"] = leaf
+    assert eng.checkpoint({"step": 8})  # the new world re-protects itself
+    a, d = dump_engine(eng, as_np)
+    arrays.update({f"{tag}/{k}": v for k, v in a.items()})
+    m.update(d)
+    meta[tag] = m
 
 
 def run_elastic(out_path: str) -> None:
@@ -835,11 +982,11 @@ def run_elastic(out_path: str) -> None:
         def rng(self):
             return [self.rng_ent.seed, self.rng_ent.counter]
 
-    def setup(n, compress):
+    def setup(n, compress=False, **cfg):
         box = {"s": jax.tree.map(np.copy, state_e)}
         rng = RngEntity()
         rng.seed, rng.counter = 7, 3
-        eng = CheckpointEngine(n, EngineConfig(restore_mode="sync", compress=compress))
+        eng = CheckpointEngine(n, EngineConfig(restore_mode="sync", compress=compress, **cfg))
         eng.register("state", ShardedStateEntity(lambda: box["s"], lambda s: box.update(s=s), plan_e))
         eng.register("rng", rng)
         return eng, Live(box, rng)

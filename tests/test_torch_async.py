@@ -9,10 +9,11 @@ here on ``device="cpu"``: the copy codec's mirrors of
 creates; sync and pipelined restores over 0, 1 and 4 workers, plain and
 int8-compressed; kills at every drain unit and every restore chunk;
 corruption caught by the drain's and the restore's VERIFY; multi-worker
-drains; ragged worlds). Tolerance: exact everywhere. Committed arenas, held
-copies, manifests, handshake and exchange checksums, restored vectors,
-engine counters and verdicts must be identical. The striped codecs' cases
-wait for ROADMAP A4. The ``Trainer`` cases mirror
+drains; ragged worlds), and the striped codecs' (xor, rs, lrc) drains,
+restores, mid-restore kills, corrupted stripes and ragged worlds.
+Tolerance: exact everywhere. Committed arenas, exchange sets, held copies
+and stripes, manifests, handshake and exchange checksums, restored vectors,
+engine counters and verdicts must be identical. The ``Trainer`` cases mirror
 ``tests/test_recovery_e2e.py::test_async_checkpoint_bitwise`` and
 ``::test_async_checkpoint_fault_during_exchange``.
 """
@@ -337,6 +338,86 @@ def test_restore_verify_catches_corrupted_copy(jx, port, mode):
     tag = f"restore_corrupt/{mode}"
     _same_case(jx, port, tag)
     assert port[1][tag]["outcome"] == ("IntegrityError" if mode == "pipelined" else 1)
+
+
+# ---------------------------------------------------------------------------
+# the striped codecs (xor, rs, lrc): the same drains and restores
+# ---------------------------------------------------------------------------
+
+STRIPED = list(oracle.STRIPED)
+
+
+@pytest.mark.parametrize("codec", STRIPED)
+@pytest.mark.parametrize("workers", [1, 4])
+def test_striped_multiworker_drain_bit_identical(jx, port, codec, workers):
+    """The drain of a striped codec (encode through the GF backend, stripes
+    copied into holder arenas) over 1 or 4 workers: the reference's bytes,
+    the same for both worker counts, and every vector back after the kill."""
+    tag = f"striped/{codec}/workers/{workers}"
+    _same_case(jx, port, tag)
+    pa, pm = port
+    assert _stores(pa, pm, tag) == _stores(pa, pm, f"striped/{codec}/workers/1")
+    assert np.array_equal(pa[f"{tag}/restored"], _original(oracle.STRIPED_RANKS))
+    assert pm[tag]["stats"]["reconstructed_restores"] == len(oracle.STRIPED_KILLS[codec])
+
+
+@pytest.mark.parametrize("codec,compress", [(c, 0) for c in STRIPED] + [("rs", 1)])
+@pytest.mark.parametrize("workers", [0, 4])
+def test_striped_pipelined_restore_bit_identical_to_sync(jx, port, codec, compress, workers):
+    """The chunked decode over 0 and 4 workers gives the serial sync
+    decode's bytes and the reference's (under compress the survivors present
+    their compressed exchange sets); a repeat restore comes from the plan
+    cache."""
+    tags = [f"striped/{codec}/restore/{mode}/{workers}/{compress}" for mode in ("sync", "pipelined")]
+    for tag in tags:
+        _same_case(jx, port, tag)
+    pa, pm = port
+    sync, pipe = tags
+    for k in ("first", "restored"):
+        assert np.array_equal(pa[f"{sync}/{k}"], pa[f"{pipe}/{k}"])
+    stats = pm[pipe]["stats"]
+    assert stats["last_restore_chunks"] > 1 and stats["restore_plan_reuses"] >= 1
+    assert stats["reconstructed_restores"] == 2 * len(oracle.STRIPED_KILLS[codec])
+    if not compress:
+        assert np.array_equal(pa[f"{pipe}/restored"], _original(oracle.STRIPED_RANKS))
+
+
+def test_striped_mid_restore_kill_at_every_chunk(jx, port):
+    """rs: a holder of one of the lost rank's blobs dies at any chunk of a
+    serial pipelined restore; the restore completes from the stripes
+    captured at prep, and a second restore rebuilds both losses."""
+    n_chunks = port[1]["striped/restore_kill_chunks"]
+    assert n_chunks == jx[1]["striped/restore_kill_chunks"] >= 3
+    pa, pm = port
+    for k in range(n_chunks):
+        tag = f"striped/restore_kill/{k}"
+        _same_case(jx, port, tag)
+        assert pm[tag]["steps"] == [1, 1]
+        for which in ("first", "restored"):
+            assert np.array_equal(pa[f"{tag}/{which}"], _original(oracle.STRIPED_RANKS)), (k, which)
+
+
+@pytest.mark.parametrize("mode", ["sync", "pipelined"])
+def test_striped_verify_catches_a_corrupted_stripe(jx, port, mode):
+    """A byte of a held stripe flipped after the commit: the pipelined
+    restore's VERIFY of the rebuilt shard raises IntegrityError; the sync
+    restore has no such guard. As in the reference."""
+    tag = f"striped/restore_corrupt/{mode}"
+    _same_case(jx, port, tag)
+    assert port[1][tag]["outcome"] == ("IntegrityError" if mode == "pipelined" else 1)
+
+
+@pytest.mark.parametrize("codec", STRIPED)
+def test_striped_ragged_all_failure_combos(jx, port, codec):
+    """10 ranks in groups of 4, 4 and 2, every single and double loss: rebuilt
+    bit for bit, or DataLostError exactly where the reference raises."""
+    tag = f"striped/{codec}/ragged"
+    _same_case(jx, port, tag)
+    got = port[1][tag]
+    assert all(v is True or v == "DataLostError" for v in got.values())
+    assert all(got[str(r)] is True for r in range(10))
+    if codec != "xor":  # two losses in one group of 4 are within rs and lrc's tolerance
+        assert got["1+2"] is True and got["8+9"] is True
 
 
 # ---------------------------------------------------------------------------

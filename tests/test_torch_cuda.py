@@ -1,4 +1,5 @@
-"""The CUDA kernels, the device tier, the host engine and its elastic N-to-M
+"""The CUDA kernels, the torch GF(2^8) backend, the device tier, the host
+engine (copy and striped codecs) and its elastic N-to-M
 restore on the card, against their plain PyTorch versions and the CPU path,
 bit for bit; and the Trainer on the card against the Trainer on the CPU
 (f32 arithmetic: losses and final state within rtol 1e-4, atol 1e-4 of
@@ -185,7 +186,81 @@ def test_decode_matrix_overwritten_between_launches(cuda):
             assert _same(outs[j], want[j])
 
 
-@pytest.mark.parametrize("codec,g,m", [("copy", 0, 2), ("xor", 2, 1), ("rs", 2, 2), ("rs", 3, 2)])
+def _table(dsts, srcs, mat, lo, hi, accumulate=False):
+    """The numpy table backend's product on copies of host buffers."""
+    outs = [d.clone() for d in dsts]
+    gf256.gf_matrix_addmul_into(outs, srcs, mat, lo, hi, accumulate, backend="table")
+    return outs
+
+
+@pytest.mark.parametrize("pinned", [False, True])
+@pytest.mark.parametrize("k,m", [(1, 1), (4, 2), (6, 4), (17, 2), (18, 9)])
+def test_torch_gf_backend_on_the_card_matches_table(cuda, pinned, k, m):
+    """The torch backend through B4 on the card: sources ragged and 1-7 bytes
+    off the word grid, ranges starting and ending mid-word, overwrite and
+    accumulate, more than 16 sources or 8 outputs (split launches), from
+    pinned or pageable host buffers: the table backend's bytes, and B4
+    launched."""
+    rng = np.random.default_rng(k * 10 + m)
+    base = torch.from_numpy(rng.integers(0, 256, 300_000, dtype=np.uint8))
+    if pinned:
+        base = base.pin_memory()
+    srcs = [base[i % 7 + 1000 * i : i % 7 + 1000 * i + 40_001 - 311 * i] for i in range(k)]
+    mat = rng.integers(0, 256, (m, k)).tolist()
+    n = max(s.numel() for s in srcs)
+    for lo, hi, acc in ((0, n, False), (3, n - 5, True), (1_001, 20_003, False)):
+        init = [torch.from_numpy(rng.integers(0, 256, n + 2, dtype=np.uint8)) for _ in range(m)]
+        dsts = [d.pin_memory() for d in init] if pinned else [d.clone() for d in init]
+        before = ops.launch_counts()["gf256_matmul_dyn"]
+        with gf256.compute_device(cuda):
+            gf256.gf_matrix_addmul_into(dsts, srcs, mat, lo, hi, acc, backend="torch")
+        live = sum(any(row[i] for row in mat) for i in range(k))  # 0·x columns are not staged
+        assert ops.launch_counts()["gf256_matmul_dyn"] - before == -(-live // 16) * -(-m // 8)
+        for got, want in zip(dsts, _table(init, srcs, mat, lo, hi, acc)):
+            assert torch.equal(got, want), (lo, hi, acc)
+
+
+def test_torch_gf_backend_zero_rows_and_every_coefficient_on_the_card(cuda):
+    src = torch.from_numpy(np.random.default_rng(2).integers(0, 256, 4101, dtype=np.uint8)).pin_memory()
+    for c in range(256):
+        dst = torch.full((4101,), 0xAB, dtype=torch.uint8)
+        with gf256.compute_device(cuda):
+            gf256.gf_matrix_addmul_into([dst], [src], ((c,),), backend="torch")
+        assert torch.equal(dst, _table([dst], [src], ((c,),), 0, 4101)[0]), c
+        if c == 0:
+            assert not dst.any()
+
+
+def test_torch_gf_backend_four_threads_on_four_streams(cuda):
+    """Four threads, each on its own CUDA stream (as the engine's workers
+    are), products interleaved: every result the table backend's."""
+    import concurrent.futures
+
+    rng = np.random.default_rng(4)
+    cases = [([torch.from_numpy(rng.integers(0, 256, 1_000_003 + 17 * t + i, dtype=np.uint8)).pin_memory()
+               for i in range(4)], gf256.cauchy_matrix(2, 4).tolist()) for t in range(8)]
+
+    def work(case):
+        srcs, mat = case
+        n = max(s.numel() for s in srcs)
+        outs = [torch.empty(n, dtype=torch.uint8).pin_memory() for _ in range(2)]
+        stream = torch.cuda.Stream(cuda)
+        with gf256.compute_device(cuda), torch.cuda.stream(stream):
+            for lo in range(0, n, 1 << 18):
+                gf256.gf_matrix_addmul_into(outs, srcs, mat, lo, min(lo + (1 << 18), n), backend="torch")
+        return all(torch.equal(o, w) for o, w in zip(outs, _table(outs, srcs, mat, 0, n)))
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=4) as ex:
+        assert all(ex.map(work, cases))
+
+
+def test_gf_probe_times_torch_on_the_card(cuda, monkeypatch):
+    monkeypatch.setattr(gf256, "_PROBE_GBPS", {})
+    gf256._probe_backends()
+    assert set(gf256._PROBE_GBPS) == {"table", "swar", "torch"} and gf256._PROBE_GBPS["torch"] > 0
+
+
+@pytest.mark.parametrize("codec,g,m", [("copy", 0, 2), ("xor", 2, 1), ("rs", 2, 2), ("rs", 3, 2), ("lrc", 2, 2)])
 def test_device_tier_on_the_card_matches_the_cpu(cuda, codec, g, m):
     rng = np.random.default_rng(0)
     cpu_state = {
@@ -340,6 +415,61 @@ def test_engine_on_the_card_matches_the_cpu(cuda, compress):
     assert a_held.keys() == b_held.keys() and all(torch.equal(a_held[k], b_held[k]) for k in a_held)
     for x, y in zip(a_st, b_st):
         assert torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.parametrize("codec", ["xor", "rs", "lrc"])
+@pytest.mark.parametrize("workers", [1, 4])
+@pytest.mark.parametrize("compress", [False, True])
+def test_striped_engine_on_the_card_matches_the_cpu(cuda, codec, workers, compress):
+    """A striped host codec on 8 ranks in groups of 4 with the torch GF
+    backend: on the card every encode range and chunked decode runs B4 (on
+    the workers' streams), from pinned arenas and the pinned encode scratch; the
+    committed arenas, exchange sets and stripes and the restored state (two
+    losses in group 0, one for xor; pipelined and sync) are the CPU
+    engine's, byte for byte."""
+    cpu_state, plan = _engine_state()
+    kills = (5,) if codec == "xor" else (0, 2)
+    cfg = dict(codec=codec, parity_group=4, compress=compress, async_workers=workers, gf_backend="torch",
+               restore_chunk_bytes=4096, encode_chunk_bytes=4096)
+    results = {}
+    try:
+        for dev in ("cpu", cuda):
+            for mode in ("pipelined", "sync"):
+                state = _state_on(cpu_state, dev)
+                eng = CheckpointEngine(8, EngineConfig(restore_mode=mode, **cfg), device=dev)
+                eng.register("state", ShardedStateEntity(lambda: state, plan))
+                eng.register("rng", RngEntity())
+                before = ops.launch_counts()["gf256_matmul_dyn"]
+                assert eng.checkpoint_async({"step": 1}) and eng.finalize_async() is True
+                encodes = ops.launch_counts()["gf256_matmul_dyn"] - before
+                if str(dev) != "cpu":
+                    assert encodes > 0
+                    assert all(b.is_pinned() for b in eng._enc_scratch.values())
+                ro = {r: st.buffer.read_only for r, st in eng.stores.items()}
+                snap = {("own", r, k): f.clone() for r in ro for k, (f, _) in ro[r].own.items()}
+                snap.update({("exch", r, k): f.clone() for r in ro for k, (f, _) in ro[r].own_exch.items()})
+                snap.update({(r, gi, key): t.clone() for r in ro for gi, d in ro[r].parity.items()
+                             for key, t in d.items()})
+                for leaf in tree_flatten(state)[1]:
+                    leaf.fill_(7)
+                for r in kills:
+                    eng.stores[r].wipe()
+                before = ops.launch_counts()["gf256_matmul_dyn"]
+                eng.restore()
+                torch.cuda.synchronize()
+                if str(dev) != "cpu" and (mode == "pipelined" or codec != "xor"):
+                    # (xor's sync decode XORs on the host, as the reference's does)
+                    assert ops.launch_counts()["gf256_matmul_dyn"] > before
+                assert eng.stats.reconstructed_restores == len(kills)
+                results[(str(dev), mode)] = (snap, [t.cpu() for t in tree_flatten(state)[1]])
+                eng.close()
+    finally:
+        gf256.set_backend(None)
+    want_snap, want_st = results[("cpu", "sync")]
+    for key, (snap, st) in results.items():
+        assert snap.keys() == want_snap.keys() and all(torch.equal(snap[k], want_snap[k]) for k in snap), key
+        for x, y in zip(st, want_st):
+            assert torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8)), key
 
 
 @pytest.mark.parametrize("workers", [1, 4])

@@ -5,7 +5,8 @@ planner on tests/test_elastic.py's grid, its host executor and its Pallas
 row gather (interpret mode) on f32, bf16 and int32 leaves, and
 ``CheckpointEngine.restore_elastic`` (restore mode "sync") on the round-trip
 grid, one failed rank 8 -> 6, and a grow after a failure 4 -> 12, each plain
-and with int8-compressed partner copies. The port runs the same cases here
+and with int8-compressed partner copies, and after bursts under the striped
+codecs (``ELASTIC_STRIPED``). The port runs the same cases here
 on ``device="cpu"``. Tolerance: exact everywhere (all of it is integer
 bookkeeping and byte movement; the compressed copies are deterministic on
 both sides).
@@ -62,12 +63,12 @@ class _Live:
         return [self.rng_ent.seed, self.rng_ent.counter]
 
 
-def _setup(n: int, compress: bool):
+def _setup(n: int, compress: bool = False, **cfg):
     state_np, specs = oracle.elastic_engine_state()
     state = state_from_numpy(state_np, device="cpu")
     rng = RngEntity()
     rng.seed, rng.counter = 7, 3
-    eng = CheckpointEngine(n, EngineConfig(restore_mode="sync", compress=compress), device="cpu")
+    eng = CheckpointEngine(n, EngineConfig(restore_mode="sync", compress=compress, **cfg), device="cpu")
     eng.register("state", ShardedStateEntity(lambda: state, _plan(state_np, specs)))
     eng.register("rng", rng)
     return eng, _Live(state, rng)
@@ -289,6 +290,29 @@ def test_restore_elastic_matches_the_reference(jx, port, tag):
     assert keys and keys == sorted(k for k in pa if k.startswith(f"{tag}/"))
     for k in keys:
         assert _same(pa[k], ja[k]), k
+
+
+@pytest.mark.parametrize("tag", [c[0] for c in oracle.ELASTIC_STRIPED])
+def test_restore_elastic_after_a_striped_burst_matches_the_reference(jx, port, tag):
+    """tests/test_codec.py::test_elastic_restore_after_rs_burst: two hosts
+    of one group of 4 lost under rs (one under xor, two under lrc), the
+    state rebuilt from the parity stripes and repartitioned onto M ranks,
+    then re-protected under the same codec on the new world (ragged groups):
+    the reference's state, report, plans, counters and stores, and (without
+    compression) the checkpointed state byte for byte."""
+    (ja, jm), (pa, pm) = jx, port
+    got, want = pm["engine"][tag], jm["engine"][tag]
+    assert got == want
+    _, _, n_new, kills, cfg = next(c for c in oracle.ELASTIC_STRIPED if c[0] == tag)
+    assert got["reconstructed"] == len(kills) and got["n_ranks"] == n_new and got["meta_step"] == 7
+    keys = sorted(k for k in ja if k.startswith(f"{tag}/"))
+    assert keys and keys == sorted(k for k in pa if k.startswith(f"{tag}/"))
+    for k in keys:
+        assert _same(pa[k], ja[k]), k
+    if not cfg.get("compress"):
+        state_np, _ = oracle.elastic_engine_state()
+        for path, leaf in zip(_paths(state_np), tree_flatten(state_np)[1]):
+            assert _same(pa[f"{tag}/restored/{path}"], leaf), path
 
 
 def test_restore_elastic_restores_the_state_exactly(port):

@@ -4,7 +4,9 @@ byte.
 One subprocess runs ``repro.core.checkpoint.CheckpointEngine`` (restore mode
 "sync", Pallas in interpret mode for the compressed mode) on the cases of
 ``_torch_jax_oracle.engine_vec_cases`` and a ShardedStateEntity + RngEntity
-state; the port runs the same cases here on ``device="cpu"``. Tolerance:
+state under the copy codec and the striped xor, rs and lrc
+(``ENGINE_STATE_CASES``); the port runs the same cases here on
+``device="cpu"``. Tolerance:
 exact everywhere. Committed arena bytes, held copies, manifests, handshake
 and exchange checksums, the restored state (the int8-compressed copy too:
 both sides are deterministic) and the data-loss verdicts must be identical.
@@ -43,10 +45,9 @@ def port():
     arrays, meta = oracle.engine_vec_cases(_engine, numpy_entity, lambda t: t.numpy(), lambda vec, r: vec.data[r])
     state_np, specs = oracle.engine_state()
     plan = ShardPlan.from_pspecs(state_from_numpy(state_np, device="cpu"), specs)
-    for compress in (False, True):
-        tag = f"state{int(compress)}"
+    for tag, cfg in oracle.ENGINE_STATE_CASES.items():
         state = state_from_numpy(state_np, device="cpu")
-        eng = _engine(4, compress=compress)
+        eng = _engine(4, **cfg)
         rng = RngEntity()
         rng.seed, rng.counter = 7, 3
         eng.register("state", ShardedStateEntity(lambda: state, plan))
@@ -203,9 +204,52 @@ def test_fault_before_the_swap_keeps_the_previous_checkpoint():
     assert all(np.array_equal(a, b) for a, b in zip(vec.data, first))
 
 
+@pytest.mark.parametrize("codec", ["xor", "rs", "lrc"])
+@pytest.mark.parametrize("compress", [False, True])
+def test_striped_sharded_state_matches_the_reference(jx, port, codec, compress):
+    """The striped codecs over ShardedStateEntity + RngEntity, 4 ranks in
+    groups of 2: the same arenas, exchange sets (int8-compressed under
+    compress: parity of compressed bytes decodes only against them), held
+    stripes, manifests and checksums; after rank 2's store is wiped, the
+    same state rebuilt from its group's survivor and blobs."""
+    tag = f"{codec}{int(compress)}"
+    (ja, jm), (pa, pm) = jx, port
+    assert pm[tag] == jm[tag]
+    _same_arrays(ja, pa, f"{tag}/")
+    assert pm[tag]["rng"] == [7, 3]
+    assert all("own_exch" in d for d in pm[tag]["stores"].values())
+    assert any(k.startswith(f"{tag}/restored/") for k in pa)
+
+
+@pytest.mark.parametrize("cfg,kills", [
+    (EngineConfig(restore_mode="sync", parity_group=4), (5,)),
+    (EngineConfig(restore_mode="sync", codec="rs", parity_group=4), (1, 2)),
+    (EngineConfig(codec="lrc", parity_group=4, gf_backend="torch"), (5, 6)),
+], ids=["xor", "rs", "lrc-torch"])
+def test_host_striped_codecs_run(cfg, kills):
+    """The settings that waited for the striped host codecs now run: a
+    checkpoint over 8 ranks, wipes within the codec's tolerance, a restore
+    that rebuilds every lost shard."""
+    from repro_torch.core import gf256
+
+    eng = CheckpointEngine(8, cfg, device="cpu")
+    vec = oracle.ShardedVec(8)
+    eng.register("state", numpy_entity(vec))
+    assert eng.checkpoint({"step": 1})
+    want = [d.copy() for d in vec.data]
+    for d in vec.data:
+        d += 1
+    for r in kills:
+        eng.stores[r].wipe()
+    try:
+        assert eng.restore()["step"] == 1
+    finally:
+        gf256.set_backend(None)
+    assert all(np.array_equal(a, b) for a, b in zip(vec.data, want))
+    assert eng.stats.reconstructed_restores == len(kills)
+
+
 @pytest.mark.parametrize("cfg,item", [
-    (EngineConfig(restore_mode="sync", parity_group=4), "A4"),
-    (EngineConfig(restore_mode="sync", codec="rs", parity_group=4), "A4"),
     (EngineConfig(restore_mode="sync", tiers=("disk",)), "A7"),
     (EngineConfig(restore_mode="sync", delta=True), "A7"),
     (EngineConfig(restore_mode="sync", topology=object()), "A9"),

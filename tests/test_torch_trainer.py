@@ -13,6 +13,7 @@
 2. The port alone, mirroring ``tests/test_recovery_e2e.py``: after kills,
    shrinks, elastic repartitions and regrowth the final state is bitwise
    equal to a fault-free run.
+   With a host xor or rs engine too (parity-mode recovery).
 3. What is not ported raises ``NotImplementedError`` naming its ROADMAP
    item, and ``examples/quickstart_torch.py --device cpu`` passes its own
    assertion.
@@ -252,9 +253,26 @@ def test_daly_scheduler_used_when_no_period(model):
 UNPORTED = {
     "tier_dir": (dict(tier_dir="tiers"), "A7"),
     "disk_path": (dict(disk_path="disk"), "A7"),
-    "host xor codec": (dict(engine=EngineConfig(parity_group=2, restore_mode="sync")), "A4"),
-    "host rs codec": (dict(engine=EngineConfig(parity_group=2, codec="rs", restore_mode="sync")), "A4"),
 }
+
+
+@pytest.mark.parametrize("engine,kills", [
+    (EngineConfig(parity_group=2), [2]),
+    (EngineConfig(parity_group=2, restore_mode="sync"), [1]),
+    (EngineConfig(codec="rs", parity_group=2, rs_parity=2), [2, 3]),
+    (EngineConfig(codec="rs", parity_group=2, rs_parity=2, restore_mode="sync"), [0, 1]),
+], ids=["xor", "xor-sync", "rs-whole-group", "rs-whole-group-sync"])
+def test_parity_mode_recovery_bitwise(model, reference, engine, kills):
+    """tests/test_recovery_e2e.py::test_parity_mode_recovery_bitwise: the
+    Trainer on a host xor or rs engine (groups of 2 of its 4 hosts) loses
+    hosts at step 8, rebuilds their shards from the parity stripes on the
+    other group (rs: both members of one group at once) and ends bitwise
+    equal to the fault-free run."""
+    t = _trainer(model, _tcfg(n_spares=2, engine=engine), injector=FailureInjector(4, schedule={8: kills}))
+    t.run(20)
+    assert t.n_recoveries == 1
+    assert t.engine.stats.reconstructed_restores > 0 and t.engine.codec.name == (engine.codec or "xor")
+    assert _same(t.state, reference)
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))

@@ -10,8 +10,9 @@ It runs a copy of ``chip_smoke.py``'s source in which the card is the CPU:
 the port resolves its default device to the CPU, the CUDA timing, memory
 and device calls are stubbed, nothing is built and no raw kernel is
 launched (the kernel wrappers take their plain versions on CPU tensors), and
-the launch counts read one for every kernel but the row gather, whose
-run-table copies are counted for real (phase 6 checks the exact count), and
+the launch counts read one for every kernel but the row gather and the
+runtime-matrix GF(2^8) product, whose plain runs are counted for real
+(phase 6 checks the gather's exact count, phase 8 that the product ran), and
 every host tensor reports itself pinned (the engine on the CPU leases pageable arenas). What
 it finds are wrong paths, shapes, arguments and control flow; its times
 mean nothing.
@@ -39,10 +40,9 @@ import torch  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import checkpoint  # noqa: E402
-from repro_torch.kernels import _build, ops, reshard  # noqa: E402
+from repro_torch.kernels import _build, ops, reshard, rs_decode  # noqa: E402
 
-KERNELS = ("checksum", "xor_reduce", "gf256_matmul", "gf256_matmul_dyn", "quantize_blockwise",
-           "dequantize_blockwise")
+KERNELS = ("checksum", "xor_reduce", "gf256_matmul", "quantize_blockwise", "dequantize_blockwise")
 
 
 class _Event:
@@ -86,7 +86,16 @@ def load_chip_smoke(cfg) -> types.ModuleType:
         return copy_runs(sources, out, table, *a, **k)
 
     reshard.copy_runs_into = counted_copy
-    ops.launch_counts = lambda: {**{k: 1 for k in KERNELS}, "gather_rows": gathers[0]}
+    decodes = [1]
+    decode = rs_decode.rs_decode_into
+
+    def counted_decode(*a, **k):
+        decodes[0] += 1
+        return decode(*a, **k)
+
+    rs_decode.rs_decode_into = counted_decode
+    ops.launch_counts = lambda: {**{k: 1 for k in KERNELS}, "gather_rows": gathers[0],
+                                 "gf256_matmul_dyn": decodes[0]}
     ops.reset_launch_counts = lambda: None
     checkpoint.reshard_leaves = checkpoint.reshard_leaves_device  # the engine picks the host one on the CPU
     for name in ("sass_phase", "kernel_tests_phase", "free_pinned_cache"):
