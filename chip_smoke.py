@@ -46,7 +46,7 @@ printing no result, on any failure or without a card. Phases:
    quantize of the same bucket, the staged fetch, and the fetched partner
    dequantized on the card within half a step of the original;
 5. engine path: a seeded llama3.2-1b train state cut to ``PATH_LAYERS``
-   (8) of its 16 layers, width kept, held by a ShardedStateEntity over 4
+   (1) of its 16 layers, width kept, held by a ShardedStateEntity over 4
    ranks (the ZeRO-1 data dim split four ways) plus an RngEntity, through three
    cycles: ``CheckpointEngine(4, EngineConfig())`` (the reference's default
    engine), ``EngineConfig(compress=True)`` and ``EngineConfig(compress=True,
@@ -81,9 +81,10 @@ printing no result, on any failure or without a card. Phases:
    rollback to 3, steps 3 and 4 replayed), 8 steps under
    ``torch.use_deterministic_algorithms(True)`` (``main`` sets
    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` before cuBLAS is first used); then
-   the same run with ``checkpoint_mode="async"`` (each checkpoint captured
-   at the step boundary, drained behind the next step, committed at the
-   following barrier). Prints each step's loss and time (ending in
+   the same run at ``TRAIN_ASYNC_LAYERS`` (8) layers, width kept, with
+   ``checkpoint_mode="async"`` (each checkpoint captured at the step
+   boundary, drained behind the next step, committed at the following
+   barrier). Prints each step's loss and time (ending in
    ``torch.cuda.synchronize()``), every committed create's capture,
    blocked, finalize-wait and create times, the restore's time and chunk
    count, the card and host peaks; fails unless every loss is finite, there
@@ -102,7 +103,34 @@ printing no result, on any failure or without a card. Phases:
    async_workers=4)`` (xor) losing host 5. Each prints the create's times
    and spans, the parity bytes held against the exchange bytes a copy would
    hold, the restores' times, chunks and decode spans, and the card and host
-   peaks; every leaf must come back byte-equal and B4 must launch in each.
+   peaks; every leaf must come back byte-equal and B4 must launch in each;
+9. the storage-tier ladder and differential checkpointing, at
+   ``TIER_LAYERS`` (1) of the 16 layers, width kept. Engine leg: the seeded
+   state over 8 ranks with ``EngineConfig(codec="rs", parity_group=4,
+   rs_parity=2, gf_backend="torch", delta=True, tiers=(storage.disk(dir,
+   every=1, dedup=True),))``: three creates, each flushed to the tier
+   directory (``build/tiers``; its filesystem and free bytes printed): a full
+   encode, then two after rewriting every leaf of layer 0 and the step, each
+   patching the parity in place (``delta_encodes``, B4 launched in the
+   patch, a dirty fraction under the crossover, chunks reused by the flush;
+   the third also leaves clean stripe chunks in place, its staging bank
+   holding the first generation's). Then hosts 0 and 2 wiped and restored
+   (within m = 2: no escalation), hosts 0, 1 and 2 wiped and restored (the
+   generation's pages dropped from the page cache first: the escalation's
+   load is timed cold), and a fresh engine on 4 ranks ``restore_elastic(4)``
+   from the same directory (the cold 8 -> 4 restart, the row gather B6 on
+   every split leaf of every new rank); every leaf byte-equal after each.
+   Prints each create's capture, pinning, finalize wait and spans, each
+   flush's seconds, bytes, GB/s and chunks written and reused, each load's
+   seconds (read and pinning) and the restores' times, and the card and host
+   peaks. Trainer leg: phase 7's run at the same depth with
+   ``tier_dir``, ``disk_flush_every=1`` and no spare, all 4 hosts killed at
+   step 5: the full restart escalates to step 3's generation and steps 3-4
+   replay bit-equal; then a fresh ``Trainer`` on 2 hosts ``cold_restart()``s
+   from step 6's generation (4 -> 2) and its two steps' losses must be
+   bit-equal to the first run's. Phase 9 launches B4 (the patches, the
+   encodes, the decode of the within-tolerance restore) and B6 (both cold
+   restarts).
 
 Phase 3 also runs B6 at the main path's largest gather (the w_up master
 leaf, 4 origins of (16, 512, 8192) f32, gathered for one new rank of the
@@ -114,9 +142,9 @@ with a seeded permutation of its rows; each pair in alternating order over
 ``B6_AB_ROUNDS`` rounds (medians and spreads); then the leaf's whole
 reshard in place against the stack and gather that preceded it.
 
-Phase 7 runs right after phase 3, then phases 5, 8, 6 and 4: 7, 5 and 8
-need the most host RAM, and phase 4's staged fetches leave pinned host
-blocks in PyTorch's cache. The kernels' launch counts are set to 0 before each of the
+Phase 7 runs right after phase 3, then phases 5, 8, 6, 9 and 4: 7, 5, 8
+and 9 need the most host RAM, and phase 4's staged fetches leave pinned
+host blocks in PyTorch's cache. The kernels' launch counts are set to 0 before each of the
 paths and read after it; every kernel a path runs must have launched in it
 (phase 7's copy codec launches none).
 
@@ -215,6 +243,8 @@ def host_free_settled_gib(max_wait_s: float = 30.0) -> float:
     t0 = time.perf_counter()
     while (free := host_free_gib()) < want and time.perf_counter() - t0 < max_wait_s:
         time.sleep(1.0)
+    if time.perf_counter() - t0 > 1.0:
+        log(f"host RAM settled after {time.perf_counter() - t0:.1f} s: {free:.1f} GiB free")
     return free
 
 
@@ -939,11 +969,11 @@ def device_tier_path(state, layout, mesh) -> tuple[dict, list[dict]]:
 
 ENGINE_RANKS = 4  # the quickstart's virtual failure-domain hosts
 HOST_HEADROOM_GIB = 6.0
-# Depth of phases 5 and 6 (llama3.2-1b has 16 layers; width is never cut):
-# their creates cost about 1.3 s per GB staged, most of it pinning fresh
-# arenas, and halving the depth leaves the run time for phase 7's two runs
-# at full depth
-PATH_LAYERS = 8
+# Depth of phases 5, 6 and 8 (llama3.2-1b has 16 layers; width is never
+# cut): their creates cost about 1.3 s per GB staged, most of it pinning
+# fresh arenas (at one layer the embedding's optimizer state is most of a
+# generation), which leaves the run time for phases 7 and 9
+PATH_LAYERS = 1
 # phase 5's cycles: the reference's default engine, compressed, and
 # compressed with the drain over 4 workers (each quantizing on its own stream)
 ENGINE_CYCLES = (("default", {}), ("compress", {"compress": True}),
@@ -1536,6 +1566,444 @@ def elastic_path(cfg) -> tuple[dict, list[dict]]:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the storage-tier ladder and differential checkpointing
+# ---------------------------------------------------------------------------
+
+TIER_ROOT = ROOT / "build" / "tiers"  # the tier directories (gitignored)
+TIER_RANKS = 8
+# Depth of phase 9 (width is never cut): one layer. A dedup flush digests
+# every byte of a generation (8 ranks' own arenas, exchange subsets and
+# parity: 14.9 GB at one layer, the embedding's 3.7 GB of state held
+# replicated and split), and a load verifies them again, so each added layer
+# costs a flush and two loads 1.6 GB more
+TIER_LAYERS = 1
+TIER_CFG = dict(codec="rs", parity_group=4, rs_parity=2, gf_backend="torch", delta=True)
+TIER_WITHIN = (0, 2)      # two hosts of group 0: within m = 2
+TIER_BEYOND = (0, 1, 2)   # three hosts of group 0: beyond m, the disk tier's case
+TIER_COLD_WORLD = 4       # the fresh engine's world for the cold N-to-M restart
+# the trainer leg: phase 7's run at TIER_LAYERS, no spare, a disk rung
+# flushed at every checkpoint, all 4 hosts killed at step 5 (checkpoints at
+# 3 and 6, the full restart escalates to step 3's generation); then a fresh
+# Trainer on 2 hosts cold-restarts from step 6's (4 -> 2) and takes 2 steps
+TIER_TRAIN_KILLS = {5: [0, 1, 2, 3]}
+TIER_COLD_HOSTS = 2
+# the resumed job flushes every 3rd commit: the checkpoint re-protecting its
+# new world is not flushed (the leg would only wait for it at close)
+TIER_RESUME_FLUSH_EVERY = 3
+
+
+def dir_probe(path) -> dict:
+    """The filesystem ``path`` lies on (its /proc/mounts entry) and its free
+    bytes."""
+    import os
+    import shutil
+
+    real, mount, fstype = os.path.realpath(path), "", "?"
+    with open("/proc/mounts") as f:
+        for line in f:
+            _, mnt, fs = line.split()[:3]
+            if (real == mnt or real.startswith(mnt.rstrip("/") + "/")) and len(mnt) >= len(mount):
+                mount, fstype = mnt, fs
+    return dict(path=str(path), mount=mount, fstype=fstype, free_gb=shutil.disk_usage(path).free / 1e9)
+
+
+def drop_cached(root) -> bool:
+    """``posix_fadvise(POSIX_FADV_DONTNEED)`` on every file under ``root``,
+    so a load reads the disk and not the page cache; True if every call
+    succeeded."""
+    import os
+
+    ok = True
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            try:
+                fd = os.open(os.path.join(dirpath, name), os.O_RDONLY)
+                try:
+                    os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+                finally:
+                    os.close(fd)
+            except OSError:
+                ok = False
+    return ok
+
+
+def tier_need(layout, plan, n_ranks: int, parity: float, tmpfs: bool) -> tuple[float, float]:
+    """(host RAM GiB, disk GB) the engine leg needs at its peak: two banks of
+    a generation (all ranks' own arenas, the exchange subsets, the parity at
+    ``parity`` x the exchange bytes) and the encode scratch, beside a loaded
+    generation and ``np_checksum``'s weight table; the disk holds two
+    generations (dedup shares what they have in common), and on ``tmpfs``
+    that too is host RAM."""
+    from repro_torch.utils.pytree import tree_flatten
+
+    sizes = [int(math.prod(sd.shape)) * sd.dtype.itemsize for sd in tree_flatten(layout.sds)[1]]
+    split = sum(b for i, b in enumerate(sizes) if plan.split_dim(i, n_ranks) is not None)
+    repl = sum(sizes) - split
+    generation = n_ranks * repl + 2 * split + parity * split
+    disk = 2 * generation
+    host = 3 * generation + parity * split + _pow2_words_bytes(repl + split // n_ranks) + (disk if tmpfs else 0)
+    return host / 2**30, disk / 1e9
+
+
+def rewrite_layer(state, gen: int) -> None:
+    """A seeded share of the live state changes: every leaf of layer 0 (the
+    first slice of each stacked ``layers`` leaf) drawn anew from seed
+    SEED + ``gen``, and the step."""
+    import torch
+
+    from repro_torch.utils.pytree import tree_flatten
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + gen)
+    for path, leaf in zip(*tree_flatten(state)):
+        if "layers" in path:
+            x = leaf[0]
+            x.copy_(torch.randn(x.shape, generator=g, device=x.device, dtype=torch.float32).to(x.dtype))
+    state["step"] += 1
+
+
+def _same_state(state, expect) -> int:
+    """Leaves of ``state`` byte-equal to ``expect``'s (both on the card)."""
+    import torch
+
+    from repro_torch.utils.pytree import tree_flatten
+
+    return sum(torch.equal(_int_view(x), _int_view(o)) for x, o in zip(tree_flatten(state)[1], tree_flatten(expect)[1]))
+
+
+def _spans(tr) -> dict:
+    out: dict[str, float] = {}
+    for e in tr.events():
+        out[e["name"]] = out.get(e["name"], 0.0) + e["dur"]
+    return {k: round(v, 6) for k, v in sorted(out.items())}
+
+
+def tier_engine_leg(cfg) -> dict:
+    """The engine leg of phase 9: three creates with ``delta`` and a dedup
+    disk rung (a full encode, then two parity patches after rewriting layer
+    0), each flushed; a restore within the codec's tolerance that never
+    touches the disk; one beyond it that escalates to the newest generation
+    (its pages dropped from the page cache first); and a fresh engine on
+    TIER_COLD_WORLD ranks restoring the 8-rank generation through the row
+    gather (the cold N-to-M restart). Every leaf is checked byte for byte
+    after each restore."""
+    import gc
+    import resource
+    import shutil
+
+    import torch
+
+    from repro_torch.core import storage
+    from repro_torch.core.checkpoint import CheckpointEngine, EngineConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import init_train_state
+    from repro_torch.obs.trace import tracer
+    from repro_torch.runtime.state import RngEntity, ShardedStateEntity
+    from repro_torch.utils.pytree import tree_flatten, tree_map
+
+    tier_dir = TIER_ROOT / "engine"
+    shutil.rmtree(tier_dir, ignore_errors=True)
+    tier_dir.mkdir(parents=True)
+    fs = dir_probe(tier_dir)
+    free = host_free_settled_gib()
+    layers = min(cfg.num_layers, TIER_LAYERS)
+    mesh, layout, plan = layout_and_plan(replace(cfg, num_layers=layers), TIER_RANKS)
+    need, disk_gb = tier_need(layout, plan, TIER_RANKS, 0.5, fs["fstype"] == "tmpfs")
+    log(f"tier engine: {layers} of {cfg.num_layers} layers, width kept (TIER_LAYERS {TIER_LAYERS}, for the "
+        f"run's time), {TIER_RANKS} ranks; tier directory on {fs['fstype']} ({fs['mount']}), "
+        f"{fs['free_gb']:.1f} GB free, about {disk_gb:.1f} GB needed; host RAM {free:.1f} GiB free, "
+        f"about {need:.1f} GiB needed" + (" (the tier's bytes counted: tmpfs)" if fs["fstype"] == "tmpfs" else ""))
+    check(need + HOST_HEADROOM_GIB <= free, f"tier engine: {need:.1f} GiB of host RAM needed, {free:.1f} free")
+    check(disk_gb + 1.0 <= fs["free_gb"], f"tier engine: {disk_gb:.1f} GB of disk needed, {fs['free_gb']:.1f} free")
+    state = init_train_state(layout, mesh, torch.Generator(device="cuda").manual_seed(SEED))
+    live = tree_flatten(state)[1]
+    rng = RngEntity()
+    cfg_e = EngineConfig(**TIER_CFG, tiers=(storage.disk(str(tier_dir), every=1, dedup=True),))
+    eng = CheckpointEngine(TIER_RANKS, cfg_e)
+    eng.register("state", ShardedStateEntity(lambda: state, plan))
+    eng.register("rng", rng)
+    tier = eng.persistent_tiers[0]
+    tr = tracer()
+    rss = rss_sampler()
+    torch.cuda.reset_peak_memory_stats()
+    out: dict = dict(layers=layers, fs=fs, creates=[])
+    n_units = len(eng._pipeline_units({"state": None}))
+
+    def overwrite() -> None:
+        for leaf in live:  # the live state moves on: every byte overwritten
+            leaf.fill_(7)
+        rng.seed = rng.counter = 0
+
+    def restored(what: str) -> None:
+        torch.cuda.synchronize()
+        check(_same_state(state, expect) == len(live), f"tier engine {what}: a leaf differs")
+        check((rng.seed, rng.counter) == (SEED, 17), f"tier engine {what}: rng entity")
+
+    flushes: list[dict] = []
+    real_flush = tier.flush
+
+    def recorded_flush(snap):  # each flush's time and dedup counts, on the flush worker
+        t0 = time.perf_counter()
+        written = real_flush(snap)
+        dt = time.perf_counter() - t0
+        d = tier.last_dedup
+        flushes.append(dict(gen=snap.created, s=dt, bytes_written=written, logical_bytes=d["logical_bytes"],
+                            gbps=d["logical_bytes"] / dt / 1e9, written_gbps=written / dt / 1e9,
+                            chunks_written=d["chunks_written"], chunks_reused=d["chunks_reused"],
+                            dedup_ratio=d["stored_bytes"] / d["logical_bytes"]))
+        log(f"tier engine flush of create {snap.created}: " + json.dumps(flushes[-1]))
+        return written
+
+    tier.flush = recorded_flush
+    for gen in (1, 2, 3):
+        if gen > 1:
+            rewrite_layer(state, gen)
+        rng.seed, rng.counter = SEED, 17
+        s0 = eng.stats.as_dict()
+        b4 = ops.launch_counts()["gf256_matmul_dyn"]
+        tr.reset()
+        tr.enable()
+        torch.cuda.synchronize()
+        with d2h_meter() as d2h:
+            check(eng.checkpoint_async({"step": gen}), f"tier engine: create {gen} failed to capture")
+        check(eng.finalize_async() is True, f"tier engine: create {gen}: the handshake failed")
+        b4 = ops.launch_counts()["gf256_matmul_dyn"] - b4
+        tr.disable()
+        # the flush runs behind what follows (the next capture stages into the
+        # other bank); the first one finishes first, so the second finds its
+        # chunks in the store
+        eng.kick_tier_flush()
+        join_s = 0.0
+        if gen == 1:
+            t0 = time.perf_counter()
+            eng._join_flush()
+            join_s = time.perf_counter() - t0
+        s = eng.stats
+        spans = {k: v for k, v in _spans(tr).items() if not k.startswith(("flush", "tier_"))}
+        run = dict(gen=gen, **create_line(s), pin_s=d2h["pin_s"], pinned_bytes=d2h["pinned_bytes"],
+                   d2h_gbps=d2h["bytes"] / max(d2h["s"], 1e-9) / 1e9, span_s=spans,
+                   flush_wait_s=s.last_flush_wait_s, flush_join_s=join_s,
+                   delta_encodes=s.delta_encodes - s0["delta_encodes"],
+                   full_encodes=s.full_encodes - s0["full_encodes"], dirty_fraction=s.last_dirty_fraction,
+                   transfer_bytes_skipped=s.last_transfer_bytes_skipped, patched_ranges=s.last_delta_ranges,
+                   b4_launches=b4)
+        log(f"tier engine create {gen}: " + json.dumps(run))
+        out["creates"].append(run)
+        if gen == 1:
+            check((run["full_encodes"], run["delta_encodes"]) == (n_units, 0), f"tier engine create 1: {run}")
+            check([f["gen"] for f in flushes] == [1] and tier.generations() == [1], "tier engine: flush 1 missing")
+        else:
+            check((run["full_encodes"], run["delta_encodes"]) == (0, n_units),
+                  f"tier engine create {gen}: every unit must be patched: {run}")
+            check(0.0 < run["dirty_fraction"] < cfg_e.delta_crossover, f"tier engine: dirty fraction {run}")
+            check(b4 >= run["patched_ranges"] > 0, f"tier engine create {gen}: B4 did not run the patch: {run}")
+        if gen == 3:
+            # the staging bank's arenas hold generation 1's stripes: the
+            # clean chunks stay in place
+            check(run["transfer_bytes_skipped"] > 0, f"tier engine create 3: no transfer skipped: {run}")
+    expect = tree_map(lambda t: t.clone(), state)
+
+    # within the tolerance: the codec rebuilds from the patched parity
+    for r in TIER_WITHIN:
+        eng.stores[r].wipe()
+    overwrite()
+    t0 = time.perf_counter()
+    meta = eng.restore()
+    restored("within tolerance")
+    out["within"] = dict(killed=list(TIER_WITHIN), wall_s=time.perf_counter() - t0, **restore_line(eng.stats),
+                         reconstructed=eng.stats.reconstructed_restores, escalations=eng.stats.tier_escalations)
+    check(meta["step"] == 3 and eng.stats.tier_escalations == 0, f"tier engine within: {out['within']}")
+    check(eng.stats.reconstructed_restores > 0, "tier engine within: nothing rebuilt")
+    log("tier engine restore within tolerance: " + json.dumps(out["within"]))
+
+    # beyond it: escalation to the newest generation on disk
+    for r in TIER_BEYOND:
+        eng.stores[r].wipe()
+    overwrite()
+    dropped = drop_cached(tier_dir)
+    tr.reset()
+    tr.enable()
+    t0 = time.perf_counter()
+    meta = eng.restore()
+    wall = time.perf_counter() - t0
+    tr.disable()
+    restored("beyond tolerance")
+    load = tier.last_load
+    out["beyond"] = dict(killed=list(TIER_BEYOND), wall_s=wall, **restore_line(eng.stats),
+                         escalations=eng.stats.tier_escalations, load=load,
+                         load_gbps=load["bytes"] / max(load["s"], 1e-9) / 1e9,
+                         cold=dropped and fs["fstype"] != "tmpfs", fadvise_ok=dropped, span_s=_spans(tr))
+    check(meta["step"] == 3 and eng.stats.tier_escalations == 1, f"tier engine beyond: {out['beyond']}")
+    log("tier engine restore beyond tolerance (escalated): " + json.dumps(out["beyond"]))
+    # the escalation joined every flush: generation 3 was the one it loaded
+    out["flushes"] = flushes
+    check([f["gen"] for f in flushes] == [1, 2, 3] and eng.stats.tier_flushes == 3 and load["gen"] == 3,
+          f"tier engine: flushes {flushes}")
+    check(all(f["chunks_reused"] > 0 for f in flushes[1:]), f"tier engine: a later flush reused no chunk: {flushes}")
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a fresh engine on TIER_COLD_WORLD ranks: the cold N-to-M restart
+    eng = CheckpointEngine(TIER_COLD_WORLD, cfg_e)
+    eng.register("state", ShardedStateEntity(lambda: state, plan))
+    eng.register("rng", rng)
+    overwrite()
+    dropped = drop_cached(tier_dir)
+    gathers = ops.launch_counts()["gather_rows"]
+    tr.reset()
+    tr.enable()
+    t0 = time.perf_counter()
+    meta = eng.restore_elastic(TIER_COLD_WORLD)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tr.disable()
+    gathers = ops.launch_counts()["gather_rows"] - gathers
+    restored(f"cold {TIER_RANKS} -> {TIER_COLD_WORLD}")
+    axised = sum(d is not None for d in plan.dims)
+    load = eng.persistent_tiers[0].last_load
+    out["cold"] = dict(n_old=TIER_RANKS, n_new=TIER_COLD_WORLD, wall_s=wall, restore_s=eng.stats.last_restore_s,
+                       escalations=eng.stats.tier_escalations, load=load,
+                       load_gbps=load["bytes"] / max(load["s"], 1e-9) / 1e9,
+                       cold=dropped and fs["fstype"] != "tmpfs", gather_launches=gathers,
+                       bytes_moved=eng.last_elastic_report.bytes_moved, span_s=_spans(tr))
+    check(meta["step"] == 3 and eng.stats.tier_escalations == 1 and eng.n_ranks == TIER_COLD_WORLD,
+          f"tier engine cold: {out['cold']}")
+    check(gathers == axised * TIER_COLD_WORLD,
+          f"tier engine cold: {gathers} gather launches, expected {axised} x {TIER_COLD_WORLD}")
+    log(f"tier engine cold {TIER_RANKS} -> {TIER_COLD_WORLD} restart: " + json.dumps(out["cold"]))
+    eng.close()
+    del eng, state, expect, live
+    out.update(peak_device_gb=torch.cuda.max_memory_allocated() / 1e9, host_leg_peak_rss_gib=rss(),
+               host_peak_rss_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
+               disk_free_after_gb=dir_probe(tier_dir)["free_gb"])
+    shutil.rmtree(tier_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tier_trainer_leg(cfg) -> dict:
+    """The trainer leg of phase 9: phase 7's run at TIER_LAYERS with a disk
+    rung, through a whole-system loss at step 5 (the full restart escalates
+    to step 3's generation; the replayed steps 3 and 4 must be bit-equal to
+    the first pass), then a fresh Trainer on TIER_COLD_HOSTS hosts
+    cold-restarting from step 6's generation (4 -> 2) for two steps, whose
+    losses must be bit-equal to the first run's steps 6 and 7."""
+    import gc
+    import resource
+    import shutil
+
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.runtime.failures import FailureInjector
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    tier_dir = TIER_ROOT / "trainer"
+    shutil.rmtree(tier_dir, ignore_errors=True)
+    tier_dir.mkdir(parents=True)
+    fs = dir_probe(tier_dir)
+    layers = min(cfg.num_layers, TIER_LAYERS)
+    full_layers, cfg = cfg.num_layers, replace(cfg, num_layers=layers)
+    mesh, layout, plan = layout_and_plan(cfg, ENGINE_RANKS)
+    free = host_free_settled_gib()
+    need, disk_gb = tier_need(layout, plan, ENGINE_RANKS, 0.0, fs["fstype"] == "tmpfs")
+    log(f"tier trainer: {layers} of {full_layers} layers (width kept), tier directory on {fs['fstype']}, "
+        f"{fs['free_gb']:.1f} GB free, about {disk_gb:.1f} GB needed; host RAM {free:.1f} GiB free, about "
+        f"{need:.1f} GiB needed")
+    check(need + HOST_HEADROOM_GIB <= free, f"tier trainer: {need:.1f} GiB of host RAM needed, {free:.1f} free")
+    check(disk_gb + 1.0 <= fs["free_gb"], f"tier trainer: {disk_gb:.1f} GB of disk needed, {fs['free_gb']:.1f} free")
+    kw = dict(TRAIN, n_spares=0, total_steps=TRAIN_STEPS, tier_dir=str(tier_dir), disk_flush_every=1)
+    torch.use_deterministic_algorithms(True)
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t = Trainer(build_model(cfg), TrainerConfig(**kw), injector=FailureInjector(ENGINE_RANKS,
+                                                                                    schedule=TIER_TRAIN_KILLS))
+        t0 = time.perf_counter()
+        hist = t.run(TRAIN_STEPS)
+        run_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        t.engine.close()  # joins step 6's flush
+        close_s = time.perf_counter() - t0
+        s = t.engine.stats
+        losses = [h["loss"] for h in hist]
+        first = dict(steps=[h["step"] for h in hist], loss=losses, run_s=run_s, close_s=close_s,
+                     flushes=s.tier_flushes, last_flush_s=s.last_flush_s, last_flush_bytes=s.last_flush_bytes,
+                     escalations=s.tier_escalations, restore_s=s.last_restore_s,
+                     load=t.engine.persistent_tiers[0].last_load)
+        check(all(math.isfinite(x) for x in losses), f"tier trainer: a loss is not finite: {losses}")
+        check(first["steps"] == TRAIN_HISTORY, f"tier trainer: steps {first['steps']}")
+        check(t.n_recoveries == 1 and s.tier_escalations == 1, f"tier trainer: {t.n_recoveries} recoveries, "
+              f"{s.tier_escalations} escalations")
+        check(losses[3:5] == losses[5:7], f"tier trainer: replayed losses {losses[5:7]} differ from {losses[3:5]}")
+        check(s.tier_flushes == 2, f"tier trainer: {s.tier_flushes} flushes, want 2 (steps 3 and 6)")
+        log("tier trainer, whole-system loss: " + json.dumps(first))
+        del t
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        b = Trainer(build_model(cfg), TrainerConfig(**{**kw, "n_virtual_hosts": TIER_COLD_HOSTS,
+                                                       "disk_flush_every": TIER_RESUME_FLUSH_EVERY}))
+        t0 = time.perf_counter()
+        meta = b.cold_restart()
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        step = int(meta["step"])
+        hist2 = b.run(step + 2)
+        s = b.engine.stats
+        cold = dict(step=step, n_ranks=b.engine.n_ranks, cold_restart_s=cold_s, restore_s=s.last_restore_s,
+                    escalations=s.tier_escalations, load=b.engine.persistent_tiers[0].last_load,
+                    steps=[h["step"] for h in hist2], loss=[h["loss"] for h in hist2])
+        check(step == 2 * TRAIN_PERIOD and b.engine.n_ranks == TIER_COLD_HOSTS and s.tier_escalations == 1,
+              f"tier trainer cold restart: {cold}")
+        check(cold["steps"] == [step, step + 1] and cold["loss"] == losses[-2:],
+              f"tier trainer cold restart: losses {cold['loss']} differ from the first run's {losses[-2:]}")
+        b.engine.close()
+        log(f"tier trainer cold {ENGINE_RANKS} -> {TIER_COLD_HOSTS} restart: " + json.dumps(cold))
+        del b
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+    out = dict(layers=layers, fs=fs, first=first, cold=cold, peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+               host_peak_rss_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20)
+    shutil.rmtree(tier_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tier_path(cfg) -> tuple[dict, dict]:
+    """Phase 9: the engine leg, then the trainer leg; both must launch their
+    kernels: B4 in the engine leg (the patches, the encodes and the decode
+    after the escalation), B6 in both cold restarts. Returns the kernels'
+    launch counts over this path alone and the legs' numbers."""
+    from repro_torch.core import gf256
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()  # this path's counts start here
+    before = ops.launch_counts()
+    try:
+        engine = tier_engine_leg(cfg)
+    finally:
+        gf256.set_backend(None)  # the leg forced the torch backend process-wide
+    mid = ops.launch_counts()
+    trainer = tier_trainer_leg(cfg)
+    counts = ops.launch_counts()
+    engine["launches"] = {k: mid[k] - before[k] for k in mid if mid[k] != before[k]}
+    trainer["launches"] = {k: counts[k] - mid[k] for k in counts if counts[k] != mid[k]}
+    for name, leg in (("engine", engine), ("trainer", trainer)):
+        log(f"tier {name} leg: " + json.dumps({k: v for k, v in leg.items()
+                                               if k not in ("creates", "flushes", "within", "beyond", "cold", "first")}))
+    check(engine["launches"].get("gf256_matmul_dyn", 0) > 0, "tier engine: B4 was launched no time")
+    check(engine["launches"].get("gather_rows", 0) > 0, "tier engine: B6 was launched no time")
+    check(trainer["launches"].get("gather_rows", 0) > 0, "tier trainer: B6 was launched no time")
+    return counts, dict(engine=engine, trainer=trainer)
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the fault-tolerant training loop (Algorithm 3) at full width
 # ---------------------------------------------------------------------------
 
@@ -1547,6 +2015,10 @@ TRAIN = dict(batch=8, seq=128, lr=1e-3, warmup_steps=2, n_virtual_hosts=ENGINE_R
              recovery_policy="spare", checkpoint_period=TRAIN_PERIOD)
 TRAIN_STEPS, TRAIN_KILLS = 8, {5: [2]}
 TRAIN_HISTORY = [0, 1, 2, 3, 4, 3, 4, 5, 6, 7]
+# depth of the async run (width kept): it drives the sync run's path with
+# the drain behind the next step, and half the depth leaves the run time for
+# phase 9
+TRAIN_ASYNC_LAYERS = 8
 
 
 def trainer_host_need_gib(layout, plan) -> float:
@@ -1765,8 +2237,16 @@ def main() -> int:
     card = gpu_line()
     _HOST_START[:] = [host_free_gib(), host_rss_gib()]
     log(f"host free memory: {_HOST_START[0]:.1f} GiB")
+    last = [t_start]
 
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        log(f"{name}: {now - last[0]:.1f} s")
+        last[0] = now
+
+    phase_done("phase 1 (build, SASS)")
     kernel_tests_phase()
+    phase_done("phase 2 (kernel tests)")
     from repro_torch.configs import get_config
     from repro_torch.core.device_tier import build_snapshot_program
     from repro_torch.launch.steps import init_train_state, train_state_layout
@@ -1790,28 +2270,41 @@ def main() -> int:
     best = gf256.active_backend_name()
     log(f"gf256 probe ({time.perf_counter() - t0:.2f} s): picks {best}; GB/s "
         + json.dumps({k: gf256.probed_gbps(k, float("nan")) for k in gf256.available_backends()}))
+    phase_done("phase 3 (kernels at the main path's shapes, the probe)")
 
     # the trainer first: it needs the most host RAM (two committed
     # generations), and runs before any staged fetch caches pinned blocks
     counts7 = {}
     for mode in ("sync", "async"):
-        run7, counts = trainer_path(cfg, mode)
+        if mode == "async":
+            log(f"trainer (async): {TRAIN_ASYNC_LAYERS} of {cfg.num_layers} layers, width kept "
+                f"(TRAIN_ASYNC_LAYERS, for the run's time)")
+        run7, counts = trainer_path(cfg if mode == "sync" else replace(cfg, num_layers=TRAIN_ASYNC_LAYERS), mode)
         gc.collect()
         log(f"trainer path ({mode}): " + json.dumps(run7))
         log(f"trainer path ({mode}) launches: {json.dumps(counts)}")
         counts7 = {k: counts7.get(k, 0) + v for k, v in counts.items()}
+        phase_done(f"phase 7 ({mode})")
 
     # the engine path first: it needs the most host RAM, and the device-tier
     # path's staged fetches leave pinned host blocks in PyTorch's cache
     counts5, runs5 = engine_path(cfg)
     log(f"engine path launches: {json.dumps(counts5)}")
     gc.collect()
+    phase_done("phase 5")
     counts8, runs8 = striped_path(cfg)
     log(f"striped path launches: {json.dumps(counts8)}")
+    phase_done("phase 8")
     counts6, runs6 = elastic_path(cfg)
     log(f"elastic path launches: {json.dumps(counts6)}")
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("phase 6")
+    counts9, runs9 = tier_path(cfg)
+    log(f"tier path launches: {json.dumps(counts9)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("phase 9")
     t0 = time.perf_counter()
     state = init_train_state(layout, mesh, torch.Generator(device="cuda").manual_seed(SEED))
     torch.cuda.synchronize()
@@ -1821,8 +2314,9 @@ def main() -> int:
         f"({time.perf_counter() - t0:.1f} s to make)")
     counts4, runs4 = device_tier_path(state, layout, mesh)
     log(f"device-tier path launches: {json.dumps(counts4)}")
+    phase_done("phase 4")
     for k in kernels:
-        k["launches"] = sum(c[k["name"]] for c in (counts4, counts5, counts6, counts7, counts8))
+        k["launches"] = sum(c[k["name"]] for c in (counts4, counts5, counts6, counts7, counts8, counts9))
         k["route"] = "cuda"
         check(k["launches"] > 0, f"kernel {k['name']} was launched no time on the main paths")
     log(f"total {time.perf_counter() - t_start:.1f} s")

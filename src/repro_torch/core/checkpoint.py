@@ -40,10 +40,26 @@ The reference's default engine runs as it is:
   world size (on the card every split leaf of every new rank is built by
   the row-gather kernel B6).
 
+Below the diskless stores sits the storage-tier ladder (``core/storage.py``,
+``cfg.tiers``): a committed generation is flushed to its persistent rungs in
+the background, on the drain's worker pool after the pointer swap, and
+recovery escalates down the ladder: codec reconstruction first, and only
+when the failure set exceeds the codec's tolerance (or nothing survives a
+cold start) is the newest valid generation on disk loaded and recovery run
+again against it. ``restore_elastic`` with nothing in memory is the cold
+N-to-M restart from the same generation.
+
+Under ``cfg.delta`` (differential checkpointing) the drain takes each
+member's exchange checksum per chunk of a fixed grid (the partials combine
+to the exact whole-buffer sums, so one host pass serves both) and diffs it
+against the committed generation's table: below ``delta_crossover`` the
+parity is patched in place, ``parity ^= G·(new ⊕ old)`` over the merged
+dirty ranges (one GF(2^8) product per range, B4 on the card under the
+``torch`` backend), and TRANSFER copies only the stripe chunks that differ
+from what the holder's arena holds.
+
 What this port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP item instead of quietly running another path: storage tiers and
-``delta`` (A7, so also the cold N-to-M restart and the incremental parity
-patch), ``topology`` (A9).
+ROADMAP item instead of quietly running another path: ``topology`` (A9).
 
 Host stores hold ``torch.uint8`` CPU arenas; the handshake checksums them
 on the host with ``np_checksum``, as the reference does. Restored payloads
@@ -61,12 +77,14 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Protocol
 
+import numpy as np
 import torch
 
 from repro_torch.core import codec as codec_mod
 from repro_torch.core import distribution as dist
 from repro_torch.core import gf256
 from repro_torch.core import parity as parity_mod
+from repro_torch.core import storage as storage_mod
 from repro_torch.core.hoststore import HostStore, StorePayload, pinned_empty
 from repro_torch.core.integrity import IntegrityError, np_checksum
 from repro_torch.core.serialization import Manifest, arena_views, dtype_from_name, pack_bytes, unpack_bytes
@@ -140,27 +158,24 @@ class EngineConfig:
     restore_mode: str = "pipelined"  # "pipelined" | "sync" (the serial per-origin decode)
     restore_chunk_bytes: int = 0   # pipelined restore chunk bytes; 0 = the adaptive planner
     encode_chunk_bytes: int = 0    # create-side chunking; the copy codec encodes whole
-    delta: bool = False            # differential checkpointing (ROADMAP A7)
-    delta_chunk_bytes: int = 1 << 20
-    delta_crossover: float = 0.6
+    delta: bool = False            # differential checkpointing (dirty map, parity patch, transfer skip)
+    delta_chunk_bytes: int = 1 << 20   # dirty-map chunk grid (4-aligned)
+    delta_crossover: float = 0.6       # dirty fraction beyond which a full re-encode wins
     gf_backend: str = ""           # force a GF(2^8) backend: "table" | "swar" | "torch"
-    tiers: tuple = ()              # persistent storage-tier ladder (ROADMAP A7)
+    tiers: tuple = ()              # persistent storage-tier ladder (storage.TierSpec rungs)
 
 
 def _unported(cfg: EngineConfig) -> str | None:
     """Why this slice cannot run ``cfg``, naming the ROADMAP item; None if
     it can."""
-    if cfg.tiers:
-        return "tiers: the storage-tier ladder waits for ROADMAP A7"
-    if cfg.delta:
-        return "delta: differential checkpointing waits for ROADMAP A7"
     if cfg.topology is not None:
         return "topology: failure-domain-aware placement waits for ROADMAP A9"
     return None
 
 
 #: ``CheckpointStats`` attribute -> (metric kind, metric name, python type,
-#: help): the reference's names for the counters this slice keeps.
+#: help): the reference's names, and one of the port's own
+#: (``last_delta_ranges``).
 _STATS_METRICS: dict[str, tuple[str, str, type, str]] = {
     "created": ("counter", "ckpt_created_total", int,
                 "Checkpoints committed (pointer swaps)."),
@@ -201,6 +216,32 @@ _STATS_METRICS: dict[str, tuple[str, str, type, str]] = {
                                         "Bytes expanded by the chunked DEQ stage."),
     "restore_plan_reuses": ("counter", "restore_plan_reuse_total", int,
                             "Restore units served from the generation-keyed plan cache."),
+    "tier_flushes": ("counter", "tier_flush_total", int, "Persistent-tier generations committed."),
+    "tier_flush_skipped": ("counter", "tier_flush_skipped_total", int,
+                           "Flush cadence points dropped under back-pressure."),
+    "tier_flush_queued": ("counter", "tier_flush_queued_total", int,
+                          "Flush cadence points deferred into the queue slot."),
+    "tier_escalations": ("counter", "tier_escalation_total", int,
+                         "Recoveries that fell back to a persistent tier."),
+    "last_flush_s": ("gauge", "tier_last_flush_seconds", float, "Wall time of the last background flush."),
+    "last_flush_bytes": ("gauge", "tier_last_flush_bytes", int, "Bytes the last flush wrote."),
+    "last_flush_wait_s": ("gauge", "tier_last_flush_wait_seconds", float,
+                          "Capture time spent joining a flush (bank conflict)."),
+    "last_dirty_fraction": ("gauge", "ckpt_last_dirty_fraction", float,
+                            "Dirty-chunk byte fraction of the last delta capture."),
+    "delta_encodes": ("counter", "ckpt_delta_encode_total", int,
+                      "Units whose parity was patched incrementally."),
+    "full_encodes": ("counter", "ckpt_full_encode_total", int, "Units re-encoded in full under delta mode."),
+    "last_transfer_bytes_skipped": ("gauge", "ckpt_last_transfer_bytes_skipped", int,
+                                    "Stripe bytes the last transfer left in place (unchanged chunks)."),
+    "last_flush_chunks_written": ("gauge", "tier_last_flush_chunks_written", int,
+                                  "New chunk objects the last dedup flush stored."),
+    "last_flush_chunks_reused": ("gauge", "tier_last_flush_chunks_reused", int,
+                                 "Chunk references the last dedup flush served from the store."),
+    "last_dedup_ratio": ("gauge", "tier_last_dedup_ratio", float,
+                         "Stored/logical byte ratio of the last dedup flush (lower = more dedup)."),
+    "last_delta_ranges": ("gauge", "ckpt_last_delta_ranges", int,
+                          "Dirty ranges the last create patched (one GF(2^8) product each)."),
 }
 
 
@@ -308,6 +349,63 @@ class _PendingCheckpoint:
     # exchange checksums, keys (rank, entity).
     exch_sums: dict = field(default_factory=dict)
     gen: int = 0                # generation this snapshot becomes on commit
+    # Differential bookkeeping (cfg.delta), filled by the drain like
+    # exch_sums: the per-(rank, entity) chunk-grid Fletcher partials of the
+    # exchange payloads (replicated in meta: the next capture's dirty-map
+    # baseline), the scratch-parity validity entries staged for commit, and
+    # the capture's dirty/skip byte and patched-range tallies.
+    chunk_sums: dict = field(default_factory=dict)
+    delta_enc: dict = field(default_factory=dict)
+    dirty_bytes: int = 0
+    logical_bytes: int = 0
+    skipped_bytes: int = 0
+    delta_ranges: int = 0
+
+
+def _chunk_checksums(flat: torch.Tensor, step: int) -> tuple:
+    """Per-chunk Fletcher partials over the ``step`` grid (``step``
+    4-aligned, only the last chunk ragged). Linearity makes them combine:
+    the chunk at word offset ``o`` adds ``s1 += c1; s2 += c2 + o·c1``, so
+    the combined sums equal a whole-buffer ``np_checksum``."""
+    flat = flat.numpy()
+    return tuple(np_checksum(flat[lo : lo + step]) for lo in range(0, flat.nbytes, step))
+
+
+def _combine_checksums(parts: tuple, step: int) -> tuple[int, int]:
+    s1 = s2 = 0
+    words = step // 4
+    for ci, (c1, c2) in enumerate(parts):
+        s1 = (s1 + c1) & 0xFFFFFFFF
+        s2 = (s2 + c2 + ci * words * c1) & 0xFFFFFFFF
+    return s1, s2
+
+
+def _merge_chunk_ranges(idx: list[int], step: int, nbytes: int) -> list:
+    """Dirty chunk indices -> merged, clipped [lo, hi) byte ranges."""
+    ranges: list[list[int]] = []
+    for ci in idx:
+        lo, hi = ci * step, min(ci * step + step, nbytes)
+        if ranges and ranges[-1][1] == lo:
+            ranges[-1][1] = hi
+        else:
+            ranges.append([lo, hi])
+    return [(lo, hi) for lo, hi in ranges]
+
+
+def _copy_dirty(dst: torch.Tensor, src: torch.Tensor, step: int) -> int:
+    """Copy only the ``step``-grid chunks of ``src`` that differ from what
+    ``dst`` (the holder arena's previous content) holds; returns the bytes
+    left in place. Exact: it compares the bytes, so a fresh (garbage) arena
+    simply copies everything."""
+    dst, src = dst.numpy(), src.numpy()
+    skipped = 0
+    for lo in range(0, src.nbytes, step):
+        hi = min(lo + step, src.nbytes)
+        if np.array_equal(dst[lo:hi], src[lo:hi]):
+            skipped += hi - lo
+        else:
+            np.copyto(dst[lo:hi], src[lo:hi])
+    return skipped
 
 
 class CheckpointEngine:
@@ -350,6 +448,23 @@ class CheckpointEngine:
         # on the card, reused across creates (TRANSFER copies the stripes out
         # before the next drain re-leases it)
         self._enc_scratch: dict[Any, torch.Tensor] = {}
+        # Differential checkpointing: which (group, entity) scratch arenas
+        # still hold the COMMITTED generation's parity, and under which codec
+        # and member layout: the baseline a parity patch needs. Cleared on
+        # every discontinuity (abort, discard, escalation, resize): a full
+        # re-encode is always right, a stale baseline never is.
+        self._delta_enc: dict[tuple[int, str], tuple] = {}
+        self._delta_lock = threading.Lock()  # pending dirty/skip tallies
+        # The storage-tier ladder: rung 0 is the stores above; persistent
+        # rungs flush committed generations in the background and feed
+        # escalating recovery.
+        self.tiers = storage_mod.build_tiers(cfg.tiers)
+        self._flush_future: Any = None       # at most one flush in flight
+        self._flush_created: int = -1        # commit counter when it started
+        self._flush_pending: Any = None      # queued (due tiers, snapshot): one slot
+        # guards the _flush_pending hand-off between the caller and the
+        # flush worker (which chains the queued flush itself)
+        self._flush_lock = threading.Lock()
         self._obs_id = next(_ENGINE_SEQ)
         self.stats = CheckpointStats()
         self.registry = self.stats.registry
@@ -368,7 +483,11 @@ class CheckpointEngine:
         self._h_restore_rate = self.registry.histogram(
             "restore_decode_bytes_per_second",
             "Chunk-decode throughput driving the adaptive restore planner.", labelnames=("codec",))
-        self.journal = EventJournal(None, self.registry)
+        # the journal lives in the first persistent tier's directory, so the
+        # failure and recovery record survives a cold restart with the data
+        journal_path = next((os.path.join(t.path, "journal.jsonl") for t in self.tiers
+                             if t.persistent and getattr(t, "path", None)), None)
+        self.journal = EventJournal(journal_path, self.registry)
         self.last_elastic_report: ElasticReport | None = None  # of the last N-to-M restore
         self.codec = codec_mod.make_codec(cfg)
         if cfg.gf_backend:
@@ -420,13 +539,27 @@ class CheckpointEngine:
             # Two captures without a finalize: the first snapshot was never
             # committed — drain and drop it before its arenas are re-leased.
             self.discard_pending()
+        self.kick_tier_flush()  # a staged flush runs behind this capture (disjoint banks)
+        queued = self._flush_pending  # local reference: the flush worker may take it
+        if (self._flush_future is not None and self.stats.created > self._flush_created) or (
+                queued is not None and self.stats.created > queued[1].created):
+            # A commit happened since the running flush started (or since a
+            # queued flush captured its snapshot), so the bank this capture
+            # stages into is the bank that flush still reads (the generation
+            # parity rule): join it before the arenas are re-leased.
+            t_w = time.perf_counter()
+            with _TR.span("flush_wait", eng=self._obs_id, gen=self.stats.created + 1):
+                self._join_flush()
+            self.stats.last_flush_wait_s = time.perf_counter() - t_w
+        else:
+            self.stats.last_flush_wait_s = 0.0
         gen = self.stats.created + 1  # generation this capture becomes on commit
         t0 = time.perf_counter()
         alive0 = self._alive_fn()
         try:
             with _TR.span("capture", eng=self._obs_id, gen=gen):
                 self._fault_hook("before_create")
-                packed_partner, manifests, exch_sums = self._capture(alive0, meta)
+                packed_partner, manifests, exch_sums, chunk_sums = self._capture(alive0, meta)
                 self._fault_hook("after_create")
         except FaultDuringCheckpoint as e:
             log.warning("checkpoint aborted during create: %s", e)
@@ -440,7 +573,8 @@ class CheckpointEngine:
         self._h_stage.observe(self.stats.last_capture_s, phase="capture")
         if self.stats.last_capture_s > 0:
             self._h_rate.observe(self.stats.last_bytes_staged / self.stats.last_capture_s, phase="capture")
-        pending = _PendingCheckpoint(packed_partner, manifests, alive0, t0, exch_sums=exch_sums, gen=gen)
+        pending = _PendingCheckpoint(packed_partner, manifests, alive0, t0, exch_sums=exch_sums,
+                                     chunk_sums=chunk_sums, gen=gen)
         self._pending = pending
         if background is None:
             background = self.cfg.async_workers > 0
@@ -450,13 +584,13 @@ class CheckpointEngine:
 
     def _capture(
         self, alive0: set[int], meta: dict[str, Any] | None
-    ) -> tuple[dict[str, list[tuple[Any, Manifest]]], dict[tuple[int, str], Any], dict]:
+    ) -> tuple[dict[str, list[tuple[Any, Manifest]]], dict[tuple[int, str], Any], dict, dict]:
         """Serialize every entity's per-rank shards directly into host-store
         arenas (one copy per leaf, zero steady-state allocation; shards on
         the card are copied straight into pinned arenas) and stage
         the writable payloads. Returns the exchange buffers the drain
         encodes, the replicated manifest table and the (empty, shared)
-        exchange-checksum table the drain fills."""
+        exchange-checksum and chunk-checksum tables the drain fills."""
         packed: dict[str, list[tuple[Any, Manifest]]] = {}
         packed_partner: dict[str, list[tuple[Any, Manifest]]] = {}
         coords_tables: dict[str, Any] = {}
@@ -510,6 +644,10 @@ class CheckpointEngine:
         # manifests: attached empty here, filled by the drain's encode stage
         # (complete before the commit, which always follows the drain).
         exch_sums: dict[tuple[int, str], Any] = {}
+        # Per-chunk Fletcher partials of the same exchange payloads (under
+        # cfg.delta), replicated and filled the same way: the next capture's
+        # dirty-map baseline, carried by any survivor.
+        chunk_sums: dict[tuple[int, str], Any] = {}
         codec_specs = {name: self._codec_spec(self.codec) for name in packed}
         for r in alive0:
             payload = StorePayload(meta=dict(meta or {}))
@@ -527,9 +665,11 @@ class CheckpointEngine:
                     payload.meta.setdefault("checksums", {})[name] = np_checksum(flat.numpy())
             if self.cfg.validate:
                 payload.meta["exch_checksums"] = exch_sums
+            if self.cfg.delta:
+                payload.meta["exch_chunk_sums"] = chunk_sums
             self.stores[r].buffer.write(payload)
         self.stats.last_bytes_staged = bytes_staged
-        return packed_partner, manifests, exch_sums
+        return packed_partner, manifests, exch_sums, chunk_sums
 
     # ------------------------------------------------------------------ #
     # the drain: encode / transfer / verify per (group, entity) unit
@@ -634,7 +774,7 @@ class CheckpointEngine:
                     u = units[i - 1]
                     with _TR.span("transfer", eng=eng, gen=gen, group=u[0], entity=u[3]):
                         t = time.perf_counter()
-                        nb = self._transfer_unit(u, encoded.pop(i - 1))
+                        nb = self._transfer_unit(u, encoded.pop(i - 1), pending)
                         dt = time.perf_counter() - t
                         self._h_stage.observe(dt, phase="transfer")
                         if dt > 0:
@@ -657,11 +797,25 @@ class CheckpointEngine:
         compressed bytes in ``own_exch``, the only bytes its parity decodes
         against). Also records each uncompressed member's exchange checksum
         into the replicated ``exch_sums`` table. A codec with a GF(2^8)
-        generator encodes in planned byte ranges into the scratch arenas."""
+        generator encodes in planned byte ranges into the scratch arenas.
+
+        Under ``cfg.delta`` the member checksums are taken per chunk of the
+        dirty-map grid (one host pass: the partials combine to the exact
+        whole-buffer sums) and diffed against the committed generation's
+        table; when the scratch arenas still hold the committed parity and
+        the dirty fraction is under the crossover, the blobs are patched in
+        place over the merged dirty ranges instead of re-encoded."""
         gi, grp, placements, name = unit
         codec = self.codec
         n_out = len(placements)
+        delta_on = self.cfg.delta and codec.striped and not (self.cfg.compress and codec.compressible)
+        step = self._delta_step()
+        prev_chunks = self._committed_chunk_sums() if delta_on else {}
         bufs = []
+        # per member: merged dirty [lo, hi) ranges, or None (no baseline:
+        # the first capture, a layout change), which counts as all dirty
+        dirty: list[Any] = []
+        dirty_bytes = logical = 0
         for m in grp.members:
             flat, man = pending.packed[name][m]
             if self.cfg.compress and codec.compressible:
@@ -673,11 +827,31 @@ class CheckpointEngine:
                     if payload is not None:
                         with st.lock:
                             payload.own_exch[name] = (flat, man)
+            elif delta_on:
+                parts = _chunk_checksums(flat, step)
+                pending.chunk_sums[(m, name)] = (step, flat.numel(), parts)
+                if self.cfg.validate:
+                    # np_checksum(flat) from the partials in hand (no second pass)
+                    pending.exch_sums[(m, name)] = _combine_checksums(parts, step)
+                prev = prev_chunks.get((m, name))
+                if prev is not None and prev[0] == step and prev[1] == flat.numel():
+                    idx = [ci for ci, (a, b) in enumerate(zip(parts, prev[2])) if a != b]
+                    ranges = _merge_chunk_ranges(idx, step, flat.numel())
+                    dirty.append(ranges)
+                    dirty_bytes += sum(hi - lo for lo, hi in ranges)
+                else:
+                    dirty.append(None)
+                    dirty_bytes += flat.numel()
+                logical += flat.numel()
             elif self.cfg.validate:
                 # Compressed blobs skip restore-verify (their manifest is
                 # tagged); everything else gets a capture-state reference.
                 pending.exch_sums[(m, name)] = np_checksum(flat.numpy())
             bufs.append(flat)
+        if delta_on:
+            with self._delta_lock:
+                pending.dirty_bytes += dirty_bytes
+                pending.logical_bytes += logical
         key = (gi, name)
 
         def lease(b: int, nbytes: int) -> torch.Tensor:
@@ -688,9 +862,73 @@ class CheckpointEngine:
             return buf[:nbytes]
 
         G = codec.encode_matrix(len(bufs)) if self.cfg.encode_chunk_bytes >= 0 else None
-        if G is not None and codec.striped and G.shape[0] >= n_out:
+        if G is not None and G.shape[0] < n_out:
+            G = None  # the matrix cannot cover this layout
+        if delta_on and G is not None:
+            # Scratch arenas holding the committed parity under this codec
+            # and member layout license a patch; the staged validity entry
+            # commits with the snapshot.
+            entry = (self._codec_spec(codec), tuple(b.numel() for b in bufs), n_out)
+            blobs = self._try_delta_encode(gi, name, grp, bufs, dirty, dirty_bytes, logical,
+                                           G[:n_out], n_out, lease, entry, pending)
+            pending.delta_enc[key] = (pending.gen,) + entry
+            if blobs is not None:
+                self.stats.delta_encodes += 1
+                return blobs
+            self.stats.full_encodes += 1
+        elif delta_on:
+            self.stats.full_encodes += 1
+        if G is not None and codec.striped:
             return self._encode_blobs_chunked(G[:n_out], bufs, n_out, lease)
         return codec.encode_into(bufs, n_out, lease)
+
+    def _try_delta_encode(self, gi, name, grp, bufs, dirty, dirty_bytes, logical,
+                          G, n_out, lease, entry, pending) -> list[torch.Tensor] | None:
+        """The incremental parity patch: ``parity ^= G·(new ⊕ old)`` over the
+        merged dirty ranges, exact by GF(2^8) linearity (addition is XOR),
+        so the same bytes as a full re-encode of the new members. The XOR
+        runs on the host; each range's product is one ``gf_matrix_addmul_into``
+        call with one column of G (one B4 launch under the ``torch``
+        backend on the card). Returns None when a precondition fails (the
+        caller re-encodes in full): no committed baseline in the scratch
+        parity, a member without its committed payload, a changed length, a
+        member with no chunk-table baseline, or a dirty fraction past the
+        crossover."""
+        if logical == 0 or dirty_bytes > self.cfg.delta_crossover * logical:
+            return None
+        if self._delta_enc.get((gi, name)) != (pending.gen - 1,) + entry:
+            return None
+        if any(r is None for r in dirty):
+            return None
+        olds = []
+        for i, m in enumerate(grp.members):
+            st = self.stores.get(m)
+            if st is None or not st.alive or not st.buffer.valid:
+                return None
+            ro = st.buffer.read_only
+            old = ro.own_exch.get(name, ro.own.get(name))
+            if old is None or old[0].numel() != bufs[i].numel():
+                return None
+            olds.append(old[0])
+        n = gf256.padded_len(bufs)
+        blobs = [lease(b, n) for b in range(n_out)]
+        if any(blob.numel() != n for blob in blobs):
+            return None
+        t = time.perf_counter()
+        patched = n_ranges = 0
+        for i, ranges in enumerate(dirty):
+            col = G[:, i : i + 1]
+            for lo, hi in ranges:
+                diff = torch.bitwise_xor(bufs[i][lo:hi], olds[i][lo:hi])
+                gf256.gf_matrix_addmul_into([blob[lo:hi] for blob in blobs], [diff], col,
+                                            0, hi - lo, accumulate=True)
+                patched += hi - lo
+                n_ranges += 1
+        if patched:
+            self._observe_encode_rate(patched, time.perf_counter() - t)
+        with self._delta_lock:
+            pending.delta_ranges += n_ranges
+        return blobs
 
     # -- adaptive encode-chunk planner (the restore planner's create-side twin)
     def _encode_rate(self) -> float:
@@ -739,15 +977,38 @@ class CheckpointEngine:
             self._observe_encode_rate(hi - lo, time.perf_counter() - t)
         return blobs
 
-    def _transfer_unit(self, unit, blobs: list[torch.Tensor]) -> int:
+    def _delta_step(self) -> int:
+        """Dirty-map chunk grid (4-aligned: Fletcher partials combine only
+        on word boundaries; floored so tiny configs cannot explode the
+        table)."""
+        return max(4096, self.cfg.delta_chunk_bytes) & ~3
+
+    def _committed_chunk_sums(self) -> dict:
+        """The committed generation's replicated chunk-checksum table (empty
+        for the first capture: everything dirty)."""
+        for st in self.stores.values():
+            if st.alive and st.buffer.valid:
+                table = st.buffer.read_only.meta.get("exch_chunk_sums")
+                if table:
+                    return table
+        return {}
+
+    def _transfer_unit(self, unit, blobs: list[torch.Tensor], pending: _PendingCheckpoint) -> int:
         """TRANSFER stage: a striped codec's blobs are cut into stripes
         (``parity.stripe_bounds`` over the holder group's size) and each is
         copied into an arena of its holder store (blobs live in transient
         scratch). Whole copies are stored by reference (the referenced flat
         is the origin's arena view from the same staging bank, so it commits
-        and retires with the rest of the snapshot)."""
+        and retires with the rest of the snapshot).
+
+        Under ``cfg.delta`` a stripe copies only the dirty-grid chunks that
+        differ from what the holder's arena holds (the bytes the last lease
+        of the same staging bank left: garbage or an older generation simply
+        copies)."""
         gi, grp, placements, name = unit
         by_ref = not self.codec.striped
+        step = self._delta_step()
+        skipped = 0
         total = 0
         for b, (blob, holders) in enumerate(zip(blobs, placements)):
             blob = blob.reshape(-1)
@@ -765,11 +1026,17 @@ class CheckpointEngine:
                 piece = stripes[j]
                 if not by_ref:
                     dst = st.lease(("parity", gi, name, b, j), piece.numel())
-                    dst.copy_(piece)
+                    if self.cfg.delta:
+                        skipped += _copy_dirty(dst, piece, step)
+                    else:
+                        dst.copy_(piece)
                     piece = dst
                 with st.lock:
                     payload.parity.setdefault(gi, {})[(name, b, j)] = piece
                 total += piece.nbytes
+        if skipped:
+            with self._delta_lock:
+                pending.skipped_bytes += skipped
         return total
 
     def _verify_unit(self, unit, verified: set) -> None:
@@ -825,6 +1092,9 @@ class CheckpointEngine:
             log.warning("checkpoint aborted: %s", e)
             for s in self.stores.values():
                 s.buffer.discard_writable()
+            # the drain may have overwritten scratch with the aborted
+            # generation's parity: no committed baseline survives it
+            self._delta_enc.clear()
             self.stats.aborted += 1
             self.journal.record("abort", phase="finalize", gen=gen, cause=str(e))
             return False
@@ -838,7 +1108,171 @@ class CheckpointEngine:
         self.stats.last_blocked_s = self.stats.last_capture_s + self.stats.last_finalize_wait_s
         self.stats.last_bytes_exchanged = pending.bytes_exchanged
         self.stats.last_bytes_per_rank = pending.bytes_exchanged // max(len(pending.alive0), 1)
+        if self.cfg.delta:
+            # the scratch arenas now hold THIS generation's parity: the staged
+            # validity entries become the next capture's baseline
+            self._delta_enc.update(pending.delta_enc)
+            self.stats.last_dirty_fraction = (
+                pending.dirty_bytes / pending.logical_bytes if pending.logical_bytes else 0.0)
+            self.stats.last_transfer_bytes_skipped = pending.skipped_bytes
+            self.stats.last_delta_ranges = pending.delta_ranges
+        self._maybe_flush_tiers()
         return True
+
+    # ------------------------------------------------------------------ #
+    # the storage-tier ladder: background flush of committed generations
+    # ------------------------------------------------------------------ #
+    @property
+    def persistent_tiers(self) -> list:
+        return [t for t in self.tiers if t.persistent]
+
+    def _maybe_flush_tiers(self) -> None:
+        """Stage a flush of the just-committed generation for every due
+        persistent tier. The payload references are captured here, at the
+        commit point, so neither a kill nor the next capture's arena
+        re-lease can tear the flush's source bytes; the submission waits for
+        ``kick_tier_flush`` (the next ``drain_done`` poll, the next capture,
+        or any join point), so not even the worker's wake-up lands on the
+        blocked path. At most one flush runs, plus one queued in the single
+        slot: a cadence point arriving while a flush runs is chained behind
+        it (``tier_flush_queued``), and only when the slot is taken is the
+        older staged snapshot dropped for the newer one
+        (``tier_flush_skipped``): back-pressure lowers the disk frequency,
+        it never blocks training."""
+        due = [t for t in self.persistent_tiers if t.due(self.stats.created)]
+        if not due:
+            return
+        with self._flush_lock:
+            in_flight = self._flush_future is not None and not self._flush_future.done()
+            if self._flush_pending is not None:
+                # the queue slot is taken: drop the OLDER staged snapshot
+                old_due, old_snap = self._flush_pending
+                self.stats.tier_flush_skipped += len(old_due)
+                self.journal.record("flush_skipped", gen=old_snap.created, superseded_by=self.stats.created)
+                log.warning("tier flush of commit %d dropped: superseded by commit %d while a flush is "
+                            "still in flight", old_snap.created, self.stats.created)
+            self._flush_pending = (due, storage_mod.capture_snapshot(self))
+            if in_flight:
+                self.stats.tier_flush_queued += len(due)
+                self.journal.record("flush_queued", gen=self.stats.created, tiers=",".join(t.name for t in due))
+
+    def kick_tier_flush(self) -> None:
+        """Submit a staged tier flush to the worker pool: the overlap-window
+        probe callers (the trainer's step loop, ``drain_done``) invoke
+        between the commit and the next blocked window. Every join point
+        kicks first, so a staged generation is never lost. While a flush
+        runs the staged one stays queued; the worker chains it."""
+        with self._flush_lock:
+            if self._flush_pending is None:
+                return
+            if self._flush_future is not None:
+                if not self._flush_future.done():
+                    return  # stays queued: the flush worker chains it
+                self._reap_flush_future()
+            submit, self._flush_pending = self._flush_pending, None
+            self._flush_created = submit[1].created
+        self._flush_future = self._executor().submit(self._run_flush, *submit)
+
+    def _reap_flush_future(self) -> None:
+        """Clear a finished flush future, logging (never raising) a failure:
+        losing one disk generation must not kill the job; the previous
+        generation stays valid by the commit protocol."""
+        future, self._flush_future = self._flush_future, None
+        if future is not None:
+            try:
+                future.result()
+            except Exception as e:  # noqa: BLE001 - a failed flush is not fatal
+                log.warning("tier flush failed (previous generation intact): %s", e)
+
+    def _run_flush(self, tiers: list, snap) -> int:
+        """Flush worker: write one staged generation to every due tier, then
+        chain any flush queued behind it (under the lock, so the hand-off
+        races neither ``kick_tier_flush`` nor a new staging)."""
+        grand_total = 0
+        while True:
+            t0 = time.perf_counter()
+            total = 0
+            try:
+                for tier in tiers:
+                    with _TR.span("flush", eng=self._obs_id, gen=snap.created, tier=tier.name):
+                        total += tier.flush(snap)
+            except Exception as e:
+                self.journal.record("flush", ok=False, gen=snap.created, cause=str(e))
+                raise
+            self.stats.tier_flushes += len(tiers)
+            self.stats.last_flush_s = time.perf_counter() - t0
+            self.stats.last_flush_bytes = total
+            dedup = next((t.last_dedup for t in tiers if getattr(t, "last_dedup", None)), None)
+            if dedup is not None:
+                self.stats.last_flush_chunks_written = dedup["chunks_written"]
+                self.stats.last_flush_chunks_reused = dedup["chunks_reused"]
+                self.stats.last_dedup_ratio = (
+                    dedup["stored_bytes"] / dedup["logical_bytes"] if dedup["logical_bytes"] else 0.0)
+            self.journal.record("flush", ok=True, gen=snap.created, bytes=total,
+                                duration_s=self.stats.last_flush_s, n_ranks=snap.n_ranks,
+                                tiers=",".join(t.name for t in tiers))
+            grand_total += total
+            with self._flush_lock:
+                if self._flush_pending is None:
+                    return grand_total
+                (tiers, snap), self._flush_pending = self._flush_pending, None
+                self._flush_created = snap.created
+
+    def _join_flush(self) -> None:
+        """Kick any staged flush, then join (and clear) the running one,
+        looping, since the worker may chain a flush queued after its last
+        hand-off check. Returns with no flush staged, queued or running."""
+        while True:
+            self.kick_tier_flush()
+            if self._flush_future is None:
+                with self._flush_lock:
+                    if self._flush_pending is None:
+                        return
+                continue  # a late staging slipped in: kick it too
+            self._reap_flush_future()
+
+    def has_tier_data(self) -> bool:
+        """True when some persistent tier holds a committed generation (or
+        one is staged or being flushed: escalation joins it first)."""
+        if self._flush_pending is not None or self._flush_future is not None:
+            return True
+        return any(t.has_data() for t in self.persistent_tiers)
+
+    def _store_alive(self) -> set[int]:
+        """Liveness as the stores see it (after a tier load, when the
+        cluster's view predates the rehydration)."""
+        return {r for r, s in self.stores.items() if s.alive and s.buffer.valid}
+
+    def escalate_from_tiers(self) -> None:
+        """Load the newest valid persistent-tier generation into the
+        in-memory stores (a cold start, or a burst beyond the codec's
+        tolerance). Tiers are tried in ladder order; each falls back to
+        older generations when its newest fails validation. Raises
+        ``distribution.DataLostError`` when no rung holds a loadable
+        generation. May resize the engine to the stored world size: the
+        elastic path maps it back onto the caller's world."""
+        self._join_flush()  # a running flush may be committing the newest generation
+        # the loaded payloads replace the committed ones: the scratch parity
+        # no longer matches them
+        self._delta_enc.clear()
+        errors: list[str] = []
+        for tier in self.persistent_tiers:
+            try:
+                t0 = time.perf_counter()
+                with _TR.span("escalate", eng=self._obs_id, tier=tier.name):
+                    gen = tier.load(self)
+            except dist.DataLostError as e:
+                errors.append(str(e))
+                continue
+            self._restore_plan_cache = None  # its units hold the replaced payloads
+            self.stats.tier_escalations += 1
+            self.journal.record("escalation", tier=tier.name, gen=gen, n_ranks=self.n_ranks,
+                                duration_s=time.perf_counter() - t0)
+            log.warning("recovery escalated to the %s tier (generation %s, %d ranks)",
+                        tier.name, gen, self.n_ranks)
+            return
+        raise dist.DataLostError("no persistent tier holds a loadable generation"
+                                 + (f": {'; '.join(errors)}" if errors else " (none configured)"))
 
     def discard_pending(self) -> None:
         """Drop an un-finalized snapshot (e.g. before a restore): it counts as
@@ -854,21 +1288,26 @@ class CheckpointEngine:
                     pass
             for s in self.stores.values():
                 s.buffer.discard_writable()
+            self._delta_enc.clear()  # the discarded drain may have left its parity in scratch
             self.stats.aborted += 1
 
     def drain_done(self) -> bool:
         """True when ``finalize_async`` would not block on a worker: nothing
         pending, a background drain already finished, or a drain that
-        ``finalize_async`` runs itself."""
+        ``finalize_async`` runs itself. A poll point, so it also kicks a
+        staged tier flush."""
+        self.kick_tier_flush()
         pending = self._pending
         if pending is None or pending.future is None:
             return True
         return pending.future.done()
 
     def close(self) -> None:
-        """Join and drop any pending snapshot and shut the worker pool down.
-        The engine stays usable (the pool is made again when needed)."""
+        """Join and drop any pending snapshot and any tier flush, and shut
+        the worker pool down. The engine stays usable (the pool is made
+        again when needed)."""
         self.discard_pending()
+        self._join_flush()
         if self._pool is not None:
             self._pool.shutdown(wait=True)
             self._pool = None
@@ -939,12 +1378,12 @@ class CheckpointEngine:
         meta = self.checkpoint_step()
         self.stats.restored += 1
         self.stats.last_restore_s = time.perf_counter() - t0
-        # The reference's record, field for field; tier escalations (A7) and
-        # failure-domain labels (A9) are not ported.
+        # The reference's record, field for field; failure-domain labels (A9)
+        # are not ported.
         self.journal.record(
             "recovery", mode=self.cfg.restore_mode, failed=len(failed),
             n_ranks=self.n_ranks, duration_s=self.stats.last_restore_s,
-            bytes_rebuilt=self.stats.last_restore_bytes_rebuilt, escalations=0,
+            bytes_rebuilt=self.stats.last_restore_bytes_rebuilt, escalations=self.stats.tier_escalations,
             step=meta.get("step") if isinstance(meta, dict) else None,
             domains="",
         )
@@ -965,16 +1404,21 @@ class CheckpointEngine:
         checkpoint meta; movement accounting lands in
         ``self.last_elastic_report``.
 
-        With nothing in memory the reference rehydrates the stores from its
-        storage tiers first (the cold N-to-M restart); the port has no tiers
-        yet (ROADMAP A7), so ``checkpoint_step()``'s "no valid checkpoint" is
-        what the caller sees.
+        With nothing in memory and a persistent tier holding data, the stores
+        are rehydrated from the newest valid generation first (the engine
+        resizes to its N), then repartitioned onto ``new_n_ranks``: the cold
+        N-to-M restart, with B6 reading the loaded origin shards in place.
         """
         if new_n_ranks < 1:
             raise ValueError(f"new_n_ranks must be >= 1, got {new_n_ranks}")
         self.discard_pending()
         t0 = time.perf_counter()
-        alive = self._alive_fn()
+        if not self.has_valid_checkpoint and self.has_tier_data():
+            # cold N-to-M restart: rehydrate the stored world first
+            self.escalate_from_tiers()
+            alive = self._store_alive()
+        else:
+            alive = self._alive_fn()
         failed = set(range(self.n_ranks)) - alive
         meta = self.checkpoint_step()  # read before the stores are rebuilt
 
@@ -1008,6 +1452,7 @@ class CheckpointEngine:
         self.n_ranks = new_n_ranks
         self.stores = self._new_stores(new_n_ranks)
         self._restore_plan_cache = None  # its units hold the old world's copies
+        self._delta_enc.clear()  # scratch parity belongs to the old world
         self.last_elastic_report = report
         self.stats.restored += 1
         self.stats.last_restore_s = time.perf_counter() - t0
@@ -1068,12 +1513,30 @@ class CheckpointEngine:
         return None
 
     def _recover_all(self, alive: set[int], failed: set[int]) -> dict[str, dict[int, Any]]:
-        """Recover every entity's every shard without mutating an entity: the
+        """Recover every entity's every shard without mutating an entity,
+        escalating down the tier ladder: the in-memory codec path first
+        (failures within tolerance never touch disk), and only when it
+        cannot succeed (``DataLostError``: a burst beyond ``m``, lost blob
+        holders, or a cold start with nothing in memory) are the stores
+        rehydrated from the newest valid generation and recovery run again
+        against the loaded world (every rank a survivor, but for ranks the
+        generation itself lacked, which the codec rebuilds)."""
+        try:
+            return self._recover_all_memory(alive, failed)
+        except dist.DataLostError as e:
+            if not self.has_tier_data():
+                raise
+            log.warning("in-memory recovery impossible (%s); escalating down the storage-tier ladder", e)
+            self.escalate_from_tiers()
+            alive = self._store_alive()
+            return self._recover_all_memory(alive, set(range(self.n_ranks)) - alive)
+
+    def _recover_all_memory(self, alive: set[int], failed: set[int]) -> dict[str, dict[int, Any]]:
+        """One recovery attempt against the in-memory stores: the
         restore-mode dispatch shared by ``restore`` and ``restore_elastic``.
         Under the adaptive planner a payload below the crossover takes the
         serial sync path, whose fixed cost is lower (the same bytes either
-        way). The ``torch`` GF backend runs on the engine's device here.
-        Escalation down a storage-tier ladder is ROADMAP A7."""
+        way). The ``torch`` GF backend runs on the engine's device here."""
         with gf256.compute_device(self.device):
             if self.cfg.restore_mode == "sync" or (
                 self.cfg.restore_chunk_bytes <= 0

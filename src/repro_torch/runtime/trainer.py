@@ -30,9 +30,12 @@ drains behind the next step on the engine's worker, and commits at the
 following barrier.
 
 Any engine codec runs (``TrainerConfig.engine``: ``copy``, or the striped
-``xor``, ``rs`` and ``lrc``). Not ported yet, each raising
-``NotImplementedError`` naming its ROADMAP item: the storage-tier ladder
-(``tier_dir``, ``disk_path``, ``cold_restart``: A7).
+``xor``, ``rs`` and ``lrc``). ``tier_dir`` adds a disk rung to the engine's
+storage-tier ladder, flushed in the background every ``disk_flush_every``
+commits (0: the per-level Daly cadence of ``MultiLevelScheduler``); a
+whole-system loss restarts every rank and the engine escalates to the
+newest generation on disk, and ``cold_restart`` resumes a fresh job from
+it, repartitioned N-to-M when the job's world size differs.
 """
 
 from __future__ import annotations
@@ -42,8 +45,9 @@ from typing import Any
 
 import torch
 
+from repro_torch.core import storage as storage_mod
 from repro_torch.core.checkpoint import CheckpointEngine, EngineConfig
-from repro_torch.core.interval import CheckpointScheduler, system_mtbf
+from repro_torch.core.interval import CheckpointScheduler, MultiLevelScheduler, system_mtbf
 from repro_torch.data.synthetic import SyntheticDataPipeline
 from repro_torch.launch.steps import train_state_layout
 from repro_torch.models.model import Model
@@ -84,21 +88,24 @@ class TrainerConfig:
     checkpoint_period: int | None = None  # None -> Daly-optimal (adaptive)
     engine: EngineConfig = field(default_factory=EngineConfig)
     moment_dtype: Any = torch.float32
-    # Not ported (raise NotImplementedError): the disk rung of the
-    # storage-tier ladder and its deprecated alias (ROADMAP A7).
+    # The storage-tier ladder: ``tier_dir`` adds a persistent disk rung to
+    # EngineConfig.tiers, flushed in the background every
+    # ``disk_flush_every`` commits; 0 derives the cadence from the
+    # per-level Daly schedule at ``tier_mtbf_s`` (the MTBF of the failures
+    # the diskless tier cannot survive). ``tier_dedup`` writes
+    # content-addressed delta generations.
     tier_dir: str | None = None
+    disk_flush_every: int = 0
+    tier_mtbf_s: float = 30 * 24 * 3600.0
+    tier_dedup: bool = False
+    # deprecated aliases of (tier_dir, disk_flush_every)
     disk_path: str | None = None
+    disk_every: int = 8
     # "sync" blocks the step loop for the whole create; "async" captures at
     # the step boundary and drains behind the next step, committing at the
     # following barrier
     checkpoint_mode: str = "sync"     # sync | async
     async_checkpoint: bool = False    # deprecated alias of checkpoint_mode="async"
-
-
-def _unported(tcfg: TrainerConfig) -> str | None:
-    if tcfg.tier_dir or tcfg.disk_path:
-        return "the storage-tier ladder (tier_dir, disk_path) waits for ROADMAP A7"
-    return None
 
 
 class Trainer:
@@ -111,9 +118,6 @@ class Trainer:
     ) -> None:
         if tcfg.checkpoint_mode not in ("sync", "async"):
             raise ValueError(f"checkpoint_mode {tcfg.checkpoint_mode!r}")
-        why = _unported(tcfg)
-        if why is not None:
-            raise NotImplementedError(why)
         self.model = model
         self.cfg = model.cfg
         self.tcfg = tcfg
@@ -137,7 +141,7 @@ class Trainer:
         self.plan = ShardPlan.from_pspecs(layout.sds, layout.pspecs)
 
         # -- cluster + engine + scheduler -------------------------------------
-        self._engine_cfg = tcfg.engine
+        self._engine_cfg = self._resolve_engine_cfg(tcfg)
         self.cluster = VirtualCluster(tcfg.n_virtual_hosts, tcfg.n_spares)
         self.engine = CheckpointEngine(tcfg.n_virtual_hosts, self._engine_cfg, device=self.device)
         self.cluster.attach_engine(self.engine)
@@ -148,6 +152,11 @@ class Trainer:
 
         mtbf = system_mtbf(tcfg.mtbf_individual_s, tcfg.n_virtual_hosts)
         self.scheduler = CheckpointScheduler(mtbf_s=mtbf, step_time_s=0.1)
+        # the per-level Daly schedule of the tier ladder: on when a disk rung
+        # exists and no flush cadence was fixed
+        self.mlsched: MultiLevelScheduler | None = None
+        if self.engine.persistent_tiers and self._auto_flush_every:
+            self.mlsched = MultiLevelScheduler(base=self.scheduler, level_mtbf_s=[tcfg.tier_mtbf_s])
         self.injector = injector or FailureInjector(tcfg.n_virtual_hosts)
         self.straggler = StragglerDetector(tcfg.n_virtual_hosts)
 
@@ -156,6 +165,41 @@ class Trainer:
         self.n_recoveries = 0
         self._last_ckpt_step = -(10**9)
         self._pending_ckpt_step = -(10**9)  # step of an overlapped checkpoint not yet committed
+        self._seen_flushes = 0
+
+    def _resolve_engine_cfg(self, tcfg: TrainerConfig) -> EngineConfig:
+        """Fold the trainer's tier settings into the engine config:
+        ``tier_dir`` (or the deprecated ``disk_path``) appends a disk rung
+        unless the caller configured a ladder. A fixed cadence
+        (``disk_flush_every`` > 0, or the legacy ``disk_every``) sets
+        ``every``; otherwise the MultiLevelScheduler retunes it after every
+        checkpoint."""
+        tier_dir = tcfg.tier_dir or tcfg.disk_path
+        self._auto_flush_every = False
+        if tcfg.engine.tiers or tier_dir is None:
+            return tcfg.engine
+        every = tcfg.disk_flush_every
+        if every <= 0 and tcfg.disk_path:
+            every = tcfg.disk_every  # the legacy alias keeps its cadence
+        if every <= 0:
+            self._auto_flush_every = True
+            every = 4  # until the first retune
+        return replace(tcfg.engine, tiers=(storage_mod.disk(tier_dir, every=every, dedup=tcfg.tier_dedup),))
+
+    def _retune_tier_schedule(self) -> None:
+        """Tier upkeep right after a commit: kick the staged background
+        flush (the worker wakes behind the next step, never on the blocked
+        capture and finalize path) and fold the last measured flush into the
+        per-level Daly cadence."""
+        self.engine.kick_tier_flush()
+        if self.mlsched is None:
+            return
+        stats = self.engine.stats
+        if stats.tier_flushes > self._seen_flushes and stats.last_flush_s > 0:
+            self._seen_flushes = stats.tier_flushes
+            self.mlsched.record_flush_duration(1, stats.last_flush_s)
+        for tier in self.engine.persistent_tiers:
+            tier.every = self.mlsched.flush_every(1)
 
     # ------------------------------------------------------------------ #
     def _build_train_step(self):
@@ -197,6 +241,7 @@ class Trainer:
                 if pending is True:
                     self._last_ckpt_step = self._pending_ckpt_step
                     self.scheduler.record_checkpoint_duration(self.timers("checkpoint").mean)
+                    self._retune_tier_schedule()
                 elif pending is False:
                     raise ProcessFaultException(sorted(self.cluster.failed), "checkpoint")
 
@@ -250,6 +295,9 @@ class Trainer:
                         raise ProcessFaultException(sorted(self.cluster.failed), "checkpoint")
                     self._last_ckpt_step = int(self.state["step"])
                     self.scheduler.record_checkpoint_duration(self.timers("checkpoint").mean)
+                    # a due disk rung flushes in the background, after the
+                    # pointer swap; here only the kick and the cadence retune
+                    self._retune_tier_schedule()
 
             except ProcessFaultException as e:
                 log.warning("fault caught in main loop: %s", e)
@@ -263,8 +311,23 @@ class Trainer:
         return self.scheduler.due(step, max(self._last_ckpt_step, 0))
 
     def recover(self) -> None:
-        """Stabilize the parallel environment, then roll back (Algorithm 3)."""
+        """Stabilize the parallel environment, then roll back (Algorithm 3).
+
+        Recovery escalates down the storage-tier ladder: the engine first
+        rebuilds from the surviving hosts through the codec; a whole-system
+        loss (below) or a burst beyond the codec's tolerance (inside
+        ``engine.restore``) loads the newest valid generation on disk and
+        recovers against it. Failures within tolerance never touch disk."""
         if not self.engine.has_valid_checkpoint:
+            if self.engine.has_tier_data():
+                # full restart: every in-memory snapshot died with its host;
+                # all ranks rejoin and the engine escalates itself
+                log.warning("no in-memory checkpoint; escalating to the tier ladder")
+                self.cluster.restart_all()
+                meta = self.engine.restore()
+                self.n_recoveries += 1
+                log.info("recovered from the tier ladder to step %s", meta.get("step"))
+                return
             raise RuntimeError(
                 "fault before the first checkpoint and no persistent tier configured"
             )
@@ -325,7 +388,28 @@ class Trainer:
         return self._elastic_recover(n_new)
 
     def cold_restart(self) -> dict[str, Any]:
-        raise NotImplementedError("cold restart from the storage-tier ladder waits for ROADMAP A7")
+        """Restart a fresh job from the persistent tier ladder: nothing in
+        memory (the previous process died), the newest valid generation on
+        disk rehydrates the stores, and training resumes from its step,
+        bitwise, the data pipeline's state included. When the stored world
+        size N differs from this job's ``n_virtual_hosts`` M, the checkpoint
+        is repartitioned N to M through ``restore_elastic``."""
+        eng = self.engine
+        if not eng.has_tier_data():
+            raise RuntimeError("cold restart requested but no tier holds data")
+        eng.escalate_from_tiers()  # the engine resizes to the stored N
+        n_stored = eng.n_ranks
+        self.cluster.resize(n_stored)  # liveness realigned to the loaded world
+        if n_stored != self.tcfg.n_virtual_hosts:
+            log.info("cold restart: stored world %d -> job world %d (elastic N-to-M)",
+                     n_stored, self.tcfg.n_virtual_hosts)
+            meta = self._elastic_recover(self.tcfg.n_virtual_hosts)
+        else:
+            meta = eng.restore()
+            self._last_ckpt_step = int(meta.get("step", 0))
+        self.n_recoveries += 1
+        log.info("cold restart complete: resuming from step %s", meta.get("step"))
+        return meta
 
     def _swap_engine(self, n_new: int) -> None:
         """Rebuild the engine for a new world size; entities carry over and
@@ -335,6 +419,12 @@ class Trainer:
         new_engine = CheckpointEngine(n_new, self._engine_cfg, device=self.device)
         new_engine._entities = dict(old._entities)
         new_engine._replicated = set(old._replicated)
+        # the tier ladder's adaptive state crosses the resize: the retuned
+        # cadence, and the flush count the retune compares against (the new
+        # engine's stats start at zero)
+        for old_tier, new_tier in zip(old.persistent_tiers, new_engine.persistent_tiers):
+            new_tier.every = old_tier.every
+        self._seen_flushes = 0
         self.cluster.n_ranks = n_new
         self.cluster._alive = set(range(n_new))
         self.cluster.attach_engine(new_engine)

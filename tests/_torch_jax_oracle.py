@@ -6,7 +6,9 @@ cases; ``... state OUT.npz`` runs the llama3.2-1b layout and slice cases;
 ``... engine OUT.npz`` runs the host-tier checkpoint engine's cases;
 ``... elastic OUT.npz`` the elastic N-to-M planner, reshard executors and
 ``restore_elastic`` cases; ``... trainer OUT.npz`` the reference ``Trainer``
-through two kills (``TRAINER_CASE``); ``... async OUT.npz`` the create
+through two kills (``TRAINER_CASE``); ``... trainer_tiers OUT.npz`` the
+reference ``Trainer`` through a whole-system loss and a cold 4 -> 3 restart
+from its disk rung (``TRAINER_TIERS_CASE``); ``... async OUT.npz`` the create
 drain's and the pipelined restore's cases (``async_cases``). The arrays go to the ``.npz``, the
 metadata to ``OUT.npz.json``.
 
@@ -1035,6 +1037,51 @@ def run_trainer(out_path: str) -> None:
     _save(out_path, arrays, meta)
 
 
+# The tier ladder's trainer cross-check: TRAINER_TIERS_CASE's reference
+# Trainer loses all 4 hosts at step 12 with a disk rung flushed at every
+# checkpoint (the legacy disk_path alias), escalates and finishes 20 steps;
+# then a job of 12 steps on a tier_dir is closed and a fresh 3-host Trainer
+# cold-restarts from its newest generation (4 -> 3) and runs to step 20.
+TRAINER_TIERS_CASE = dict(batch=4, seq=32, total_steps=20, checkpoint_period=5, n_virtual_hosts=4)
+TRAINER_TIERS_KILLS = {12: [0, 1, 2, 3]}
+
+
+def run_trainer_tiers(out_path: str) -> None:
+    """The reference Trainer through TRAINER_TIERS_KILLS and through the cold
+    4 -> 3 restart: loss histories, recoveries, escalations, the restart's
+    step and world, and both final states."""
+    import os
+
+    from repro.configs import get_config
+    from repro.models import build_model
+    from repro.runtime.failures import FailureInjector
+    from repro.runtime.trainer import Trainer, TrainerConfig
+
+    root = os.path.dirname(os.path.abspath(out_path))
+    model = build_model(get_config("llama3.2-1b").reduced())
+    t = Trainer(model, TrainerConfig(**TRAINER_TIERS_CASE, disk_path=os.path.join(root, "disk"), disk_every=1),
+                injector=FailureInjector(4, schedule=TRAINER_TIERS_KILLS))
+    loss = t.run(20)
+    t.engine.close()
+    arrays = {f"loss/{k}": v for k, v in _flat_np(jax.device_get(t.state)).items()}
+    meta = {"loss": {"history": [[h["step"], h["loss"]] for h in loss], "n_recoveries": t.n_recoveries,
+                     "escalations": t.engine.stats.tier_escalations}}
+    tier = os.path.join(root, "tier")
+    a = Trainer(model, TrainerConfig(**TRAINER_TIERS_CASE, tier_dir=tier, disk_flush_every=1))
+    first = a.run(12)
+    a.engine.close()
+    b = Trainer(model, TrainerConfig(**{**TRAINER_TIERS_CASE, "n_virtual_hosts": 3}, tier_dir=tier,
+                                     disk_flush_every=1))
+    m = b.cold_restart()
+    cold = b.run(20)
+    b.engine.close()
+    arrays.update({f"cold/{k}": v for k, v in _flat_np(jax.device_get(b.state)).items()})
+    meta["cold"] = {"first": [[h["step"], h["loss"]] for h in first], "step": int(m["step"]),
+                    "n_ranks": b.engine.n_ranks, "escalations": b.engine.stats.tier_escalations,
+                    "history": [[h["step"], h["loss"]] for h in cold]}
+    _save(out_path, arrays, meta)
+
+
 def _save(out_path: str, arrays: dict, meta: dict) -> None:
     # bf16 leaves travel as their 16-bit patterns (npz has no bf16)
     enc = {}
@@ -1066,4 +1113,5 @@ def load(out_path: str) -> tuple[dict, dict]:
 
 if __name__ == "__main__":
     {"device_tier": run_device_tier, "state": run_state, "engine": run_engine,
-     "elastic": run_elastic, "trainer": run_trainer, "async": run_async}[sys.argv[1]](sys.argv[2])
+     "elastic": run_elastic, "trainer": run_trainer, "async": run_async,
+     "trainer_tiers": run_trainer_tiers}[sys.argv[1]](sys.argv[2])

@@ -250,8 +250,6 @@ def test_host_striped_codecs_run(cfg, kills):
 
 
 @pytest.mark.parametrize("cfg,item", [
-    (EngineConfig(restore_mode="sync", tiers=("disk",)), "A7"),
-    (EngineConfig(restore_mode="sync", delta=True), "A7"),
     (EngineConfig(restore_mode="sync", topology=object()), "A9"),
 ])
 def test_unported_settings_raise_naming_their_roadmap_item(cfg, item):

@@ -14,9 +14,9 @@
    shrinks, elastic repartitions and regrowth the final state is bitwise
    equal to a fault-free run.
    With a host xor or rs engine too (parity-mode recovery).
-3. What is not ported raises ``NotImplementedError`` naming its ROADMAP
-   item, and ``examples/quickstart_torch.py --device cpu`` passes its own
-   assertion.
+3. The Trainer needs a card unless asked for the CPU, and
+   ``examples/quickstart_torch.py --device cpu`` passes its own assertion.
+   (The storage-tier cases are in ``tests/test_torch_storage.py``.)
 """
 
 from __future__ import annotations
@@ -247,14 +247,8 @@ def test_daly_scheduler_used_when_no_period(model):
 
 
 # ---------------------------------------------------------------------------
-# 3. what is not ported, the card, the quickstart twin
+# 3. the card, the quickstart twin
 # ---------------------------------------------------------------------------
-
-UNPORTED = {
-    "tier_dir": (dict(tier_dir="tiers"), "A7"),
-    "disk_path": (dict(disk_path="disk"), "A7"),
-}
-
 
 @pytest.mark.parametrize("engine,kills", [
     (EngineConfig(parity_group=2), [2]),
@@ -273,18 +267,6 @@ def test_parity_mode_recovery_bitwise(model, reference, engine, kills):
     assert t.n_recoveries == 1
     assert t.engine.stats.reconstructed_restores > 0 and t.engine.codec.name == (engine.codec or "xor")
     assert _same(t.state, reference)
-
-
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_trainer_settings_raise_naming_their_item(model, name):
-    kw, item = UNPORTED[name]
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\b"):
-        _trainer(model, _tcfg(**kw))
-
-
-def test_cold_restart_raises_naming_its_item(model):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A7\b"):
-        _trainer(model, _tcfg()).cold_restart()
 
 
 def test_trainer_needs_cuda_unless_asked_for_the_cpu(model):

@@ -13,16 +13,21 @@ launched (the kernel wrappers take their plain versions on CPU tensors), and
 the launch counts read one for every kernel but the row gather and the
 runtime-matrix GF(2^8) product, whose plain runs are counted for real
 (phase 6 checks the gather's exact count, phase 8 that the product ran), and
-every host tensor reports itself pinned (the engine on the CPU leases pageable arenas). What
-it finds are wrong paths, shapes, arguments and control flow; its times
-mean nothing.
+every host tensor reports itself pinned (the engine on the CPU leases pageable arenas). Phase
+9's tier directories go under a temporary directory, removed at the end;
+where the machine lacks ``os.posix_fadvise`` or ``/proc/mounts``, the page
+cache drop and the filesystem probe are stubbed. What it finds are wrong
+paths, shapes, arguments and control flow; its times mean nothing.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 import sys
+import tempfile
 import types
 from dataclasses import replace
 from pathlib import Path
@@ -102,6 +107,17 @@ def load_chip_smoke(cfg) -> types.ModuleType:
         setattr(mod, name, lambda *a: None)
     mod.gpu_line = lambda: "CPU rehearsal, 0 W"
     mod.get_config = configs.get_config = lambda name: cfg
+    mod.TIER_ROOT = Path(tempfile.mkdtemp(prefix="rehearse-tiers-"))
+    # at this width a rank's exchange bytes span two chunks of the default
+    # 1 MiB dirty map: both layers and a 4 KiB grid keep phase 9's rewrite
+    # of layer 0 under the crossover, so its creates take the patch path
+    mod.TIER_LAYERS = cfg.num_layers
+    mod.TIER_CFG = {**mod.TIER_CFG, "delta_chunk_bytes": 4096}
+    if not hasattr(os, "posix_fadvise"):
+        mod.drop_cached = lambda root: False
+    if not os.path.exists("/proc/mounts"):
+        mod.dir_probe = lambda path: dict(path=str(path), mount="?", fstype="?",
+                                          free_gb=shutil.disk_usage(path).free / 1e9)
     return mod
 
 
@@ -113,7 +129,10 @@ def main() -> int:
     cfg = small_config()
     mod = load_chip_smoke(cfg)
     if not args.phase7:
-        return mod.main()
+        try:
+            return mod.main()
+        finally:
+            shutil.rmtree(mod.TIER_ROOT, ignore_errors=True)
     mod._HOST_START[:] = [mod.host_free_gib(), mod.host_rss_gib()]
     for mode in ("sync", "async"):
         run, counts = mod.trainer_path(cfg, mode)
