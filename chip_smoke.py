@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: build the kernels, hold
 each against its plain PyTorch version, train full-width llama3.2-1b
-through a host failure with the fault-tolerant training loop, then create
-and restore its train state through the device tier and through the
-host-tier checkpoint engine.
+through a host failure with the fault-tolerant training loop, serve it
+through host failures with the fault-tolerant server, then create and
+restore its train state through the device tier and through the host-tier
+checkpoint engine.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and the CUDA toolkit (``nvcc``); it exits non-zero,
@@ -44,7 +45,11 @@ printing no result, on any failure or without a card. Phases:
    uploaded, striped restore, every leaf compared; then the copy codec with
    compress=True: int8 partner codes and scales bit-equal to the plain
    quantize of the same bucket, the staged fetch, and the fetched partner
-   dequantized on the card within half a step of the original;
+   dequantized on the card within half a step of the original; then the
+   hot-replica transport, ``build_mirror_program`` with validate=True: its
+   folded checksum (B1) equal to the main runs', its mirrored buckets,
+   re-aligned by the copy codec's ``restore_fn``, byte-equal to every
+   exchanged leaf;
 5. engine path: a seeded llama3.2-1b train state cut to ``PATH_LAYERS``
    (1) of its 16 layers, width kept, held by a ShardedStateEntity over 4
    ranks (the ZeRO-1 data dim split four ways) plus an RngEntity, through three
@@ -73,15 +78,15 @@ printing no result, on any failure or without a card. Phases:
    8, world sizes that divide every ZeRO-1 dim. Depth is cut further, never
    width, if the host lacks the RAM, and the cut is printed;
 7. training loop (paper Algorithm 3): the port's ``Trainer`` under its
-   defaults (the reference's default engine) on llama3.2-1b at full width,
-   params drawn from the seed by the reference's threefry streams, bf16
+   defaults (the reference's default engine) on llama3.2-1b at full width
+   and ``TRAIN_LAYERS`` (8) of its 16 layers, params drawn from the seed by the reference's threefry streams, bf16
    params and compute with f32 master/m/v (batch 8, seq 128, lr 1e-3 as
    ``launch/train.py``'s defaults; 4 virtual hosts, one spare, a checkpoint
    every 3 steps, host 2 killed at step 5: checkpoints at 3 and 6, a
    rollback to 3, steps 3 and 4 replayed), 8 steps under
    ``torch.use_deterministic_algorithms(True)`` (``main`` sets
    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` before cuBLAS is first used); then
-   the same run at ``TRAIN_ASYNC_LAYERS`` (8) layers, width kept, with
+   the same run at ``TRAIN_ASYNC_LAYERS`` (1) layer, width kept, with
    ``checkpoint_mode="async"`` (each checkpoint captured at the step
    boundary, drained behind the next step, committed at the following
    barrier). Prints each step's loss and time (ending in
@@ -132,6 +137,31 @@ printing no result, on any failure or without a card. Phases:
    encodes, the decode of the within-tolerance restore) and B6 (both cold
    restarts).
 
+10. serving (paper Algorithm 3 over decode sessions): the port's ``Server``
+   with llama3.2-1b at full width and all 16 layers (bf16 params from the
+   seed, 2.47 GB, not snapshotted), 16 sessions with prompts of 1024 tokens
+   drawn by ``utils/threefry.py``, a 2048-position KV cache (1.07 GB), 48
+   decoded tokens, a session checkpoint every 16 tokens, 4 virtual hosts,
+   under deterministic algorithms, through ``SERVE_RUNS``: (a) clean on the
+   default ``EngineConfig()``; (b) host 2 killed at tick 20 (a spare) and
+   host 1 dead silently at tick 34 (the heartbeat finds it); (c)
+   ``checkpoint_mode="async"``, host 2 at tick 20; (d) ``replica_team=True``,
+   the whole primary team killed at tick 30: one promotion, its
+   ``replica_promote_restore`` stall under one checkpoint interval (traced
+   commit spacing); (e) ``compress=True``, host 2 at tick 20 (B5a, B5b);
+   (f) rs g=4 m=2 on ``gf_backend="torch"`` over 8 hosts (with one group of
+   4 a group's parity stripes die with its hosts), hosts 0 and 2 at tick 20
+   (B4); (g) no spares, ``recovery_policy="elastic"``, kills at ticks 11 and
+   26: 4 -> 3 -> 2 (B6). Each prints its prefill seconds, the decode step's
+   median and p99 (each step ending in ``torch.cuda.synchronize()``),
+   tokens/s, every committed create's ``blocked_s``, every recovery's time
+   and restore (with ``bytes_moved`` against its lower bound when elastic),
+   the card and host peaks, and (d) ``bytes_synced``. Every run's tokens
+   equal the clean run's bit for bit, except that (e) may decode the
+   restored rank's rows differently after the rollback (its int8 partner
+   copies are lossy): there every other row, and every token up to the
+   rollback, must be equal.
+
 Phase 3 also runs B6 at the main path's largest gather (the w_up master
 leaf, 4 origins of (16, 512, 8192) f32, gathered for one new rank of the
 4 -> 2 plan): in place (and for the embedding, split on its last dim)
@@ -142,8 +172,8 @@ with a seeded permutation of its rows; each pair in alternating order over
 ``B6_AB_ROUNDS`` rounds (medians and spreads); then the leaf's whole
 reshard in place against the stack and gather that preceded it.
 
-Phase 7 runs right after phase 3, then phases 5, 8, 6, 9 and 4: 7, 5, 8
-and 9 need the most host RAM, and phase 4's staged fetches leave pinned
+Phase 7 runs right after phase 3, then phases 5, 8, 6, 9, 10 and 4: 7, 5,
+8 and 9 need the most host RAM, and phase 4's staged fetches leave pinned
 host blocks in PyTorch's cache. The kernels' launch counts are set to 0 before each of the
 paths and read after it; every kernel a path runs must have launched in it
 (phase 7's copy codec launches none).
@@ -160,6 +190,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 from pathlib import Path
@@ -232,14 +263,16 @@ def host_rss_gib() -> float:
 _HOST_START: list[float] = []  # (MemAvailable, this process's RSS) at start, GiB
 
 
-def host_free_settled_gib(max_wait_s: float = 30.0) -> float:
+def host_free_settled_gib(enough_gib: float = math.inf, max_wait_s: float = 30.0) -> float:
     """MemAvailable once it accounts for the memory this process has freed.
     On the GPU machine freed pages reach MemAvailable only seconds after the
     process's resident set drops (``tools/memavailable_lag.py`` measures
     it), so a reading right after a path under-reports what the next one
     can use. Waits, at most ``max_wait_s``, until MemAvailable is within 2
-    GiB of the start reading less this process's growth since."""
-    want = _HOST_START[0] - max(host_rss_gib() - _HOST_START[1], 0.0) - 2.0
+    GiB of the start reading less this process's growth since, or reaches
+    ``enough_gib`` (what the caller needs to run at its full size: more
+    would change nothing)."""
+    want = min(_HOST_START[0] - max(host_rss_gib() - _HOST_START[1], 0.0) - 2.0, enough_gib)
     t0 = time.perf_counter()
     while (free := host_free_gib()) < want and time.perf_counter() - t0 < max_wait_s:
         time.sleep(1.0)
@@ -372,9 +405,18 @@ def sass_phase() -> None:
     from repro_torch.kernels import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    for name in ("rs_encode", "rs_decode"):
-        sass = subprocess.run([cuobjdump, "-sass", str(_build.lib_path(name))], capture_output=True, text=True,
-                              check=True, timeout=300).stdout
+    names = ("rs_encode", "rs_decode")
+    # both disassemblies at once (each takes tens of seconds), each into a
+    # file of its own: a pipe left unread would stall the second one
+    outs = {name: (tempfile.TemporaryFile(mode="w+"), tempfile.TemporaryFile(mode="w+")) for name in names}
+    procs = {name: subprocess.Popen([cuobjdump, "-sass", str(_build.lib_path(name))], stdout=outs[name][0],
+                                    stderr=outs[name][1], text=True) for name in names}
+    for name in names:
+        rc = procs[name].wait(timeout=300)
+        sass, err = [f.seek(0) or f.read() for f in outs[name]]
+        for f in outs[name]:
+            f.close()
+        check(rc == 0, f"cuobjdump {name} failed: {err[-2000:]}")
         for k, m in ((4, 2), (4, 1)):
             c = sass_mix.gf_word_mix(sass, k, m)
             log(f"sass {name} (K={k}, M={m}) loop, per word: " + ", ".join(f"{p} {v:.2f}" for p, v in c.items()))
@@ -833,7 +875,7 @@ def main_run(state, layout, mesh, codec: str, g: int, m: int, kill) -> dict:
     state_bytes = prog.own_bytes
     fused = sum(b.words * 4 * mesh.size for b in prog.buckets)
     return dict(
-        codec=codec, g=g, m=m, killed=list(kill),
+        codec=codec, g=g, m=m, killed=list(kill), checksum=list(dev_sum),
         create_s=create_s, create_gbps=state_bytes / create_s / 1e9,
         d2h_first_s=d2h_first_s, d2h_s=d2h_s, d2h_gbps=prog.pcie_bytes / d2h_s / 1e9,
         h2d_parity_s=h2d_s, restore_s=restore_s, restore_gbps=fused / restore_s / 1e9,
@@ -921,6 +963,45 @@ def compressed_run(state, layout, mesh) -> dict:
                 worst_err_in_steps=worst, pcie_bytes=prog.pcie_bytes, peak_device_gb=peak / 1e9)
 
 
+def mirror_run(state, layout, mesh, want_sum: list[int]) -> dict:
+    """The hot-replica transport, ``build_mirror_program`` with
+    ``validate=True``: every primary coordinate's fused bucket lands on its
+    shadow twin (i + 4 of the 8 data coordinates), the folded checksum (B1)
+    equals the main runs' (held against ``np_checksum`` of the staged host
+    bytes there), and the mirrored buffers, re-aligned by the copy codec's
+    ``restore_fn``, are byte-equal to every exchanged leaf of the state."""
+    import torch
+
+    from repro_torch.core.device_tier import build_mirror_program
+    from repro_torch.utils.pytree import tree_flatten
+
+    prog = build_mirror_program(mesh, layout.sds, layout.pspecs)
+    check([b.tag for b in prog.buckets] == ["data:float32"], f"buckets {[b.tag for b in prog.buckets]}")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    payload = prog.snapshot_fn(state)
+    torch.cuda.synchronize()
+    mirror_s = time.perf_counter() - t0
+    check(sorted(payload) == ["checksum", "mirror"], f"mirror payload keys {sorted(payload)}")
+    got_sum = [c & 0xFFFFFFFF for c in payload["checksum"].view(torch.int32).cpu().tolist()]
+    check(got_sum == want_sum, f"mirror checksum {got_sum} != the main runs' {want_sum}")
+    t0 = time.perf_counter()
+    restored = prog.restore_fn({"partner": payload.pop("mirror")})
+    torch.cuda.synchronize()
+    realign_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    leaves = tree_flatten(state)[1]
+    check(sorted(restored) == sorted(prog.exchanged_names), "restore_fn returned every exchanged leaf")
+    for name, x in restored.items():
+        check(torch.equal(_int_view(x), _int_view(leaves[int(name)])), f"mirror: leaf {name} differs")
+    del payload, restored
+    torch.cuda.empty_cache()
+    fused = sum(b.words * 4 * mesh.size for b in prog.buckets)
+    return dict(mirror_s=mirror_s, mirror_gbps=fused / mirror_s / 1e9, realign_s=realign_s,
+                exchanged_bytes=prog.exchanged_bytes, pcie_bytes=prog.pcie_bytes, peak_device_gb=peak / 1e9)
+
+
 def free_pinned_cache() -> None:
     """Return the pinned host blocks PyTorch caches after a staged fetch
     (where this PyTorch build exposes the call)."""
@@ -933,8 +1014,8 @@ def free_pinned_cache() -> None:
 
 def device_tier_path(state, layout, mesh) -> tuple[dict, list[dict]]:
     """The llama3.2-1b train state on the card through every run of
-    MAIN_RUNS and the compressed copy run; returns the kernels' launch
-    counts over this path alone."""
+    MAIN_RUNS, the compressed copy run and the mirror run; returns the
+    kernels' launch counts over this path alone."""
     import torch
 
     from repro_torch.kernels import ops
@@ -957,6 +1038,13 @@ def device_tier_path(state, layout, mesh) -> tuple[dict, list[dict]]:
     run["launches"] = {k: after[k] - before[k] for k in after}
     runs.append(run)
     log("main copy compress=True: " + json.dumps(run))
+    before = ops.launch_counts()
+    run = mirror_run(state, layout, mesh, runs[0]["checksum"])
+    after = ops.launch_counts()
+    run["launches"] = {k: after[k] - before[k] for k in after}
+    check(run["launches"]["checksum"] > 0, "the mirror program launched no checksum (B1)")
+    runs.append(run)
+    log("main mirror (validate=True): " + json.dumps(run))
     counts = ops.launch_counts()
     for name in DEVICE_TIER_KERNELS:
         check(counts[name] > 0, f"kernel {name} was launched no time on the device-tier path")
@@ -1215,9 +1303,9 @@ def engine_path(cfg) -> tuple[dict, list[dict]]:
         plan = ShardPlan.from_pspecs(layout.sds, layout.pspecs)
         return layout, plan, engine_host_need_gib(layout, plan)
 
-    free = host_free_settled_gib()
     layers = min(cfg.num_layers, PATH_LAYERS)
     layout, plan, need = reckon(layers)
+    free = host_free_settled_gib(need + HOST_HEADROOM_GIB)
     while need + HOST_HEADROOM_GIB > free and layers > 1:
         layers //= 2
         layout, plan, need = reckon(layers)
@@ -1299,10 +1387,10 @@ def striped_path(cfg) -> tuple[dict, list[dict]]:
     log("gf256 backends (probe: k=4, m=2, 256 KiB sources, best of 5; torch on the card): "
         + json.dumps({k: gf256._PROBE_GBPS.get(k) for k in gf256.available_backends()})
         + f" GB/s; the probe picks {gf256._SELECTED[0]}")
-    free = host_free_settled_gib()
     layers = min(cfg.num_layers, PATH_LAYERS)
     mesh, layout, plan = layout_and_plan(replace(cfg, num_layers=layers), STRIPED_RANKS)
     need = striped_host_need_gib(layout, plan)
+    free = host_free_settled_gib(need + HOST_HEADROOM_GIB)
     while need + HOST_HEADROOM_GIB > free and layers > 1:
         layers //= 2
         mesh, layout, plan = layout_and_plan(replace(cfg, num_layers=layers), STRIPED_RANKS)
@@ -1510,10 +1598,10 @@ def elastic_path(cfg) -> tuple[dict, list[dict]]:
     from repro_torch.runtime.state import RngEntity, ShardedStateEntity
     from repro_torch.utils.pytree import tree_flatten
 
-    free = host_free_settled_gib()
     layers = min(cfg.num_layers, PATH_LAYERS)
     mesh, layout, plan = layout_and_plan(replace(cfg, num_layers=layers), ELASTIC_WORLDS[0])
     need = elastic_host_need_gib(layout, plan)
+    free = host_free_settled_gib(need + HOST_HEADROOM_GIB)
     while need + HOST_HEADROOM_GIB > free and layers > 1:
         layers //= 2
         mesh, layout, plan = layout_and_plan(replace(cfg, num_layers=layers), ELASTIC_WORLDS[0])
@@ -1704,10 +1792,10 @@ def tier_engine_leg(cfg) -> dict:
     shutil.rmtree(tier_dir, ignore_errors=True)
     tier_dir.mkdir(parents=True)
     fs = dir_probe(tier_dir)
-    free = host_free_settled_gib()
     layers = min(cfg.num_layers, TIER_LAYERS)
     mesh, layout, plan = layout_and_plan(replace(cfg, num_layers=layers), TIER_RANKS)
     need, disk_gb = tier_need(layout, plan, TIER_RANKS, 0.5, fs["fstype"] == "tmpfs")
+    free = host_free_settled_gib(need + HOST_HEADROOM_GIB)
     log(f"tier engine: {layers} of {cfg.num_layers} layers, width kept (TIER_LAYERS {TIER_LAYERS}, for the "
         f"run's time), {TIER_RANKS} ranks; tier directory on {fs['fstype']} ({fs['mount']}), "
         f"{fs['free_gb']:.1f} GB free, about {disk_gb:.1f} GB needed; host RAM {free:.1f} GiB free, "
@@ -1907,8 +1995,8 @@ def tier_trainer_leg(cfg) -> dict:
     layers = min(cfg.num_layers, TIER_LAYERS)
     full_layers, cfg = cfg.num_layers, replace(cfg, num_layers=layers)
     mesh, layout, plan = layout_and_plan(cfg, ENGINE_RANKS)
-    free = host_free_settled_gib()
     need, disk_gb = tier_need(layout, plan, ENGINE_RANKS, 0.0, fs["fstype"] == "tmpfs")
+    free = host_free_settled_gib(need + HOST_HEADROOM_GIB)
     log(f"tier trainer: {layers} of {full_layers} layers (width kept), tier directory on {fs['fstype']}, "
         f"{fs['free_gb']:.1f} GB free, about {disk_gb:.1f} GB needed; host RAM {free:.1f} GiB free, about "
         f"{need:.1f} GiB needed")
@@ -2015,10 +2103,11 @@ TRAIN = dict(batch=8, seq=128, lr=1e-3, warmup_steps=2, n_virtual_hosts=ENGINE_R
              recovery_policy="spare", checkpoint_period=TRAIN_PERIOD)
 TRAIN_STEPS, TRAIN_KILLS = 8, {5: [2]}
 TRAIN_HISTORY = [0, 1, 2, 3, 4, 3, 4, 5, 6, 7]
-# depth of the async run (width kept): it drives the sync run's path with
-# the drain behind the next step, and half the depth leaves the run time for
-# phase 9
-TRAIN_ASYNC_LAYERS = 8
+# depth of the sync run and of the async run (width kept), for the run's
+# time: half and one of the 16 layers leave it for phases 9 and 10 (the
+# async run drives the sync run's path with the drain behind the next step)
+TRAIN_LAYERS = 8
+TRAIN_ASYNC_LAYERS = 1
 
 
 def trainer_host_need_gib(layout, plan) -> float:
@@ -2106,9 +2195,10 @@ def trainer_path(cfg, mode: str) -> tuple[dict, dict]:
         layout = train_state_layout(c, make_mesh(*PROD_MESH))
         return layout, trainer_host_need_gib(layout, ShardPlan.from_pspecs(layout.sds, layout.pspecs))
 
-    free = host_free_settled_gib()
     layers = cfg.num_layers
     layout, need = reckon(cfg)
+    full_gib = sum(int(math.prod(sd.shape)) * sd.dtype.itemsize for sd in tree_flatten(layout.sds)[1]) / 2**30
+    free = host_free_settled_gib(need + full_gib + HOST_HEADROOM_GIB)  # room for the host copy too
     while need + HOST_HEADROOM_GIB > free and layers > 1:
         layers -= 1
         layout, need = reckon(replace(cfg, num_layers=layers))
@@ -2210,6 +2300,255 @@ def trainer_path(cfg, mode: str) -> tuple[dict, dict]:
     return run, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the fault-tolerant server (paper Algorithm 3 over decode sessions)
+# ---------------------------------------------------------------------------
+
+# every run: 16 sessions, prompts of 1024 tokens, a max_seq 2048 KV cache, 48
+# decoded tokens, a session checkpoint every 16, 4 virtual hosts (8 for the
+# rs run: with one group of 4 a group's parity stripes die with its hosts)
+SERVE = dict(batch=16, max_seq=2048, checkpoint_every_tokens=16, n_virtual_hosts=4)
+SERVE_PROMPT, SERVE_GEN = 1024, 48
+# (name, ServerConfig fields, EngineConfig fields, kills {tick: ranks},
+# silent kills {tick: ranks}, recoveries)
+SERVE_RUNS = (
+    ("clean", {}, {}, {}, {}, 0),
+    ("spare+heartbeat", {}, {}, {20: [2]}, {34: [1]}, 2),
+    ("async", {"checkpoint_mode": "async"}, {}, {20: [2]}, {}, 1),
+    ("replica", {"replica_team": True}, {}, {30: [0, 1, 2, 3]}, {}, 1),
+    ("compress", {}, {"compress": True}, {20: [2]}, {}, 1),
+    ("rs", {"n_virtual_hosts": 8}, {"codec": "rs", "parity_group": 4, "rs_parity": 2, "gf_backend": "torch"},
+     {20: [0, 2]}, {}, 1),
+    ("elastic", {"n_spares": 0, "recovery_policy": "elastic"}, {}, {11: [2], 26: [0]}, {}, 2),
+)
+# B4 (rs run), B5a/B5b (compress run), B6 (elastic run)
+SERVE_KERNELS = ("gf256_matmul_dyn", "quantize_blockwise", "dequantize_blockwise", "gather_rows")
+
+
+def _p99(xs: list[float]) -> float:
+    ys = sorted(xs)
+    return ys[max(math.ceil(0.99 * len(ys)) - 1, 0)]
+
+
+def decode_profile(server, step_s: float, steps: int = 4) -> dict:
+    """``steps`` more greedy steps of the server's sessions under
+    ``torch.profiler`` (CPU and CUDA activities), each ending in
+    ``torch.cuda.synchronize()``: the device's busy time per step (the sum of
+    its kernels' times: decode runs on one stream), the idle share against
+    ``step_s`` (the unprofiled step's median: tracing slows the host) and
+    against the profiled steps, the kernel launches per step and the kernels
+    that take most device time. Device numbers are None where the profiler
+    saw no kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    pos = int(server.sessions["pos"])
+    check(pos + steps < server.scfg.max_seq, "no room in the cache for the profiled steps")
+    server.steps.clear()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            server._decode_one(pos + i)
+    wall = sum(server.steps)
+    averages = prof.key_averages()
+    profile_s = time.perf_counter() - t0
+
+    def dev_us(e) -> float:
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+
+    kernels = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(dev_us(e) for e in kernels) / 1e6
+    top = sorted(kernels, key=dev_us, reverse=True)[:6]
+    return dict(steps=steps, profile_s=profile_s, profiled_step_ms=wall / steps * 1e3,
+                device_busy_ms_per_step=busy / steps * 1e3 if kernels else None,
+                idle_share=1 - busy / steps / step_s if kernels else None,
+                idle_share_profiled=1 - busy / wall if kernels else None,
+                launches_per_step=sum(e.count for e in kernels) / steps if kernels else None,
+                top_kernels_ms_per_step=[[e.key[:60], dev_us(e) / 1e3 / steps] for e in top])
+
+
+def serve_run(model, params, prompts, ref, name: str, scfg_kw: dict, eng_kw: dict, kills: dict,
+              silent: dict, recoveries: int) -> tuple[dict, object]:
+    """One run of SERVE_RUNS: the port's Server through its kills, timed
+    (prefill, every decode step ending in ``torch.cuda.synchronize()``,
+    every committed create, every recovery); its tokens held against
+    ``ref``, the clean run's (None for the clean run itself). Returns the
+    run's numbers and its tokens."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.checkpoint import EngineConfig
+    from repro_torch.obs.trace import tracer
+    from repro_torch.runtime.failures import FailureInjector
+    from repro_torch.runtime.server import Server, ServerConfig
+
+    class TimedServer(Server):
+        def __init__(self, *a, **k) -> None:
+            self.creates, self.steps, self.recoveries = [], [], []
+            super().__init__(*a, **k)
+
+        def _new_engine(self, n_ranks: int):
+            eng = super()._new_engine(n_ranks)
+            finalize = eng.finalize_async
+
+            def finalize_and_record():
+                ok = finalize()
+                if ok:
+                    self.creates.append(dict(pos=eng.checkpoint_step()["pos"], ranks=eng.n_ranks,
+                                             **create_line(eng.stats)))
+                return ok
+
+            eng.finalize_async = finalize_and_record
+            return eng
+
+        def prefill(self, prompts) -> None:
+            t0 = time.perf_counter()
+            super().prefill(prompts)
+            torch.cuda.synchronize()
+            self.prefill_s = time.perf_counter() - t0
+
+        def _decode_one(self, pos: int) -> None:
+            t0 = time.perf_counter()
+            super()._decode_one(pos)
+            torch.cuda.synchronize()
+            self.steps.append(time.perf_counter() - t0)
+
+        def recover(self) -> None:
+            promotions = self.promotions
+            t0 = time.perf_counter()
+            super().recover()
+            torch.cuda.synchronize()
+            rec = dict(recover_s=time.perf_counter() - t0, pos=int(self.sessions["pos"]),
+                       ranks=self.engine.n_ranks, promoted=self.promotions > promotions,
+                       **restore_line(self.engine.stats))
+            rep = self.engine.last_elastic_report
+            if rep is not None:
+                rec.update(bytes_moved=rep.bytes_moved, bytes_lower_bound=rep.bytes_lower_bound,
+                           moved_over_bound=rep.bytes_moved / max(rep.bytes_lower_bound, 1))
+                self.engine.last_elastic_report = None
+            self.recoveries.append(rec)
+
+    scfg = ServerConfig(**{**SERVE, **scfg_kw}, engine=EngineConfig(**eng_kw))
+    hosts = scfg.n_virtual_hosts
+    injector = FailureInjector(hosts, schedule=kills, silent_schedule=silent)
+    torch.cuda.reset_peak_memory_stats()
+    replica = scfg.replica_team
+    if replica:
+        tracer().reset()
+        tracer().enable()
+    stop_rss = rss_sampler()
+    server = TimedServer(model, scfg, params=params, injector=injector)
+    check(server.device.type == "cuda", f"serve {name}: the server runs on {server.device}")
+    t0 = time.perf_counter()
+    out = server.prefill_and_decode(prompts, SERVE_GEN)
+    serve_s = time.perf_counter() - t0
+    host_peak = stop_rss()
+    run = dict(name=name, hosts=hosts, engine=eng_kw, server=scfg_kw, kills=kills, silent_kills=silent,
+               prefill_s=server.prefill_s, steps=len(server.steps),
+               step_ms_median=statistics.median(server.steps) * 1e3, step_ms_p99=_p99(server.steps) * 1e3,
+               decode_tokens_per_s=SERVE["batch"] * len(server.steps) / sum(server.steps),
+               serve_s=serve_s, tokens_per_s=SERVE["batch"] * SERVE_GEN / (serve_s - server.prefill_s),
+               checkpoints=server.creates, blocked_s=[c["blocked_s"] for c in server.creates],
+               recoveries=server.recoveries, n_recoveries=server.n_recoveries, promotions=server.promotions,
+               peak_device_gb=torch.cuda.max_memory_allocated() / 1e9, host_peak_rss_gib=host_peak)
+    if replica:
+        rt = server.replica
+        spans = tracer().events()
+        tracer().disable()
+        tracer().reset()
+        commits = sorted(e["t0"] for e in spans if e["name"] == "commit")
+        check(len(commits) >= 2, f"serve {name}: {len(commits)} commits traced, need two for the interval")
+        interval = (commits[-1] - commits[0]) / (len(commits) - 1)
+        stall = sum(e["dur"] for e in spans if e["name"] == "replica_promote_restore")
+        run.update(bytes_synced=rt.bytes_synced, syncs=rt.syncs, blocked_sync_s=rt.blocked_sync_s,
+                   rebuild_s=rt.rebuild_s, replica_state=rt.state, promotion_stall_s=stall,
+                   checkpoint_interval_s=interval)
+        check(server.promotions == 1, f"serve {name}: {server.promotions} promotions, want 1")
+        check(stall < interval, f"serve {name}: promotion stall {stall:.3f} s >= one checkpoint interval "
+                                f"{interval:.3f} s")
+    check(server.n_recoveries == recoveries, f"serve {name}: {server.n_recoveries} recoveries, want {recoveries}")
+    if ref is not None and eng_kw.get("compress"):
+        # int8 partner copies are lossy: the killed ranks' sessions restore
+        # from dequantize(quantize(cache)), so only their rows may decode
+        # differently after the rollback; every other row and every token up
+        # to the rollback position must be bit-equal
+        per = SERVE["batch"] // hosts
+        lossy = {b for ranks in kills.values() for r in ranks for b in range(r * per, (r + 1) * per)}
+        diff = out != ref
+        rows = set(np.nonzero(diff.any(1))[0].tolist())
+        rollback = min(r["pos"] for r in server.recoveries)
+        check(rows <= lossy, f"serve {name}: rows {sorted(rows - lossy)} outside the restored ranks differ")
+        check(not diff[:, : rollback + 1].any(), f"serve {name}: tokens up to the rollback position differ")
+        run.update(lossy_rows=sorted(lossy), rows_differing=sorted(rows), tokens_differing=int(diff.sum()))
+    elif ref is not None:
+        check(np.array_equal(out, ref), f"serve {name}: tokens differ from the clean run's "
+                                        f"({int((out != ref).sum())} tokens)")
+    run["tokens_equal"] = ref is None or bool(np.array_equal(out, ref))
+    if ref is None:
+        run["decode_profile"] = decode_profile(server, statistics.median(server.steps))
+    server.close()
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run, out
+
+
+def serve_path(cfg) -> tuple[dict, list[dict]]:
+    """Phase 10: the port's Server on the card with llama3.2-1b at full
+    width and depth (bf16 params from the seed, not snapshotted) through
+    SERVE_RUNS under deterministic algorithms; every faulted run's tokens
+    held against the clean run's. Returns the kernels' launch counts over
+    the whole phase and the runs' numbers."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.utils import threefry
+    from repro_torch.utils.pytree import tree_leaves
+
+    model = build_model(cfg)
+    cache_bytes = sum(int(math.prod(s.shape)) * s.dtype.itemsize
+                      for s in tree_leaves(model.abstract_cache(SERVE["batch"], SERVE["max_seq"])))
+    # the largest run's host arenas: two teams (replica), two banks each,
+    # every rank's own shard and exchange subset of the cache
+    need = 8 * cache_bytes / 2**30
+    free = host_free_settled_gib(need + HOST_HEADROOM_GIB)
+    check(need + HOST_HEADROOM_GIB <= free, f"serve path: {need:.1f} GiB of host RAM needed, {free:.1f} free")
+    t0 = time.perf_counter()
+    params = model.init(threefry.PRNGKey(SEED), "cuda")
+    prompts = threefry.randint(threefry.fold_in(threefry.PRNGKey(SEED), 10), (SERVE["batch"], SERVE_PROMPT), 0,
+                               cfg.vocab_size, device="cuda").cpu().numpy().astype("int32")
+    torch.cuda.synchronize()
+    params_gb = sum(x.numel() * x.element_size() for x in tree_leaves(params)) / 1e9
+    log(f"serve: {cfg.name}, {cfg.num_layers} layers, params {params_gb:.3f} GB ({model.n_params} bf16) in "
+        f"{time.perf_counter() - t0:.1f} s; KV cache {cache_bytes / 1e9:.3f} GB; host RAM {free:.1f} GiB free, "
+        f"about {need:.1f} GiB needed")
+    torch.use_deterministic_algorithms(True)
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    runs, ref = [], None
+    ops.reset_launch_counts()  # this path's counts start here
+    for name, scfg_kw, eng_kw, kills, silent, recoveries in SERVE_RUNS:
+        run, out = serve_run(model, params, prompts, ref, name, scfg_kw, eng_kw, kills, silent, recoveries)
+        if ref is None:
+            ref = out
+        runs.append(run)
+        log(f"serve {name}: " + json.dumps(run))
+    counts = ops.launch_counts()
+    torch.use_deterministic_algorithms(False)
+    torch.utils.deterministic.fill_uninitialized_memory = fill
+    for k in SERVE_KERNELS:
+        check(counts[k] > 0, f"kernel {k} was launched no time on the serving path")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, runs
+
+
 def main() -> int:
     import gc
     import os
@@ -2276,10 +2615,10 @@ def main() -> int:
     # generations), and runs before any staged fetch caches pinned blocks
     counts7 = {}
     for mode in ("sync", "async"):
-        if mode == "async":
-            log(f"trainer (async): {TRAIN_ASYNC_LAYERS} of {cfg.num_layers} layers, width kept "
-                f"(TRAIN_ASYNC_LAYERS, for the run's time)")
-        run7, counts = trainer_path(cfg if mode == "sync" else replace(cfg, num_layers=TRAIN_ASYNC_LAYERS), mode)
+        layers = min(cfg.num_layers, TRAIN_LAYERS if mode == "sync" else TRAIN_ASYNC_LAYERS)
+        log(f"trainer ({mode}): {layers} of {cfg.num_layers} layers, width kept (TRAIN_LAYERS, "
+            f"TRAIN_ASYNC_LAYERS: for the run's time)")
+        run7, counts = trainer_path(replace(cfg, num_layers=layers), mode)
         gc.collect()
         log(f"trainer path ({mode}): " + json.dumps(run7))
         log(f"trainer path ({mode}) launches: {json.dumps(counts)}")
@@ -2305,6 +2644,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("phase 9")
+    counts10, runs10 = serve_path(cfg)
+    log(f"serve path launches: {json.dumps(counts10)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("phase 10")
     t0 = time.perf_counter()
     state = init_train_state(layout, mesh, torch.Generator(device="cuda").manual_seed(SEED))
     torch.cuda.synchronize()
@@ -2316,7 +2660,7 @@ def main() -> int:
     log(f"device-tier path launches: {json.dumps(counts4)}")
     phase_done("phase 4")
     for k in kernels:
-        k["launches"] = sum(c[k["name"]] for c in (counts4, counts5, counts6, counts7, counts8, counts9))
+        k["launches"] = sum(c[k["name"]] for c in (counts4, counts5, counts6, counts7, counts8, counts9, counts10))
         k["route"] = "cuda"
         check(k["launches"] > 0, f"kernel {k['name']} was launched no time on the main paths")
     log(f"total {time.perf_counter() - t_start:.1f} s")

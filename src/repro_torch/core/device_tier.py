@@ -33,8 +33,16 @@ local XOR rows over ``rs_parity`` Cauchy rows) through the encode kernel
 B3, and its restore solves through the codec's cheapest invertible row set
 (a single loss: one local parity) with the decode kernel B4.
 
-What waits (ROADMAP): ``emit_full_blobs=True``, ``build_mirror_program``
-and the copy codec's ``restore_fn``.
+``emit_full_blobs=True`` (striped codecs) keeps each group's whole blobs on
+every member instead of routing stripes: the payload's ``parity_full[tag]``
+is ``(n_parity, n_coords·words)``, each coordinate's slice its group's
+blobs (encoded once per group and copied to the members).
+
+The copy codec's ``restore_fn`` re-aligns the partner copies to their origin
+coordinates (the inverse permutation) and unpacks every exchanged leaf.
+``build_mirror_program`` is the hot-replica transport: the copy program
+along the ``mirror`` scheme (coordinate ``i`` to ``i + T``, T half the
+axis), with no own copy, its payload keyed ``mirror``.
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ from __future__ import annotations
 import functools
 import threading
 from collections import OrderedDict
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Callable
 
 import numpy as np
@@ -177,9 +185,10 @@ class FusedBucket:
 
 @dataclass(frozen=True)
 class SnapshotProgram:
-    """Snapshot closures + byte accounting."""
+    """Snapshot and restore closures + byte accounting."""
 
     snapshot_fn: Callable      # state -> snapshot payload (dict)
+    restore_fn: Callable       # payload -> exchanged leaves re-aligned to origin (copy codec)
     exchanged_names: tuple[str, ...]
     exchanged_bytes: int      # global bytes the reference moves over collectives
     own_bytes: int            # global snapshot bytes (own copies)
@@ -358,6 +367,9 @@ def build_snapshot_program(
     rs_parity: int = 2,        # m parity blobs for "rs" (global parities for "lrc")
     compress: bool = False,    # int8 partner copies (copy codec only)
     lrc_locals: int = 2,       # local XOR rows for "lrc"
+    # whole blobs on every group member instead of routed stripes (more host
+    # traffic, no routing)
+    emit_full_blobs: bool = False,
 ) -> SnapshotProgram:
     if codec not in _CODECS:
         raise ValueError(f"codec {codec!r}: this port runs {_CODECS}")
@@ -420,14 +432,20 @@ def build_snapshot_program(
     own_bytes = sum(int(np.prod(sd.shape, dtype=np.int64)) * sd.dtype.itemsize for sd in leaves_sds)
     fused_bytes = sum(_bucket_global_bytes(b) for b in buckets)
     if striped:
+        # ring collection (g-1 hops) + blob routing (m hops x S rounds, the
+        # stripe path only: full blobs stay where they were encoded)
         exchanged_bytes = sum(
-            (g - 1 + n_parity * _stripe_slots(mesh.shape[b.axis], g)) * _bucket_global_bytes(b)
+            (g - 1 + (0 if emit_full_blobs else n_parity * _stripe_slots(mesh.shape[b.axis], g)))
+            * _bucket_global_bytes(b)
             for b in buckets
         )
-        pcie_payload = sum(
-            n_parity * _bucket_global_bytes(b) * _stripe_slots(mesh.shape[b.axis], g) // g
-            for b in buckets
-        )
+        if emit_full_blobs:
+            pcie_payload = n_parity * fused_bytes
+        else:
+            pcie_payload = sum(
+                n_parity * _bucket_global_bytes(b) * _stripe_slots(mesh.shape[b.axis], g) // g
+                for b in buckets
+            )
     else:
         exchanged_bytes = fused_bytes
         pcie_payload = fused_bytes if not compress else fused_bytes // 4
@@ -435,15 +453,17 @@ def build_snapshot_program(
 
     gen = _generator(codec, g, rs_parity, lrc_locals) if codec in ("rs", "lrc") else None
 
-    def _permuted(bucket: FusedBucket, x: torch.Tensor) -> torch.Tensor:
+    def _permuted(bucket: FusedBucket, x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
         """The copy codec: rows of ``x`` (one per bucket coordinate) moved
-        along the scheme's pairs, coordinate ``dst`` receiving ``src``'s row,
-        flattened — the reference's ``ppermute`` of each coordinate's local
-        array (coordinates no pair reaches get zeros)."""
+        along the scheme's pairs (or their inverse), coordinate ``dst``
+        receiving ``src``'s row, flattened — the reference's ``ppermute`` of
+        each coordinate's local array (coordinates no pair reaches get
+        zeros)."""
         pre, A, post = _split_axis(mesh, bucket)
         B = x.view(pre, A, post, -1)
         out = torch.zeros_like(B)
-        for src, dst in dist.perm_pairs(A, scheme):
+        pairs = dist.perm_pairs(A, scheme)
+        for src, dst in dist.inverse_perm(pairs) if inverse else pairs:
             out[:, dst] = B[:, src]
         return out.view(-1)
 
@@ -457,6 +477,31 @@ def build_snapshot_program(
         _quantize_k.quantize_into(rows.view(-1), q, scale)
         del rows
         return {"q": _permuted(bucket, q), "scale": _permuted(bucket, scale)}
+
+    def _encode_group(rows: list[torch.Tensor], k: int, outs: list[torch.Tensor]) -> None:
+        # a short group's missing members are zero rows in the reference;
+        # 0·x = 0, so its generator is coef[:, :k]
+        if codec == "xor":
+            _xor_k.xor_reduce_into(rows, outs[0])
+        else:
+            _rs_k.rs_encode_into(rows, [row[:k] for row in gen.tolist()], outs)
+
+    def _full_blobs(bucket: FusedBucket, buf: torch.Tensor) -> torch.Tensor:
+        """Every member keeps its group's whole blobs: ``(m, n_coords·words)``
+        like the reference, each group's blobs encoded once into its first
+        member's slot and copied to the others."""
+        pre, A, post = _split_axis(mesh, bucket)
+        B = buf.view(pre, A, post, bucket.words)
+        out = kops.empty_u32((n_parity, pre, A, post, bucket.words), mesh.device)
+        for p in range(pre):
+            for q in range(post):
+                for grp in dist.parity_groups(A, g):
+                    rows = [B[p, r, q] for r in grp.members]
+                    first = grp.members[0]
+                    _encode_group(rows, len(grp.members), [out[b, p, first, q] for b in range(n_parity)])
+                    for member in grp.members[1:]:
+                        _i32(out)[:, p, member, q] = _i32(out)[:, p, first, q]
+        return out.view(n_parity, -1)
 
     def _parity(bucket: FusedBucket, buf: torch.Tensor) -> torch.Tensor:
         """Encode each parity group's blobs once and slice them into the
@@ -484,12 +529,7 @@ def build_snapshot_program(
                                 for b, h in enumerate(holders)]
                     else:
                         outs = list(blob.unbind(0))
-                    # a short group's missing members are zero rows in the
-                    # reference; 0·x = 0, so its generator is coef[:, :k]
-                    if codec == "xor":
-                        _xor_k.xor_reduce_into(rows, outs[0])
-                    else:
-                        _rs_k.rs_encode_into(rows, [row[:k] for row in gen.tolist()], outs)
+                    _encode_group(rows, k, outs)
                     if direct:
                         continue
                     for b, h in enumerate(holders):
@@ -505,6 +545,8 @@ def build_snapshot_program(
         return out.view(n_parity, -1)
 
     def _encode(bucket: FusedBucket, buf: torch.Tensor) -> tuple[str, torch.Tensor]:
+        if striped and emit_full_blobs:
+            return "parity_full", _full_blobs(bucket, buf)
         if striped:
             return "parity", _parity(bucket, buf)
         return "partner", _permuted(bucket, _i32(buf)).view(torch.uint32)
@@ -562,6 +604,23 @@ def build_snapshot_program(
     def _bucket_chunk(bucket):
         return lambda state: _run_buckets(_check_state(state), [bucket], False)
 
+    def restore_fn(payload) -> dict[str, torch.Tensor]:
+        """Re-align the partner copies to their origin coordinates (the
+        inverse permutation) and unpack every exchanged leaf, at its global
+        shape: ``{str(leaf index): tensor}``. The copy codec's uncompressed
+        payloads only; striped and compressed payloads reconstruct through
+        the codec."""
+        partner = payload.get("partner")
+        if partner is None or compress or striped:
+            raise ValueError("only full-copy uncompressed payloads restore through restore_fn")
+        out: dict[int, torch.Tensor] = {}
+        for bucket in buckets:
+            buf = _permuted(bucket, _i32(partner[bucket.tag].to(mesh.device)), inverse=True)
+            for i in bucket.leaf_idx:
+                out[i] = torch.empty(meta[i].shape, dtype=meta[i].dtype, device=mesh.device)
+            _unpack_bucket(buf.view(torch.uint32).view(-1, bucket.words), out, bucket, meta, mesh)
+        return {str(i): out[i] for b in buckets for i in b.leaf_idx}
+
     chunk_fns: list[Callable] = [_own_chunk] if include_own_copy else []
     chunk_fns.extend(_bucket_chunk(b) for b in buckets)
     log.debug(
@@ -571,6 +630,7 @@ def build_snapshot_program(
 
     return SnapshotProgram(
         snapshot_fn=snapshot_fn,
+        restore_fn=restore_fn,
         exchanged_names=tuple(str(i) for i in exchanged_idx),
         exchanged_bytes=exchanged_bytes,
         own_bytes=own_bytes,
@@ -581,6 +641,38 @@ def build_snapshot_program(
         snapshot_chunk_fns=tuple(chunk_fns),
         device=mesh.device,
     )
+
+
+@_traced("build_mirror_program")
+def build_mirror_program(
+    mesh: VirtualMesh,
+    state_sds: Any,
+    state_pspecs: Any,
+    *,
+    replica_axis: str = "data",
+    validate: bool = True,
+) -> SnapshotProgram:
+    """The hot-replica transport: the fused snapshot program's buckets routed
+    to the *shadow team* instead of a parity group. ``replica_axis`` is
+    primary half + shadow half (teams of T = axis/2 coordinates); one
+    permutation per bucket lands every primary coordinate's fused buffer on
+    its shadow twin at ``i + T``. No parity, no own copy, no compression:
+    ``snapshot_fn`` emits ``{"mirror": {tag: fused buffer}}`` (+ the folded
+    handshake checksum when ``validate``), unpackable with the bucket's
+    ``word_offsets`` like a partner payload."""
+    prog = build_snapshot_program(
+        mesh, state_sds, state_pspecs, redundancy_axis=replica_axis, scheme="mirror",
+        include_own_copy=False, compress=False, validate=validate, codec="copy",
+    )
+    inner = prog.snapshot_fn
+
+    def mirror_fn(state):
+        payload = inner(state)
+        if "partner" in payload:
+            payload["mirror"] = payload.pop("partner")
+        return payload
+
+    return replace(prog, snapshot_fn=mirror_fn)
 
 
 # ---------------------------------------------------------------------------

@@ -24,16 +24,8 @@ from repro_torch.models.lm import abstract_params
 from repro_torch.optim.adamw import abstract_opt_state
 from repro_torch.sharding.axes import FSDP_RULES, TP_RULES, spec_to_pspec, zero1_pspec
 from repro_torch.sharding.mesh import VirtualMesh, resolve_device
-from repro_torch.sharding.spec import ParamSpec, draw_normal, init_std
+from repro_torch.sharding.spec import ParamSpec, TensorSpec, draw_normal, init_std, specs_to_shape_dtype
 from repro_torch.utils.pytree import tree_map
-
-
-@dataclass(frozen=True)
-class TensorSpec:
-    """Shape and dtype of one state leaf (``jax.ShapeDtypeStruct``'s role)."""
-
-    shape: tuple[int, ...]
-    dtype: torch.dtype
 
 
 @dataclass(frozen=True)
@@ -49,11 +41,9 @@ def train_state_layout(cfg: ModelConfig, mesh: VirtualMesh) -> StateLayout:
     params = abstract_params(cfg)
     opt = abstract_opt_state(params, cfg.optimizer_dtype)
 
-    def sds(tree):
-        return tree_map(lambda s: TensorSpec(tuple(s.shape), s.dtype), tree)
-
     return StateLayout(
-        sds={"params": sds(params), "opt": sds(opt), "step": TensorSpec((), torch.int32)},
+        sds={"params": specs_to_shape_dtype(params), "opt": specs_to_shape_dtype(opt),
+             "step": TensorSpec((), torch.int32)},
         pspecs={
             "params": tree_map(lambda s: spec_to_pspec(s, rules, mesh), params),
             "opt": {k: tree_map(lambda s: zero1_pspec(s, rules, mesh), v) for k, v in opt.items()},

@@ -8,8 +8,12 @@ from the compute dtype's products, ``NEG_INF`` masking, the running max and
 its correction) is the reference's, which the tests compare against; the
 JAX package has no Pallas kernel here, and the port adds none.
 
-Not ported yet: cross-attention (ROADMAP A10) and the KV-cache decode step
-(ROADMAP A9).
+Decode attends a single query over the whole ``max_seq`` KV cache with a
+position mask, as the reference does, and writes the new token's k/v into
+the cache **in place** at ``pos`` (the reference returns a new cache): the
+cache is allocated once per serving session and never rebuilt per token.
+
+Not ported yet: cross-attention (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -191,12 +195,58 @@ def apply(
 
 
 # ---------------------------------------------------------------------------
-# Decode (single token, KV cache): ROADMAP A9
+# Decode step (single token, KV cache)
 # ---------------------------------------------------------------------------
 
-def decode_cache_spec(cfg: ModelConfig, batch: int, max_seq: int, kind: str) -> dict[str, Any]:
-    raise NotImplementedError("the KV-cache decode step waits for ROADMAP A9")
+def decode_cache_spec(cfg: ModelConfig, batch: int, max_seq: int, kind: str) -> dict[str, ParamSpec]:
+    if kind == "cross":
+        raise NotImplementedError("cross-attention (VLM) waits for ROADMAP A10")
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    dims = ("batch", "kv_seq", "kv_heads", None)
+    return {
+        "k": ParamSpec((batch, max_seq, kv, hd), dims, dtype=cfg.compute_dtype, init="zeros"),
+        "v": ParamSpec((batch, max_seq, kv, hd), dims, dtype=cfg.compute_dtype, init="zeros"),
+    }
 
 
-def decode(params, x, cache, pos, cfg: ModelConfig, *, kind: str):
-    raise NotImplementedError("the KV-cache decode step waits for ROADMAP A9")
+def decode(
+    params: dict[str, torch.Tensor],
+    x: torch.Tensor,                   # (B, 1, d_model)
+    cache: dict[str, torch.Tensor],    # k/v: (B, S_max, KV, D), written in place
+    pos: torch.Tensor,                 # 0-d integer tensor: index of the new token
+    cfg: ModelConfig,
+    *,
+    kind: str,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """One token through the layer. The new k/v land in ``cache`` at ``pos``
+    (``index_copy_``: no host sync on ``pos``); returns (output, cache)."""
+    if kind not in ("attn", "local"):
+        raise NotImplementedError(f"attention kind {kind!r}: cross-attention waits for ROADMAP A10")
+    B = x.shape[0]
+    at = pos.reshape(1, 1)
+    q = einsum("bsd,dhk->bshk", x, params["wq"]).to(cfg.compute_dtype)
+    q = apply_rope(q, at, cfg.rope_theta)
+    knew = einsum("bsd,dhk->bshk", x, params["wk"]).to(cfg.compute_dtype)
+    vnew = einsum("bsd,dhk->bshk", x, params["wv"]).to(cfg.compute_dtype)
+    knew = apply_rope(knew, at, cfg.rope_theta)
+    k, v = cache["k"], cache["v"]
+    k.index_copy_(1, pos.reshape(1).to(torch.int64), knew)
+    v.index_copy_(1, pos.reshape(1).to(torch.int64), vnew)
+    idx = torch.arange(k.shape[1], device=k.device)
+    valid = idx <= pos
+    if kind == "local":
+        valid &= idx > pos - cfg.sliding_window
+
+    KV, D = k.shape[2], k.shape[3]
+    H = q.shape[2]
+    G = H // KV
+    qg = q.reshape(B, 1, KV, G, D)
+    # the compute dtype's products summed in f32 (preferred_element_type=f32)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32), k.to(torch.float32))
+    s = softcap(s / math.sqrt(D), cfg.attn_softcap)
+    s = torch.where(valid[None, None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).to(torch.float32), v.to(torch.float32))
+    o = o.reshape(B, 1, H, D).to(cfg.compute_dtype)
+    out = einsum("bshk,hkd->bsd", o, params["wo"]).to(x.dtype)
+    return out, cache

@@ -2,8 +2,8 @@
 cfg.layer_pattern of slots; the model loops over periods with per-slot
 parameters stacked.
 
-Mamba and MoE slots (and cross-attention) wait for ROADMAP A10, the decode
-step for ROADMAP A9; each raises ``NotImplementedError`` naming its item.
+Mamba and MoE slots (and cross-attention) wait for ROADMAP A10; each
+raises ``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
@@ -58,5 +58,25 @@ def apply_block(
     return h, cache, aux
 
 
-def decode_block(params, h, cache, pos, cfg: ModelConfig, slot: int):
-    raise NotImplementedError("the KV-cache decode step waits for ROADMAP A9")
+def decode_block(
+    params: dict[str, Any],
+    h: torch.Tensor,
+    cache: dict[str, Any],
+    pos: torch.Tensor,
+    cfg: ModelConfig,
+    slot: int,
+) -> tuple[torch.Tensor, dict[str, Any]]:
+    """One token through the slot; the slot's KV cache is written in place."""
+    kind = _dense_slot(cfg, slot)
+    hin = rmsnorm(h, params["ln1"], cfg.norm_eps)
+    mixed, cache = attention.decode(params["mixer"], hin, cache, pos, cfg, kind=kind)
+    h = h + mixed
+
+    if cfg.d_ff > 0:
+        hin = rmsnorm(h, params["ln2"], cfg.norm_eps)
+        h = h + mlp.apply(params["ffn"], hin, cfg)
+    return h, cache
+
+
+def block_cache_spec(cfg: ModelConfig, slot: int, batch: int, max_seq: int) -> dict[str, Any]:
+    return attention.decode_cache_spec(cfg, batch, max_seq, _dense_slot(cfg, slot))

@@ -1,4 +1,5 @@
-"""The dense decoder LM: parameter declarations, forward pass and train loss.
+"""The dense decoder LM: parameter declarations, forward pass, train loss,
+prefill and the single-token decode step.
 
 Parameters keep the reference's layout, per-slot leaves stacked along a
 leading "layers" dim (``params["layers"]["slot0"][leaf][i]`` is layer i):
@@ -7,9 +8,12 @@ reference scans over periods with ``lax.scan``; the port loops over them in
 Python, each period under ``torch.utils.checkpoint`` when ``cfg.remat`` is
 ``"full"``.
 
+The decode cache is the reference's: per slot, k and v of shape
+``(num_periods, batch, max_seq, kv_heads, head_dim)``. ``decode_step``
+writes each layer's new k/v into it in place and returns the same tree.
+
 Not ported yet: ``remat="dots"`` (the reference's save-the-matmuls policy),
-prefill and the decode step (ROADMAP A9), encoder and VLM inputs (ROADMAP
-A10).
+encoder and VLM inputs (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks
 from repro_torch.models.common import einsum, embed_spec, rmsnorm, rmsnorm_spec, softcap
 from repro_torch.sharding.spec import ParamSpec, stack_tree
-from repro_torch.utils.pytree import tree_map
+from repro_torch.utils.pytree import tree_flatten, tree_map, tree_unflatten
 
 LOSS_CHUNK = 512  # sequence-chunked cross-entropy (bounds logits memory)
 
@@ -73,24 +77,41 @@ def _remat(fn, cfg: ModelConfig):
     return partial(checkpoint, fn, use_reentrant=False)
 
 
-def forward(params: dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) integers -> (final hidden (B, S, D), moe_aux)."""
+def forward(
+    params: dict[str, Any],
+    cfg: ModelConfig,
+    tokens: torch.Tensor,
+    collect_cache: bool = False,
+) -> tuple[torch.Tensor, Any, torch.Tensor]:
+    """tokens (B, S) integers -> (final hidden (B, S, D), cache, moe_aux).
+    With ``collect_cache`` the cache holds each slot's k/v stacked over the
+    layers, (num_periods, B, S, KV, D); else it is None."""
     h = _embed_tokens(params, tokens, cfg)
 
     def period_body(h, aux, layer_params):
+        caches = {}
         for j in range(cfg.period):
-            h, _, aux_j = blocks.apply_block(layer_params[f"slot{j}"], h, cfg, j)
+            h, cache_j, aux_j = blocks.apply_block(layer_params[f"slot{j}"], h, cfg, j)
             aux = aux + aux_j
-        return h, aux
+            if collect_cache:
+                caches[f"slot{j}"] = cache_j
+        return h, aux, caches
 
     body = _remat(period_body, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    per_layer = []  # each period's {slot: {k, v}} when collecting
     for i in range(cfg.num_periods):
         sliced = tree_map(lambda x: x[i], params["layers"])
-        h, aux = body(h, aux, sliced)
+        h, aux, c = body(h, aux, sliced)
+        if collect_cache:
+            per_layer.append(tree_flatten(c))
 
+    cache = None
+    if collect_cache:
+        paths = per_layer[0][0]
+        cache = tree_unflatten(paths, [torch.stack(xs) for xs in zip(*(leaves for _, leaves in per_layer))])
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return h, aux
+    return h, cache, aux
 
 
 def _head_weight(params: dict[str, Any], cfg: ModelConfig) -> torch.Tensor:
@@ -131,7 +152,7 @@ def loss_fn(
     aux_weight: float = 0.01,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Mean next-token cross-entropy (+ the MoE aux loss, 0 for dense)."""
-    h, aux = forward(params, cfg, batch["tokens"])
+    h, _, aux = forward(params, cfg, batch["tokens"])
     labels = batch["labels"]
     mask = batch.get("mask")
     if mask is None:
@@ -159,12 +180,37 @@ def loss_fn(
 
 
 # ---------------------------------------------------------------------------
-# Serving: ROADMAP A9
+# Serving: prefill + single-token decode
 # ---------------------------------------------------------------------------
 
-def prefill(params, cfg: ModelConfig, **inputs):
-    raise NotImplementedError("prefill and the decode step wait for ROADMAP A9")
+def prefill(params: dict[str, Any], cfg: ModelConfig, *, tokens: torch.Tensor) -> tuple[torch.Tensor, Any]:
+    """Returns (last-position logits (B, V), cache of length S)."""
+    h, cache, _ = forward(params, cfg, tokens, collect_cache=True)
+    return logits_fn(params, h[:, -1, :], cfg), cache
 
 
-def decode_step(params, cache, token, pos, cfg: ModelConfig):
-    raise NotImplementedError("prefill and the decode step wait for ROADMAP A9")
+def decode_step(
+    params: dict[str, Any],
+    cache: Any,
+    token: torch.Tensor,    # (B,) integers: the token at position `pos`
+    pos: torch.Tensor,      # 0-d integer tensor
+    cfg: ModelConfig,
+) -> tuple[torch.Tensor, Any]:
+    """One decode step: returns (logits (B, V) for position pos, cache), the
+    cache written in place."""
+    h = _embed_tokens(params, token[:, None], cfg)  # (B, 1, D)
+    for i in range(cfg.num_periods):
+        layer_params = tree_map(lambda x: x[i], params["layers"])
+        for j in range(cfg.period):
+            layer_cache = tree_map(lambda x: x[i], cache[f"slot{j}"])  # views of the leaves
+            h, _ = blocks.decode_block(layer_params[f"slot{j}"], h, layer_cache, pos, cfg, j)
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return logits_fn(params, h[:, 0, :], cfg), cache
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int) -> dict[str, Any]:
+    """ParamSpec tree of the decode cache (stand-ins and allocation)."""
+    return {
+        f"slot{j}": stack_tree(blocks.block_cache_spec(cfg, j, batch, max_seq), cfg.num_periods)
+        for j in range(cfg.period)
+    }

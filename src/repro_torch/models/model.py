@@ -1,4 +1,5 @@
-"""Model facade: bundles the config, the param declarations and the loss.
+"""Model facade: bundles the config, the param and cache declarations, the
+loss, prefill and the decode step.
 
 The model is plain functions over a nested dict of tensors in the
 reference's stacked-layer layout, not a tree of ``nn.Module``s: that layout
@@ -29,6 +30,9 @@ class Model:
     def abstract_params(self) -> Any:
         return lm.abstract_params(self.cfg)
 
+    def abstract_cache(self, batch: int, max_seq: int) -> Any:
+        return lm.abstract_cache(self.cfg, batch, max_seq)
+
     @cached_property
     def n_params(self) -> int:
         return tree_count(self.abstract_params)
@@ -42,8 +46,19 @@ class Model:
         from a threefry key, the reference's draws leaf for leaf."""
         return init_tree(key, self.abstract_params, resolve_device(device))
 
+    def init_cache(self, batch: int, max_seq: int, device: Any = None) -> Any:
+        """A zero decode cache on ``device`` (``cuda`` unless the caller asks
+        for another)."""
+        return init_tree(threefry.PRNGKey(0), self.abstract_cache(batch, max_seq), resolve_device(device))
+
     def loss(self, params: Any, batch: dict[str, torch.Tensor]):
         return lm.loss_fn(params, batch, self.cfg)
+
+    def prefill(self, params: Any, tokens: torch.Tensor):
+        return lm.prefill(params, self.cfg, tokens=tokens)
+
+    def decode_step(self, params: Any, cache: Any, token: torch.Tensor, pos: torch.Tensor):
+        return lm.decode_step(params, cache, token, pos, self.cfg)
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -25,6 +25,10 @@ from repro_torch.utils.pytree import Path, tree_flatten, tree_unflatten
 
 DATA_AXES = ("pod", "data")
 
+# The production mesh the trainer's and the server's shard plans are computed
+# against (the reference's abstract mesh): split leaves split along "data".
+PROD_MESH = ((16, 16), ("data", "model"))
+
 
 def _data_dim(pspec: tuple, ndim: int) -> int | None:
     """First dim sharded over a failure-domain axis, or None."""

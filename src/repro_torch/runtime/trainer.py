@@ -56,7 +56,7 @@ from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
 from repro_torch.optim.schedule import warmup_cosine
 from repro_torch.runtime.cluster import VirtualCluster
 from repro_torch.runtime.failures import FailureInjector, ProcessFaultException
-from repro_torch.runtime.state import ShardPlan, ShardedStateEntity
+from repro_torch.runtime.state import PROD_MESH, ShardPlan, ShardedStateEntity
 from repro_torch.runtime.straggler import StragglerDetector
 from repro_torch.sharding.mesh import make_mesh, resolve_device
 from repro_torch.utils.logging import get_logger
@@ -66,10 +66,6 @@ from repro_torch.utils.timing import TimerRegistry
 
 log = get_logger("runtime.trainer")
 _TR = tracer()
-
-# The production mesh the shard plan is computed against (the reference's
-# abstract mesh): ZeRO-1 leaves split along their "data" dim.
-PROD_MESH = ((16, 16), ("data", "model"))
 
 
 @dataclass

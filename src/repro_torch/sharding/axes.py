@@ -1,7 +1,8 @@
 """Logical-axis -> mesh-axis rules, resolved against a virtual mesh (the
-part of ``repro.sharding.axes`` the train-state layout needs). A spec is a
-tuple of per-dim entries (``None``, an axis name, or a tuple of names) with
-trailing ``None``s trimmed, as ``tuple(PartitionSpec)`` gives."""
+part of ``repro.sharding.axes`` the train-state and decode-session layouts
+need). A spec is a tuple of per-dim entries (``None``, an axis name, or a
+tuple of names) with trailing ``None``s trimmed, as ``tuple(PartitionSpec)``
+gives."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as np
 
 from repro_torch.sharding.mesh import VirtualMesh
 from repro_torch.sharding.spec import ParamSpec
+from repro_torch.utils.pytree import tree_map
 
 AxisVal = Any  # str | tuple[str, ...] | None
 
@@ -27,6 +29,9 @@ class ShardingRules:
         if dim is None:
             return None
         return self.rules.get(dim, None)
+
+    def override(self, **kw: AxisVal) -> "ShardingRules":
+        return ShardingRules({**self.rules, **kw})
 
 
 _COMMON = {
@@ -52,6 +57,22 @@ _COMMON = {
 
 TP_RULES = ShardingRules(dict(_COMMON))
 FSDP_RULES = ShardingRules({**_COMMON, "embed": ("pod", "data")})
+
+# Decode: the KV cache's sequence dim carries the memory; shard it over
+# "model" and release kv_heads from "model" (one mesh axis may appear in at
+# most one spec dim). With batch 1 the batch cannot shard at all, so the
+# cache's sequence dim takes every axis.
+DECODE_OVERRIDES = dict(kv_seq="model", kv_heads=None)
+LONG_DECODE_OVERRIDES = dict(batch=None, kv_seq=("data", "model"), kv_heads=None)
+
+
+def rules_for_shape(base: ShardingRules, shape_kind: str, global_batch: int) -> ShardingRules:
+    """Per-input-shape rule adjustments (the reference's)."""
+    if shape_kind == "decode":
+        if global_batch == 1:
+            return base.override(**LONG_DECODE_OVERRIDES)
+        return base.override(**DECODE_OVERRIDES)
+    return base
 
 
 def resolve_axis(val: AxisVal, dim_size: int, mesh: VirtualMesh) -> AxisVal:
@@ -100,6 +121,11 @@ def _trim(entries: list[AxisVal]) -> tuple:
 def spec_to_pspec(spec: ParamSpec, rules: ShardingRules, mesh: VirtualMesh) -> tuple:
     entries = [resolve_axis(rules.get(dim), size, mesh) for size, dim in zip(spec.shape, spec.dims)]
     return _trim(_dedupe_entries(entries))
+
+
+def tree_pspecs(tree: Any, rules: ShardingRules, mesh: VirtualMesh) -> Any:
+    """:func:`spec_to_pspec` of every ParamSpec of a nested dict."""
+    return tree_map(lambda s: spec_to_pspec(s, rules, mesh), tree)
 
 
 def zero1_pspec(spec: ParamSpec, rules: ShardingRules, mesh: VirtualMesh) -> tuple:

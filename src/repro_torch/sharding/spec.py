@@ -1,6 +1,7 @@
 """Declarative parameter specifications (shape, logical dim names, dtype,
-init rule) and what derives from them: initialization (``init_tree``) and
-parameter counting (``tree_count``)."""
+init rule) and what derives from them: initialization (``init_tree``),
+shape/dtype stand-ins (``specs_to_shape_dtype``) and parameter counting
+(``tree_count``)."""
 
 from __future__ import annotations
 
@@ -29,6 +30,19 @@ class ParamSpec:
     @property
     def size(self) -> int:
         return int(np.prod(self.shape, dtype=np.int64)) if self.shape else 1
+
+
+@dataclass(frozen=True)
+class TensorSpec:
+    """Shape and dtype of one state leaf (``jax.ShapeDtypeStruct``'s role)."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+
+def specs_to_shape_dtype(tree: Any) -> Any:
+    """ParamSpec tree -> TensorSpec tree (stand-ins that allocate nothing)."""
+    return tree_map(lambda s: TensorSpec(tuple(s.shape), s.dtype), tree)
 
 
 def stack_spec(spec: ParamSpec, n: int) -> ParamSpec:

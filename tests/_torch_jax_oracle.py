@@ -76,6 +76,71 @@ def _restore_meta(rest) -> dict:
             "stripe_words": [list(t) for t in rest.stripe_words]}
 
 
+# tests/test_device_tier.py's copy-codec restore cases (the roll, many leaves
+# and unaligned shards) on the (4, 2) ("data", "model") mesh: leaf -> (shape,
+# dtype, spec); every leaf an arange but "rep", all ones
+COPY_CASES = {
+    "roll": {"w": ((8, 6), "float32", ("data", "model")), "rep": ((5,), "float32", ())},
+    "many": {f"w{i}": ((8, 4 + 2 * i), "float32", ("data", "model") if i % 2 else ("data", None))
+             for i in range(6)},
+    "unaligned": {"a": ((4, 2), "int8", ("data", None)), "b": ((8, 3), "int8", ("data", None))},
+}
+# the striped full-blob cases (tests/test_device_tier.py's parity oracle):
+# (name, codec, parity_group, rs_parity)
+FULL_BLOB_CASES = (("xor2", "xor", 2, 1), ("rs3", "rs", 3, 2))
+
+
+def copy_case_state(name: str) -> tuple[dict, dict]:
+    state, specs = {}, {}
+    for k, (shape, dtype, spec) in COPY_CASES[name].items():
+        n = int(np.prod(shape))
+        state[k] = (np.ones(n) if k == "rep" else np.arange(n)).astype(dtype).reshape(shape)
+        specs[k] = spec
+    return state, specs
+
+
+def _copy_and_mirror_cases(mesh, arrays: dict, meta: dict) -> None:
+    """The copy codec's restore_fn, full blobs and the mirror program."""
+    from repro.core.device_tier import build_mirror_program, build_snapshot_program
+
+    for name in COPY_CASES:
+        state_np, specs = copy_case_state(name)
+        sds = {k: jax.ShapeDtypeStruct(v.shape, v.dtype) for k, v in state_np.items()}
+        ps = {k: P(*v) for k, v in specs.items()}
+        prog = build_snapshot_program(mesh, sds, ps, include_own_copy=name == "roll")
+        payload = jax.jit(prog.snapshot_fn)(_put(mesh, state_np, specs))
+        rest = jax.jit(prog.restore_fn)(payload)
+        meta[f"copy/{name}"] = {"buckets": _bucket_meta(prog), "exchanged_names": list(prog.exchanged_names),
+                                "pcie_bytes": prog.pcie_bytes}
+        arrays[f"copy/{name}/checksum"] = np.asarray(payload["checksum"])
+        for tag, val in payload["partner"].items():
+            arrays[f"copy/{name}/partner/{tag}"] = np.asarray(val)
+        for idx, leaf in rest.items():
+            arrays[f"copy/{name}/restored/{idx}"] = np.asarray(leaf)
+        if name == "roll":
+            mprog = build_mirror_program(mesh, sds, ps)
+            mpay = jax.jit(mprog.snapshot_fn)(_put(mesh, state_np, specs))
+            meta["mirror"] = {"buckets": _bucket_meta(mprog), "keys": sorted(mpay),
+                              "exchanged_bytes": mprog.exchanged_bytes, "pcie_bytes": mprog.pcie_bytes}
+            arrays["mirror/checksum"] = np.asarray(mpay["checksum"])
+            for tag, val in mpay["mirror"].items():
+                arrays[f"mirror/{tag}"] = np.asarray(val)
+    state_np, specs = device_tier_state()
+    sds = {k: jax.ShapeDtypeStruct(v.shape, v.dtype) for k, v in state_np.items()}
+    ps = {k: P(*v) for k, v in specs.items()}
+    state = _put(mesh, state_np, specs)
+    for name, codec, g, m in FULL_BLOB_CASES:
+        prog = build_snapshot_program(mesh, sds, ps, codec=codec, parity_group=g, rs_parity=m,
+                                      emit_full_blobs=True)
+        payload = jax.jit(prog.snapshot_fn)(state)
+        meta[f"full/{name}"] = {"buckets": _bucket_meta(prog), "keys": sorted(payload),
+                                "own_bytes": prog.own_bytes, "exchanged_bytes": prog.exchanged_bytes,
+                                "pcie_bytes": prog.pcie_bytes}
+        arrays[f"full/{name}/checksum"] = np.asarray(payload["checksum"])
+        for tag, val in payload["parity_full"].items():
+            arrays[f"full/{name}/parity_full/{tag}"] = np.asarray(val)
+
+
 def run_device_tier(out_path: str) -> None:
     from repro.core.device_tier import (
         build_snapshot_program, build_striped_restore_program, staged_snapshot_fetch,
@@ -141,6 +206,7 @@ def run_device_tier(out_path: str) -> None:
         for part in ("q", "scale"):
             arrays[f"compressed/partner/{tag}/{part}"] = np.asarray(val[part])
             arrays[f"compressed/staged/{tag}/{part}"] = np.asarray(staged["partner"][tag][part])
+    _copy_and_mirror_cases(mesh, arrays, meta)
     _save(out_path, arrays, meta)
 
 

@@ -20,6 +20,7 @@ import torch
 
 import _torch_jax_oracle as oracle
 from repro_torch.core.device_tier import (
+    build_mirror_program,
     build_snapshot_program,
     build_striped_restore_program,
     cached_snapshot_program,
@@ -236,6 +237,96 @@ def test_no_quiet_fallback_to_the_cpu(setup):
     meta_state = {k: torch.empty(v.shape, dtype=_port_state(state_np)[k].dtype, device="meta") for k, v in state_np.items()}
     with pytest.raises(ValueError):
         prog.snapshot_fn(meta_state)
+
+
+def _copy_case(name):
+    mesh = make_mesh((4, 2), ("data", "model"), device="cpu")
+    state_np, specs = oracle.copy_case_state(name)
+    return mesh, state_np, specs, _port_state(state_np)
+
+
+@pytest.mark.parametrize("name", sorted(oracle.COPY_CASES))
+def test_copy_restore_fn_matches(jx, setup, name):
+    """The copy codec's restore_fn (tests/test_device_tier.py's roll, many
+    leaves and unaligned-shard cases): the partner buffers, the checksum and
+    every re-aligned leaf equal the reference's, and the leaves equal the
+    state."""
+    arrays, meta = jx
+    mesh, state_np, specs, state = _copy_case(name)
+    prog = build_snapshot_program(mesh, state, specs, include_own_copy=name == "roll")
+    assert [b.tag for b in prog.buckets] == [b["tag"] for b in meta[f"copy/{name}"]["buckets"]]
+    assert [list(b.word_offsets) for b in prog.buckets] == [
+        b["word_offsets"] for b in meta[f"copy/{name}"]["buckets"]]
+    assert list(prog.exchanged_names) == meta[f"copy/{name}"]["exchanged_names"]
+    assert prog.pcie_bytes == meta[f"copy/{name}"]["pcie_bytes"]
+    payload = prog.snapshot_fn(state)
+    assert _same(payload["checksum"], arrays[f"copy/{name}/checksum"])
+    for tag, val in payload["partner"].items():
+        assert _same(val, arrays[f"copy/{name}/partner/{tag}"]), tag
+    rest = prog.restore_fn(payload)
+    names = sorted(state_np)
+    assert sorted(rest) == sorted(prog.exchanged_names)
+    for idx, leaf in rest.items():
+        assert _same(leaf, arrays[f"copy/{name}/restored/{idx}"]), idx
+        assert _same(leaf, state_np[names[int(idx)]]), idx
+    # the host-staged payload restores the same; striped payloads do not
+    # restore through restore_fn
+    staged = staged_snapshot_fetch(prog, state)
+    for idx, leaf in prog.restore_fn(staged).items():
+        assert _same(leaf, state_np[names[int(idx)]]), idx
+    with pytest.raises(ValueError):
+        _prog(setup, "xor2").restore_fn({"parity": {}})
+
+
+@pytest.mark.parametrize("case", oracle.FULL_BLOB_CASES, ids=[c[0] for c in oracle.FULL_BLOB_CASES])
+def test_full_blobs_match(jx, setup, case):
+    """emit_full_blobs=True: every group member holds its group's whole
+    blobs (xor g=2; rs g=3, whose last group is ragged), byte-equal to the
+    reference's, with its byte accounting; the payload's bytes are exactly
+    the accounted host traffic."""
+    arrays, meta = jx
+    name, codec, g, m = case
+    mesh, state_np, specs = setup
+    state = _port_state(state_np)
+    prog = build_snapshot_program(mesh, state, specs, codec=codec, parity_group=g, rs_parity=m,
+                                  emit_full_blobs=True)
+    want = meta[f"full/{name}"]
+    assert (prog.own_bytes, prog.exchanged_bytes, prog.pcie_bytes) == (
+        want["own_bytes"], want["exchanged_bytes"], want["pcie_bytes"])
+    payload = prog.snapshot_fn(state)
+    assert sorted(payload) == want["keys"] == ["checksum", "own", "parity_full"]
+    assert _same(payload["checksum"], arrays[f"full/{name}/checksum"])
+    for tag, val in payload["parity_full"].items():
+        assert _same(val, arrays[f"full/{name}/parity_full/{tag}"]), tag
+    own = sum(x.numel() * x.element_size() for x in payload["own"].values())
+    parity = sum(x.numel() * x.element_size() for x in payload["parity_full"].values())
+    assert prog.pcie_bytes == own + parity
+    staged = staged_snapshot_fetch(prog, state)
+    for tag, val in staged["parity_full"].items():
+        assert _same(val, arrays[f"full/{name}/parity_full/{tag}"]), tag
+
+
+def test_mirror_program_matches(jx):
+    """build_mirror_program: the fused buckets routed to the shadow twins
+    (coordinate i to i + 2 on a data axis of 4), byte-equal to the
+    reference's payload and checksum, with no own copy, partner or parity;
+    the copy restore of the mirrored buffers gives the state back."""
+    arrays, meta = jx
+    mesh, state_np, specs, state = _copy_case("roll")
+    prog = build_mirror_program(mesh, state, specs)
+    want = meta["mirror"]
+    assert [b.tag for b in prog.buckets] == [b["tag"] for b in want["buckets"]]
+    assert (prog.exchanged_bytes, prog.pcie_bytes) == (want["exchanged_bytes"], want["pcie_bytes"])
+    payload = prog.snapshot_fn(state)
+    assert sorted(payload) == want["keys"] == ["checksum", "mirror"]
+    assert _same(payload["checksum"], arrays["mirror/checksum"])
+    for tag, val in payload["mirror"].items():
+        assert _same(val, arrays[f"mirror/{tag}"]), tag
+    mw = _np(payload["mirror"]["data:float32"]).view(np.float32).reshape(4, 2, 6)
+    own = np.ascontiguousarray(state_np["w"].reshape(4, 2, 2, 3).swapaxes(1, 2)).reshape(4, 2, 6)
+    assert np.array_equal(mw, np.roll(own, 2, axis=0))
+    rest = prog.restore_fn({"partner": payload["mirror"]})
+    assert _same(rest["1"], state_np["w"])
 
 
 @pytest.mark.parametrize("n", [1, 2, 5, 8])

@@ -206,11 +206,8 @@ def test_remat_full_gives_the_same_loss_and_grads(loss_case):
 
 
 UNPORTED = {
-    "decode_step": (lambda cfg: lm.decode_step(None, None, None, None, cfg), "A9"),
-    "prefill": (lambda cfg: lm.prefill(None, cfg), "A9"),
-    "attention.decode": (lambda cfg: attention.decode(None, None, None, None, cfg, kind="attn"), "A9"),
-    "decode_cache_spec": (lambda cfg: attention.decode_cache_spec(cfg, 1, 8, "attn"), "A9"),
     "cross-attention": (lambda cfg: attention.abstract_params(cfg, cross=True), "A10"),
+    "cross-attention decode cache": (lambda cfg: attention.decode_cache_spec(cfg, 1, 8, "cross"), "A10"),
     "mamba slot": (lambda cfg: block_specs(replace(cfg, layer_pattern=("mamba",)), 0), "A10"),
     "MoE slot": (lambda cfg: block_specs(replace(cfg, num_experts=4), 0), "A10"),
     "encoder inputs": (lambda cfg: lm.abstract_params(replace(cfg, is_encoder=True)), "A10"),

@@ -10,13 +10,16 @@ It runs a copy of ``chip_smoke.py``'s source in which the card is the CPU:
 the port resolves its default device to the CPU, the CUDA timing, memory
 and device calls are stubbed, nothing is built and no raw kernel is
 launched (the kernel wrappers take their plain versions on CPU tensors), and
-the launch counts read one for every kernel but the row gather and the
-runtime-matrix GF(2^8) product, whose plain runs are counted for real
-(phase 6 checks the gather's exact count, phase 8 that the product ran), and
-every host tensor reports itself pinned (the engine on the CPU leases pageable arenas). Phase
+the launch counts read one for every kernel but the row gather, the
+runtime-matrix GF(2^8) product and the checksum, whose plain runs are
+counted for real (phase 6 checks the gather's exact count, phase 8 that the
+product ran, phase 4 that the mirror program folded its checksum), and
+every host tensor reports itself pinned (the engine on the CPU leases pageable arenas); the
+profiler traces the CPU only. Phase
 9's tier directories go under a temporary directory, removed at the end;
 where the machine lacks ``os.posix_fadvise`` or ``/proc/mounts``, the page
-cache drop and the filesystem probe are stubbed. What it finds are wrong
+cache drop and the filesystem probe are stubbed. Phase 10 serves prompts of
+64 tokens in a 128-token cache (the runs, kills and checks unchanged). What it finds are wrong
 paths, shapes, arguments and control flow; its times mean nothing.
 """
 
@@ -45,9 +48,9 @@ import torch  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import checkpoint  # noqa: E402
-from repro_torch.kernels import _build, ops, reshard, rs_decode  # noqa: E402
+from repro_torch.kernels import _build, checksum, ops, reshard, rs_decode  # noqa: E402
 
-KERNELS = ("checksum", "xor_reduce", "gf256_matmul", "quantize_blockwise", "dequantize_blockwise")
+KERNELS = ("xor_reduce", "gf256_matmul", "quantize_blockwise", "dequantize_blockwise")
 
 
 class _Event:
@@ -83,6 +86,9 @@ def load_chip_smoke(cfg) -> types.ModuleType:
     _build.build = lambda *a: {}
     _build.call = _build.stream_of = lambda *a, **k: None
     torch.Tensor.pin_memory = lambda self, *a: self
+    profile = torch.profiler.profile  # no CUDA activity to trace on the CPU
+    torch.profiler.profile = lambda activities=(), **k: profile(
+        activities=[a for a in activities if a != torch.profiler.ProfilerActivity.CUDA], **k)
     gathers = [1]
     copy_runs = reshard.copy_runs_into
 
@@ -99,8 +105,16 @@ def load_chip_smoke(cfg) -> types.ModuleType:
         return decode(*a, **k)
 
     rs_decode.rs_decode_into = counted_decode
+    checksums = [1]
+    checksum_rows = checksum.checksum_rows
+
+    def counted_checksum(*a, **k):
+        checksums[0] += 1
+        return checksum_rows(*a, **k)
+
+    checksum.checksum_rows = counted_checksum
     ops.launch_counts = lambda: {**{k: 1 for k in KERNELS}, "gather_rows": gathers[0],
-                                 "gf256_matmul_dyn": decodes[0]}
+                                 "gf256_matmul_dyn": decodes[0], "checksum": checksums[0]}
     ops.reset_launch_counts = lambda: None
     checkpoint.reshard_leaves = checkpoint.reshard_leaves_device  # the engine picks the host one on the CPU
     for name in ("sass_phase", "kernel_tests_phase", "free_pinned_cache"):
@@ -113,6 +127,10 @@ def load_chip_smoke(cfg) -> types.ModuleType:
     # of layer 0 under the crossover, so its creates take the patch path
     mod.TIER_LAYERS = cfg.num_layers
     mod.TIER_CFG = {**mod.TIER_CFG, "delta_chunk_bytes": 4096}
+    # phase 10 at this config: the same batch, decoded tokens, checkpoint
+    # interval and kills, prompts of 64 in a cache of 128
+    mod.SERVE = {**mod.SERVE, "max_seq": 128}
+    mod.SERVE_PROMPT = 64
     if not hasattr(os, "posix_fadvise"):
         mod.drop_cached = lambda root: False
     if not os.path.exists("/proc/mounts"):
