@@ -79,7 +79,7 @@ printing no result, on any failure or without a card. Phases:
    width, if the host lacks the RAM, and the cut is printed;
 7. training loop (paper Algorithm 3): the port's ``Trainer`` under its
    defaults (the reference's default engine) on llama3.2-1b at full width
-   and ``TRAIN_LAYERS`` (8) of its 16 layers, params drawn from the seed by the reference's threefry streams, bf16
+   and ``TRAIN_LAYERS`` (2) of its 16 layers, params drawn from the seed by the reference's threefry streams, bf16
    params and compute with f32 master/m/v (batch 8, seq 128, lr 1e-3 as
    ``launch/train.py``'s defaults; 4 virtual hosts, one spare, a checkpoint
    every 3 steps, host 2 killed at step 5: checkpoints at 3 and 6, a
@@ -109,6 +109,27 @@ printing no result, on any failure or without a card. Phases:
    and spans, the parity bytes held against the exchange bytes a copy would
    hold, the restores' times, chunks and decode spans, and the card and host
    peaks; every leaf must come back byte-equal and B4 must launch in each;
+8b. failure-domain topology and the adaptive protection policy: the seeded
+   state of phase 5's depth over 16 ranks on ``ClusterTopology.regular(16,
+   hosts_per_rack=2)`` (8 racks, 4 groups of 4, which the domain-aware
+   packer lays out as {0,4,8,12}, {1,5,9,13}, {2,6,10,14}, {3,7,11,15}),
+   ``EngineConfig(codec="lrc", parity_group=4, rs_parity=2, lrc_locals=2,
+   gf_backend="torch", topology=...)`` with a ``VirtualCluster(16,
+   n_spares=3, topology=...)`` attached and a ``ProtectionPolicy`` attached:
+   a create; rack 1 (ranks 2, 3) killed through
+   ``FailureInjector.schedule_domain_burst`` and ``cluster.kill`` at one
+   arrival instant (the journal fits one single-domain burst); the restore,
+   before ``stabilize("spare")``, its recovery record naming "rack:1"; the
+   policy's ``apply()`` lowering every entity to lrc m=1; a second create
+   under the override (its commit hook changes nothing); rank 5 killed and
+   restored from the payload's lrc:1:2 record (a local-subgroup repair).
+   Fails unless no group holds two hosts of a rack, the burst costs each
+   group at most one member (the contiguous layout: two in one), every
+   leaf is byte-equal after both restores, nothing escalates, parity is
+   1.0x then 0.75x the exchange bytes, and B4 launches in each create and
+   restore. Prints the groups and both layouts' damage, each create's
+   capture, pinning, ``blocked_s`` and ``create_s``, each restore's time,
+   chunks and decode spans, the policy's ``report()``, and the peaks;
 9. the storage-tier ladder and differential checkpointing, at
    ``TIER_LAYERS`` (1) of the 16 layers, width kept. Engine leg: the seeded
    state over 8 ranks with ``EngineConfig(codec="rs", parity_group=4,
@@ -172,8 +193,8 @@ with a seeded permutation of its rows; each pair in alternating order over
 ``B6_AB_ROUNDS`` rounds (medians and spreads); then the leaf's whole
 reshard in place against the stack and gather that preceded it.
 
-Phase 7 runs right after phase 3, then phases 5, 8, 6, 9, 10 and 4: 7, 5,
-8 and 9 need the most host RAM, and phase 4's staged fetches leave pinned
+Phase 7 runs right after phase 3, then phases 5, 8, 8b, 6, 9, 10 and 4: 7,
+5, 8, 8b and 9 need the most host RAM, and phase 4's staged fetches leave pinned
 host blocks in PyTorch's cache. The kernels' launch counts are set to 0 before each of the
 paths and read after it; every kernel a path runs must have launched in it
 (phase 7's copy codec launches none).
@@ -1427,6 +1448,223 @@ def striped_path(cfg) -> tuple[dict, list[dict]]:
 
 
 # ---------------------------------------------------------------------------
+# phase 8b: failure-domain topology and the adaptive protection policy
+# ---------------------------------------------------------------------------
+
+# 16 ranks on 8 racks of 2 hosts: 4 groups of k=4, which the domain-aware
+# packer lays out as {0,4,8,12}, {1,5,9,13}, {2,6,10,14}, {3,7,11,15}; 16
+# divides every ZeRO-1 data dim (multiples of 16), so every split leaf
+# stays split. The rack-1 burst {2, 3} wounds two groups once each and
+# leaves two whole (with 8 ranks each group's blobs stripe over the other
+# group, and a rack burst wounds both groups and their blobs alike).
+TOPO_RANKS = 16
+TOPO_HOSTS_PER_RACK = 2
+TOPO_CFG = dict(codec="lrc", parity_group=4, rs_parity=2, lrc_locals=2, gf_backend="torch")
+TOPO_RACK = 1      # the burst's rack: ranks 2 and 3
+TOPO_SINGLE = 5    # the later single loss: a local-subgroup repair of group {1,5,9,13}
+TOPO_SPARES = 3    # every stabilize of the phase a spare substitution
+
+
+def topology_host_need_gib(layout, plan) -> float:
+    """Host RAM phase 8b holds at its peak, its second create staging into
+    the other bank beside the first generation: two banks of all ranks' own
+    and exchange arenas, the held parity of lrc m=2 l=2 (1.0x the exchange
+    bytes) and of lrc m=1 (0.75x), the encode scratch (1.0x, reused), the
+    restore's blob and output arenas (at most the exchange bytes), and
+    ``np_checksum``'s weight table."""
+    from repro_torch.utils.pytree import tree_flatten
+
+    sizes = [int(math.prod(sd.shape)) * sd.dtype.itemsize for sd in tree_flatten(layout.sds)[1]]
+    split = sum(b for i, b in enumerate(sizes) if plan.split_dim(i, TOPO_RANKS) is not None)
+    repl = sum(sizes) - split
+    own_max_words = (repl + split // TOPO_RANKS) // 4
+    weights = 4 * (1 << max(own_max_words - 1, 1).bit_length())
+    need = 2 * (TOPO_RANKS * repl + split) + 2 * split + 1.75 * split + split + split + weights
+    return need / 2**30
+
+
+def topology_path(cfg) -> tuple[dict, dict]:
+    """Phase 8b on a seeded train state of PATH_LAYERS layers (fewer if the
+    host lacks the RAM), 16 ranks on ``ClusterTopology.regular(16,
+    hosts_per_rack=2)``: a domain-aware lrc k=4 m=2 l=2 engine with every
+    GF(2^8) product on B4, a ``VirtualCluster`` with spares and the
+    ``ProtectionPolicy`` attached. One create; rack 1 killed through
+    ``FailureInjector.schedule_domain_burst`` and ``cluster.kill`` (one
+    arrival instant); the restore (before the spare substitution, so its
+    record names the failed rack), ``stabilize("spare")``; the policy turns
+    the single-domain burst into lrc m=1; a second create under it (its
+    commit hook re-evaluates and changes nothing); one rank killed, the
+    restore decoding lrc m=1 from the payload's codec record, stabilize.
+    Returns the kernels' launch counts over this path and its numbers."""
+    import gc
+    import resource
+
+    import torch
+
+    from repro_torch.core import gf256
+    from repro_torch.core.checkpoint import CheckpointEngine, EngineConfig
+    from repro_torch.core.distribution import placement_conflicts
+    from repro_torch.core.policy import ProtectionPolicy
+    from repro_torch.core.topology import ClusterTopology
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import init_train_state
+    from repro_torch.obs.journal import fit_failure_stats
+    from repro_torch.obs.trace import tracer
+    from repro_torch.runtime.cluster import VirtualCluster
+    from repro_torch.runtime.failures import FailureInjector
+    from repro_torch.runtime.state import RngEntity, ShardedStateEntity
+    from repro_torch.utils.pytree import tree_flatten, tree_map
+
+    layers = min(cfg.num_layers, PATH_LAYERS)
+    mesh, layout, plan = layout_and_plan(replace(cfg, num_layers=layers), TOPO_RANKS)
+    need = topology_host_need_gib(layout, plan)
+    free = host_free_settled_gib(need + HOST_HEADROOM_GIB)
+    while need + HOST_HEADROOM_GIB > free and layers > 1:
+        layers //= 2
+        mesh, layout, plan = layout_and_plan(replace(cfg, num_layers=layers), TOPO_RANKS)
+        need = topology_host_need_gib(layout, plan)
+    check(need + HOST_HEADROOM_GIB <= free, f"topology path: {need:.1f} GiB of host RAM needed, {free:.1f} free")
+    split = sum(plan.split_dim(i, TOPO_RANKS) is not None for i in range(len(plan.dims)))
+    log(f"topology: {layers} of {cfg.num_layers} layers, width kept (PATH_LAYERS {PATH_LAYERS}, for the run's "
+        f"time; fewer only for the host's RAM), {TOPO_RANKS} ranks, {len(plan.dims)} leaves ({split} split): "
+        f"{free:.1f} GiB host RAM free, {need:.1f} GiB needed")
+    state = init_train_state(layout, mesh, torch.Generator(device="cuda").manual_seed(SEED))
+    originals = tree_map(lambda t: t.clone(), state)
+    live = tree_flatten(state)[1]
+
+    topo = ClusterTopology.regular(TOPO_RANKS, hosts_per_rack=TOPO_HOSTS_PER_RACK)
+    eng = CheckpointEngine(TOPO_RANKS, EngineConfig(**TOPO_CFG, topology=topo))
+    rng = RngEntity()
+    rng.seed, rng.counter = SEED, 17
+    eng.register("state", ShardedStateEntity(lambda: state, plan))
+    eng.register("rng", rng)
+    cluster = VirtualCluster(TOPO_RANKS, n_spares=TOPO_SPARES, topology=topo)
+    cluster.attach_engine(eng)
+    pol = ProtectionPolicy(eng).attach()
+    out: dict = dict(topology=repr(topo), layers=layers, host_need_gib=need)
+
+    # placement: no group holds two hosts of one rack; the burst's damage
+    groups = eng._groups()
+    rack = topo.domains("rack")[TOPO_RACK]
+    damage = [sum(r in g.members for r in rack.ranks) for g in groups]
+    k = TOPO_CFG["parity_group"]
+    contiguous = [sum(r // k == gi for r in rack.ranks) for gi in range(len(groups))]
+    out.update(groups=[list(g.members) for g in groups], burst=rack.label, burst_ranks=list(rack.ranks),
+               damage=damage, contiguous_damage=contiguous)
+    log(f"topology: {topo!r}; groups {out['groups']}; burst {rack.label} = ranks {list(rack.ranks)}: "
+        f"per-group damage {damage} (the contiguous layout's: {contiguous})")
+    check(placement_conflicts(groups, topo) == [], "topology: two hosts of one rack in one parity group")
+    check(max(damage) <= 1 < max(contiguous), f"topology: burst damage {damage}, contiguous {contiguous}")
+
+    ops.reset_launch_counts()  # this path's counts start here
+    tr = tracer()
+    tr.reset()
+    tr.enable()
+    rss = rss_sampler()
+    torch.cuda.reset_peak_memory_stats()
+
+    def launches(before: dict) -> dict:
+        after = ops.launch_counts()
+        return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+    def spans() -> dict:
+        acc: dict[str, float] = {}
+        for ev in tr.events():
+            acc[ev["name"]] = acc.get(ev["name"], 0.0) + ev["dur"]
+        tr.reset()
+        return {k: round(v, 6) for k, v in sorted(acc.items())}
+
+    def create(step: int) -> dict:
+        before = ops.launch_counts()
+        torch.cuda.synchronize()
+        with d2h_meter() as d2h:
+            check(eng.checkpoint_async({"step": step}), f"topology create {step}: the capture failed")
+        check(eng.finalize_async() is True, f"topology create {step}: the handshake failed")
+        exch = sum(st.buffer.read_only.own_exch["state"][0].numel() for st in eng.stores.values())
+        line = dict(**create_line(eng.stats), pinned_bytes=d2h["pinned_bytes"], pin_s=d2h["pin_s"],
+                    d2h_gbps=d2h["bytes"] / max(d2h["s"], 1e-9) / 1e9, parity_bytes=eng.stats.last_bytes_exchanged,
+                    exchange_bytes=exch, parity_per_exchange_byte=eng.stats.last_bytes_exchanged / max(exch, 1),
+                    codecs=dict(eng.stores[0].buffer.read_only.meta["codecs"]), launches=launches(before),
+                    span_s=spans())
+        check(line["launches"].get("gf256_matmul_dyn", 0) > 0, f"topology create {step}: B4 was launched no time")
+        return line
+
+    def restore(killed: list[int], step: int) -> dict:
+        for leaf in live:  # the live state moves on: every byte overwritten
+            leaf.fill_(7)
+        rng.seed = rng.counter = 0
+        before = ops.launch_counts()
+        meta = eng.restore()
+        torch.cuda.synchronize()
+        check(meta["step"] == step and (rng.seed, rng.counter) == (SEED, 17), "topology restore: meta or rng")
+        for i, (x, o) in enumerate(zip(live, tree_flatten(originals)[1])):
+            check(torch.equal(_int_view(x), _int_view(o)), f"topology: leaf {i} differs after the restore")
+        line = dict(killed=killed, **restore_line(eng.stats), domains=eng.journal.events("recovery")[-1]["domains"],
+                    reconstructed=eng.stats.reconstructed_restores, escalations=eng.stats.tier_escalations,
+                    launches=launches(before), span_s=spans())
+        check(line["launches"].get("gf256_matmul_dyn", 0) > 0, f"topology restore {killed}: B4 was launched no time")
+        return line
+
+    try:
+        out["create1"] = create(1)
+        log("topology create 1: " + json.dumps(out["create1"]))
+        check(out["create1"]["codecs"] == {"state": "lrc:2:2", "rng": "lrc:2:2"}, "topology: create 1's codec record")
+        check(abs(out["create1"]["parity_per_exchange_byte"] - 1.0) < 1e-6, "topology: lrc m=2 l=2 parity is not 1.0x")
+
+        # the whole-rack burst, as the injector schedules it, one arrival instant
+        inj = FailureInjector(TOPO_RANKS)
+        doomed = inj.schedule_domain_burst(1, topo, TOPO_RACK)
+        check(tuple(doomed) == rack.ranks, f"topology: the injector doomed {doomed}")
+        for r in inj.kills_at_step(1):
+            cluster.kill(r, cause="rack burst")
+        evs = eng.journal.events("failure")
+        evs[-1]["ts"] = evs[-2]["ts"]
+        fit = fit_failure_stats(eng.journal.events())
+        out["fit"] = {k: fit[k] for k in ("failures", "bursts", "domain_bursts", "by_domain", "max_domain_burst")}
+        check(fit["domain_bursts"] == 1 and fit["by_domain"] == {rack.label: 2}, f"topology: journal fit {out['fit']}")
+        # restore before the spare substitution: it still sees the failed ranks
+        out["restore1"] = restore(list(rack.ranks), 1)
+        log("topology restore 1 (rack burst): " + json.dumps(out["restore1"]))
+        check(out["restore1"]["domains"] == rack.label, f"topology: recovery record {out['restore1']['domains']!r}")
+        out["stabilize1"] = cluster.stabilize("spare").policy
+
+        out["applied"] = pol.apply()
+        decisions = {n: (d.codec, d.m) for n, d in pol.decisions.items()}
+        check(out["applied"] >= 1 and decisions.get("state") == ("lrc", 1), f"topology: policy decisions {decisions}")
+        out["create2"] = create(2)
+        log("topology create 2 (policy override): " + json.dumps(out["create2"]))
+        check(out["create2"]["codecs"]["state"] == "lrc:1:2", "topology: the override is not in the codec record")
+        check(abs(out["create2"]["parity_per_exchange_byte"] - 0.75) < 1e-6, "topology: lrc m=1 parity is not 0.75x")
+        check(pol.evaluations == 3 and pol.changes == out["applied"],
+              f"topology: {pol.evaluations} evaluations, {pol.changes} changes")
+
+        cluster.kill(TOPO_SINGLE, cause="host")
+        out["restore2"] = restore([TOPO_SINGLE], 2)
+        log("topology restore 2 (one host, lrc m=1 from the record): " + json.dumps(out["restore2"]))
+        out["stabilize2"] = cluster.stabilize("spare").policy
+        check(eng.stats.tier_escalations == 0, "topology: a restore escalated to a tier")
+        check(out["stabilize1"] == out["stabilize2"] == "spare", "topology: a stabilize was not a spare substitution")
+        out["policy"] = pol.report()
+        out["memory"] = {k: v for k, v in eng.memory_report().items() if k not in ("bytes_per_rank", "by_kind")}
+        log("topology policy: " + json.dumps(out["policy"], default=str))
+        log("topology memory: " + json.dumps(out["memory"], default=str))
+        out.update(peak_device_gb=torch.cuda.max_memory_allocated() / 1e9, host_cycle_peak_rss_gib=rss(),
+                   host_peak_rss_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20)
+        log(f"topology peaks: card {out['peak_device_gb']:.2f} GB, host RSS {out['host_cycle_peak_rss_gib']:.1f} "
+            f"GiB over the phase ({out['host_peak_rss_gib']:.1f} GiB the process's)")
+    finally:
+        tr.disable()
+        tr.reset()
+        eng.close()
+        gf256.set_backend(None)  # the engine forced the torch backend process-wide
+    counts = ops.launch_counts()
+    del eng, cluster, pol, state, originals, live
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: elastic N-to-M restore at full width
 # ---------------------------------------------------------------------------
 
@@ -2104,9 +2342,9 @@ TRAIN = dict(batch=8, seq=128, lr=1e-3, warmup_steps=2, n_virtual_hosts=ENGINE_R
 TRAIN_STEPS, TRAIN_KILLS = 8, {5: [2]}
 TRAIN_HISTORY = [0, 1, 2, 3, 4, 3, 4, 5, 6, 7]
 # depth of the sync run and of the async run (width kept), for the run's
-# time: half and one of the 16 layers leave it for phases 9 and 10 (the
+# time: two and one of the 16 layers leave it for phases 8b, 9 and 10 (the
 # async run drives the sync run's path with the drain behind the next step)
-TRAIN_LAYERS = 8
+TRAIN_LAYERS = 2
 TRAIN_ASYNC_LAYERS = 1
 
 
@@ -2634,6 +2872,9 @@ def main() -> int:
     counts8, runs8 = striped_path(cfg)
     log(f"striped path launches: {json.dumps(counts8)}")
     phase_done("phase 8")
+    counts8b, run8b = topology_path(cfg)
+    log(f"topology path launches: {json.dumps(counts8b)}")
+    phase_done("phase 8b")
     counts6, runs6 = elastic_path(cfg)
     log(f"elastic path launches: {json.dumps(counts6)}")
     gc.collect()
@@ -2660,7 +2901,8 @@ def main() -> int:
     log(f"device-tier path launches: {json.dumps(counts4)}")
     phase_done("phase 4")
     for k in kernels:
-        k["launches"] = sum(c[k["name"]] for c in (counts4, counts5, counts6, counts7, counts8, counts9, counts10))
+        k["launches"] = sum(c[k["name"]] for c in (counts4, counts5, counts6, counts7, counts8, counts8b, counts9,
+                                                   counts10))
         k["route"] = "cuda"
         check(k["launches"] > 0, f"kernel {k['name']} was launched no time on the main paths")
     log(f"total {time.perf_counter() - t_start:.1f} s")

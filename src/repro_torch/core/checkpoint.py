@@ -58,8 +58,14 @@ dirty ranges (one GF(2^8) product per range, B4 on the card under the
 ``torch`` backend), and TRANSFER copies only the stripe chunks that differ
 from what the holder's arena holds.
 
-What this port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP item instead of quietly running another path: ``topology`` (A9).
+With a failure-domain topology (``cfg.topology``, ``core/topology.py``)
+the parity groups are packed so that no group holds two members of one
+domain (``distribution.domain_parity_groups``): a whole-rack loss costs
+each group at most one member. Each entity may carry its own codec at the
+engine's group size (``set_entity_codec``, driven by ``core/policy.py``
+through ``add_commit_hook``); every payload records the codec that encoded
+each entity, and a restore decodes with that record, never with the live
+override.
 
 Host stores hold ``torch.uint8`` CPU arenas; the handshake checksums them
 on the host with ``np_checksum``, as the reference does. Restored payloads
@@ -74,7 +80,7 @@ import itertools
 import os
 import threading
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Protocol
 
 import numpy as np
@@ -142,8 +148,7 @@ class _ReplicatedAdapter:
 
 @dataclass(frozen=True)
 class EngineConfig:
-    """The reference's fields and defaults. Settings this slice does not run
-    make ``CheckpointEngine`` raise (see the module docstring)."""
+    """The reference's fields and defaults."""
 
     scheme: str = "pairwise"       # pairwise | neighbor (distribution callbacks)
     n_copies: int = 1              # R remote copies (eq. 2: MEM = S(1+2R'), R' = 1+n_copies)
@@ -153,7 +158,7 @@ class EngineConfig:
     codec: str = ""                # "" infers: parity_group>0 -> "xor", else "copy"
     rs_parity: int = 2             # m parity blobs per group for codec="rs"
     lrc_locals: int = 2            # local groups for codec="lrc"
-    topology: object = None        # failure-domain topology (ROADMAP A9)
+    topology: object = None        # failure-domain topology: domain-aware parity groups
     async_workers: int = 1         # background drain workers (0: drain in finalize_async)
     restore_mode: str = "pipelined"  # "pipelined" | "sync" (the serial per-origin decode)
     restore_chunk_bytes: int = 0   # pipelined restore chunk bytes; 0 = the adaptive planner
@@ -163,14 +168,6 @@ class EngineConfig:
     delta_crossover: float = 0.6       # dirty fraction beyond which a full re-encode wins
     gf_backend: str = ""           # force a GF(2^8) backend: "table" | "swar" | "torch"
     tiers: tuple = ()              # persistent storage-tier ladder (storage.TierSpec rungs)
-
-
-def _unported(cfg: EngineConfig) -> str | None:
-    """Why this slice cannot run ``cfg``, naming the ROADMAP item; None if
-    it can."""
-    if cfg.topology is not None:
-        return "topology: failure-domain-aware placement waits for ROADMAP A9"
-    return None
 
 
 #: ``CheckpointStats`` attribute -> (metric kind, metric name, python type,
@@ -421,9 +418,6 @@ class CheckpointEngine:
         fault_hook: Callable[[str], None] | None = None,
         device: Any = None,
     ) -> None:
-        why = _unported(cfg)
-        if why is not None:
-            raise NotImplementedError(why)
         self.n_ranks = n_ranks
         self.cfg = cfg
         #: where restored payloads are unpacked and compression runs
@@ -490,6 +484,17 @@ class CheckpointEngine:
         self.journal = EventJournal(journal_path, self.registry)
         self.last_elastic_report: ElasticReport | None = None  # of the last N-to-M restore
         self.codec = codec_mod.make_codec(cfg)
+        # Per-entity codec overrides at the engine's group size (the adaptive
+        # policy's surface): only the blob math differs, the group layout is
+        # shared. Restores resolve each entity's codec from the payload's
+        # codec record, so a change between capture and restore cannot desync.
+        self.entity_codecs: dict[str, codec_mod.RedundancyCodec] = {}
+        self._spec_codecs: dict[str, codec_mod.RedundancyCodec] = {}
+        # the failure-domain topology, sized to this world (resized with it by
+        # the elastic path), and the domain-aware layout's cache
+        self.topology = cfg.topology.resized(n_ranks) if cfg.topology is not None else None
+        self._groups_cache: tuple | None = None
+        self._commit_hooks: list[Callable[[Any], None]] = []  # run after every commit
         if cfg.gf_backend:
             gf256.set_backend(cfg.gf_backend)
 
@@ -503,6 +508,57 @@ class CheckpointEngine:
         m = getattr(c, "m", getattr(c, "global_parity", 0))
         l = getattr(c, "local", 0)
         return f"{c.name}:{m}:{l}"
+
+    # ------------------------------------------------------------------ #
+    # per-entity protection (the adaptive policy's surface)
+    # ------------------------------------------------------------------ #
+    def set_entity_codec(self, name: str, codec: str, m: int | None = None) -> None:
+        """Protect entity ``name`` with ``codec`` from the NEXT capture on, at
+        the engine's group size (layout, placement and recovery plans stay
+        shared); ``m`` sets rs_parity for "rs"/"lrc"."""
+        cand = replace(self.cfg, codec=codec, rs_parity=m if m is not None else self.cfg.rs_parity)
+        new = codec_mod.make_codec(cand)
+        assert new.group_size(self.n_ranks) == self.codec.group_size(self.n_ranks), (
+            f"entity codec {codec!r} changes the group size; per-entity "
+            f"overrides must keep the engine layout"
+        )
+        self.entity_codecs[name] = new
+
+    def clear_entity_codec(self, name: str) -> None:
+        self.entity_codecs.pop(name, None)
+
+    def _codec_for(self, name: str) -> codec_mod.RedundancyCodec:
+        """The codec the next capture encodes entity ``name`` with."""
+        return self.entity_codecs.get(name, self.codec)
+
+    def _codec_from_spec(self, spec: str) -> codec_mod.RedundancyCodec:
+        """The codec a payload's codec record names (cached per spec)."""
+        name, m, l = spec.split(":")
+        if self._codec_spec(self.codec) == spec:
+            return self.codec
+        cached = self._spec_codecs.get(spec)
+        if cached is None:
+            cand = replace(self.cfg, codec=name, rs_parity=max(int(m), 1),
+                           lrc_locals=int(l) if int(l) else self.cfg.lrc_locals)
+            cached = self._spec_codecs[spec] = codec_mod.make_codec(cand)
+        return cached
+
+    def _restore_codec(self, name: str) -> codec_mod.RedundancyCodec:
+        """The codec that encoded entity ``name`` in the committed generation:
+        read from the codec record any valid store carries, so an override
+        set between capture and restore never changes the decode; the live
+        choice for a payload without a record."""
+        for st in self.stores.values():
+            if st.alive and st.buffer.valid:
+                spec = st.buffer.read_only.meta.get("codecs", {}).get(name)
+                if spec:
+                    return self._codec_from_spec(spec)
+        return self._codec_for(name)
+
+    def add_commit_hook(self, fn: Callable[[Any], None]) -> None:
+        """``fn(engine)`` runs after every commit (the pointer swap and the
+        tier flush's scheduling): the adaptive policy's evaluation point."""
+        self._commit_hooks.append(fn)
 
     # ------------------------------------------------------------------ #
     # registration
@@ -648,7 +704,9 @@ class CheckpointEngine:
         # cfg.delta), replicated and filled the same way: the next capture's
         # dirty-map baseline, carried by any survivor.
         chunk_sums: dict[tuple[int, str], Any] = {}
-        codec_specs = {name: self._codec_spec(self.codec) for name in packed}
+        # each entity's codec, replicated with every store's meta: a restore
+        # decodes with the codec that encoded, whatever the policy says since
+        codec_specs = {name: self._codec_spec(self._codec_for(name)) for name in packed}
         for r in alive0:
             payload = StorePayload(meta=dict(meta or {}))
             if coords_tables:
@@ -658,7 +716,7 @@ class CheckpointEngine:
             for name, rows in packed.items():
                 flat, man = rows[r]
                 payload.own[name] = (flat, man)
-                if self.codec.striped and packed_partner[name] is not packed[name]:
+                if self._codec_for(name).striped and packed_partner[name] is not packed[name]:
                     # survivors present their exchange subset to the decode
                     payload.own_exch[name] = packed_partner[name][r]
                 if self.cfg.validate:
@@ -701,14 +759,16 @@ class CheckpointEngine:
                 yield stream
 
     def _pipeline_units(self, packed) -> list[tuple]:
-        """One work unit per (group, entity)."""
+        """One work unit per (group, entity); placement is per entity (an
+        override changes the blob count, the shared layout keeps the
+        holders aligned)."""
         groups = self._groups()
         units = []
         for gi, grp in enumerate(groups):
             for name in packed:
                 if name in self._replicated:
                     continue  # equal on all ranks: no redundancy needed
-                placements = self.codec.placement(groups, gi, self.n_ranks)
+                placements = self._codec_for(name).placement(groups, gi, self.n_ranks)
                 if not placements:
                     continue
                 units.append((gi, grp, placements, name))
@@ -806,7 +866,7 @@ class CheckpointEngine:
         the dirty fraction is under the crossover, the blobs are patched in
         place over the merged dirty ranges instead of re-encoded."""
         gi, grp, placements, name = unit
-        codec = self.codec
+        codec = self._codec_for(name)
         n_out = len(placements)
         delta_on = self.cfg.delta and codec.striped and not (self.cfg.compress and codec.compressible)
         step = self._delta_step()
@@ -1006,7 +1066,7 @@ class CheckpointEngine:
         of the same staging bank left: garbage or an older generation simply
         copies)."""
         gi, grp, placements, name = unit
-        by_ref = not self.codec.striped
+        by_ref = not self._codec_for(name).striped
         step = self._delta_step()
         skipped = 0
         total = 0
@@ -1117,6 +1177,10 @@ class CheckpointEngine:
             self.stats.last_transfer_bytes_skipped = pending.skipped_bytes
             self.stats.last_delta_ranges = pending.delta_ranges
         self._maybe_flush_tiers()
+        # after the swap, so a hook (the adaptive policy) can never tear a
+        # snapshot; its overrides apply from the next capture
+        for hook in self._commit_hooks:
+            hook(self)
         return True
 
     # ------------------------------------------------------------------ #
@@ -1313,11 +1377,23 @@ class CheckpointEngine:
             self._pool = None
 
     def _groups(self) -> list[dist.ParityGroup]:
-        """The contiguous rank-order group layout."""
-        return dist.parity_groups(self.n_ranks, self.codec.group_size(self.n_ranks))
+        """The group layout: contiguous in rank order without a topology;
+        with one, domain-aware (no group holds two members of one failure
+        domain), cached per (world, k, labels, placement level)."""
+        k = self.codec.group_size(self.n_ranks)
+        if self.topology is None:
+            return dist.parity_groups(self.n_ranks, k)
+        key = (self.n_ranks, k, self.topology.labels, self.topology.placement_level)
+        if self._groups_cache is None or self._groups_cache[0] != key:
+            groups = dist.domain_parity_groups(self.n_ranks, k, self.topology)
+            self._groups_cache = (key, groups, dist.rank_group_map(groups))
+        return self._groups_cache[1]
 
     def _group_of(self, rank: int) -> int:
-        return dist.group_of(rank, self.codec.group_size(self.n_ranks))
+        if self.topology is None:
+            return dist.group_of(rank, self.codec.group_size(self.n_ranks))
+        self._groups()
+        return self._groups_cache[2][rank]
 
     def _compress(self, flat: torch.Tensor, man: Manifest) -> tuple[torch.Tensor, tuple]:
         """Compress per-leaf floats through the manifest (int8 blockwise, on
@@ -1378,14 +1454,16 @@ class CheckpointEngine:
         meta = self.checkpoint_step()
         self.stats.restored += 1
         self.stats.last_restore_s = time.perf_counter() - t0
-        # The reference's record, field for field; failure-domain labels (A9)
-        # are not ported.
+        # the failure set's domain labels: fit_failure_stats clusters
+        # recoveries by rack or pod, the signal the adaptive policy reads
+        domains = (",".join(sorted({self.topology.domain_label(r) for r in failed}))
+                   if self.topology is not None and failed else "")
         self.journal.record(
             "recovery", mode=self.cfg.restore_mode, failed=len(failed),
             n_ranks=self.n_ranks, duration_s=self.stats.last_restore_s,
             bytes_rebuilt=self.stats.last_restore_bytes_rebuilt, escalations=self.stats.tier_escalations,
             step=meta.get("step") if isinstance(meta, dict) else None,
-            domains="",
+            domains=domains,
         )
         return meta
 
@@ -1453,6 +1531,10 @@ class CheckpointEngine:
         self.stores = self._new_stores(new_n_ranks)
         self._restore_plan_cache = None  # its units hold the old world's copies
         self._delta_enc.clear()  # scratch parity belongs to the old world
+        if self.topology is not None:
+            # the domain map resizes with the world; _groups re-packs it
+            self.topology = self.topology.resized(new_n_ranks)
+            self._groups_cache = None
         self.last_elastic_report = report
         self.stats.restored += 1
         self.stats.last_restore_s = time.perf_counter() - t0
@@ -1603,6 +1685,7 @@ class CheckpointEngine:
         groups = self._groups()
         gi = self._group_of(origin)
         grp = groups[gi]
+        codec = self._restore_codec(name)  # the codec that encoded, from the payload's record
 
         def _has_data(m: int) -> bool:
             st = self.stores.get(m)
@@ -1612,13 +1695,13 @@ class CheckpointEngine:
         if rebuilt_map is None:
             # Missing = dead ranks AND alive-but-empty ones (revived spares).
             missing_idx = [i for i, m in enumerate(grp.members) if not _has_data(m)]
-            if len(missing_idx) > self.codec.tolerance():
+            if len(missing_idx) > codec.tolerance():
                 raise dist.DataLostError(
                     f"group {gi} lost {len(missing_idx)} members; "
-                    f"codec {self.codec.name!r} tolerates {self.codec.tolerance()}"
+                    f"codec {codec.name!r} tolerates {codec.tolerance()}"
                 )
             stripe_sets: dict[int, list[torch.Tensor]] = {}
-            for b, holders in enumerate(self.codec.placement(groups, gi, self.n_ranks)):
+            for b, holders in enumerate(codec.placement(groups, gi, self.n_ranks)):
                 stripes = [
                     self.stores[member].buffer.read_only.parity.get(gi, {}).get((name, b, j))
                     if _has_data(member) else None
@@ -1632,22 +1715,22 @@ class CheckpointEngine:
                     ro = self.stores[m].buffer.read_only
                     present[i] = ro.own_exch.get(name, ro.own[name])[0]
             # join only the blobs the codec's row selection reads (None: all)
-            needed = self.codec.blobs_needed(sorted(present), sorted(stripe_sets), missing_idx)
+            needed = codec.blobs_needed(sorted(present), sorted(stripe_sets), missing_idx)
             if needed is not None:
                 stripe_sets = {b: st for b, st in stripe_sets.items() if b in needed}
             # a single-stripe blob (a whole copy) is adopted by reference
             blobs = {b: st[0] if len(st) == 1 else parity_mod.join_stripes(st) for b, st in stripe_sets.items()}
             try:
-                rebuilt_map = self.codec.decode(present, blobs, missing_idx)
+                rebuilt_map = codec.decode(present, blobs, missing_idx)
             except codec_mod.CodecDecodeError as e:
                 raise dist.DataLostError(
                     f"rank {origin} (group {gi}) unrecoverable under codec "
-                    f"{self.codec.name!r}, entity {name!r}: {e}"
+                    f"{codec.name!r}, entity {name!r}: {e}"
                 ) from e
             if decode_cache is not None:
                 decode_cache[gi] = rebuilt_map
         rebuilt = rebuilt_map[grp.members.index(origin)].reshape(-1)
-        if self.codec.striped:
+        if codec.striped:
             self.stats.reconstructed_restores += 1
         else:
             self.stats.adopted_restores += 1
@@ -1855,8 +1938,9 @@ class CheckpointEngine:
         """Capture what one unit's chunks need: references to the surviving
         copies (a rank dying mid-restore cannot pull bytes from under the
         drain), blob arenas on the recovering host, the codec's chunk
-        decoder, the chunk grid, and the DEQ plan of compressed origins."""
-        codec = self.codec
+        decoder, the chunk grid, and the DEQ plan of compressed origins. The
+        codec is the one the payload's codec record names."""
+        codec = self._restore_codec(name)
         grp = groups[gi]
 
         def _has_data(m: int) -> bool:
@@ -2075,7 +2159,7 @@ class CheckpointEngine:
                 if (s1, s2) != tuple(ref):
                     raise IntegrityError(f"reconstructed shard failed checksum validation: "
                                          f"rank {origin} entity {u.name!r} (group {u.gi})")
-            if self.codec.striped:
+            if self._restore_codec(u.name).striped:
                 self.stats.reconstructed_restores += 1
             else:
                 self.stats.adopted_restores += 1
@@ -2105,6 +2189,33 @@ class CheckpointEngine:
             return next(it).out[:size].reshape(shape).to(dtype_from_name(dtype))
 
         return _map(assemble, arena_views(flat, cman), _is_packed)
+
+    # ------------------------------------------------------------------ #
+    # memory accounting (paper eq. 2)
+    # ------------------------------------------------------------------ #
+    def memory_report(self) -> dict[str, Any]:
+        """Eq.-2-style accounting, itemized per redundancy kind: ``by_kind[r]``
+        splits each rank's bytes into own snapshots, exchange subsets and
+        redundancy (copies, xor stripes, rs or lrc blobs), and
+        ``redundancy_bytes`` totals the latter under the engine's codec."""
+        per_rank = {r: s.nbytes for r, s in self.stores.items() if s.alive}
+        by_kind = {r: s.nbytes_by_kind() for r, s in self.stores.items() if s.alive}
+        group = self.codec.group_size(self.n_ranks)
+        return {
+            "bytes_per_rank": per_rank,
+            "by_kind": by_kind,
+            "total_bytes": sum(per_rank.values()),
+            "n_ranks": self.n_ranks,
+            "codec": self.codec.name,
+            "tolerance": self.codec.tolerance(),
+            "redundancy_bytes": {self.codec.name: sum(k["redundancy"] for k in by_kind.values())},
+            "exchange_bytes": sum(k["exchange"] for k in by_kind.values()),
+            # redundancy bytes per data byte the codec promises (copies: R;
+            # xor: 1/g; rs: m/g; lrc: (l+g)/g)
+            "redundancy_overhead": self.codec.memory_overhead(group, self.n_ranks),
+            "topology": repr(self.topology) if self.topology is not None else None,
+            "entity_codecs": {n: self._codec_spec(c) for n, c in sorted(self.entity_codecs.items())},
+        }
 
 
 def _row_nbytes(leaves: list[torch.Tensor], coords: list[Any]) -> list[int]:

@@ -6,14 +6,17 @@ engine need, copied: the scheme registry with ``pairwise``/``neighbor``/
 ``mirror``, ``multi_copy_shifts``, ``perm_pairs`` and ``inverse_perm`` (the
 rank permutations a partner copy travels along), Algorithm 4's
 ``recovery_plan`` with ``DataLostError``, ``parity_groups``/``group_of``
-(the striped codecs' group partition), ``blob_holder_group`` (where each
-group's redundancy blobs live) and ``parity_recovery_plan`` (Algorithm 4
-for XOR groups). "Rank" is a failure-domain index: a host of
+(the striped codecs' group partition), the failure-domain-aware layouts
+``balanced_parity_groups``/``domain_parity_groups`` with
+``placement_conflicts``, ``blob_holder_group`` (where each group's
+redundancy blobs live) and ``parity_recovery_plan`` (Algorithm 4 for XOR
+groups). "Rank" is a failure-domain index: a host of
 the engine, or a coordinate of the virtual mesh's redundancy axis.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Callable
 
@@ -180,8 +183,126 @@ def group_of(rank: int, group_size: int) -> int:
 
 
 def rank_group_map(groups: list[ParityGroup]) -> dict[int, int]:
-    """rank -> group index for a group list."""
+    """rank -> group index for a group list (the domain-aware layouts break
+    the ``rank // group_size`` identity)."""
     return {r: gi for gi, g in enumerate(groups) for r in g.members}
+
+
+def balanced_parity_groups(n_ranks: int, group_size: int) -> list[ParityGroup]:
+    """Contiguous groups with balanced sizes: same group count as
+    ``parity_groups`` (ceil(n/k)) but the remainder is spread one rank per
+    group instead of piling into a short tail. Sizes differ by at most one —
+    the property the device tier's ragged stripe layout relies on (stripe
+    slots sized for the largest group waste at most one word per member)."""
+    assert group_size >= 1 and n_ranks >= 1
+    n_groups = -(-n_ranks // group_size)
+    base, rem = divmod(n_ranks, n_groups)
+    groups, start = [], 0
+    for gi in range(n_groups):
+        size = base + (1 if gi < rem else 0)
+        groups.append(ParityGroup(tuple(range(start, start + size))))
+        start += size
+    return groups
+
+
+_INFEASIBLE_WARNED: set[tuple] = set()
+
+
+def domain_parity_groups(
+    n_ranks: int,
+    group_size: int,
+    topology=None,
+    level: str | None = None,
+) -> list[ParityGroup]:
+    """Parity groups that never put two members in one failure domain.
+
+    Without a topology this is :func:`balanced_parity_groups`. With one, a
+    greedy packer walks domains largest-first and drops each rank into the
+    group with the most free capacity among groups that do not yet contain
+    that domain (lowest index on ties) — guaranteed to succeed whenever the
+    largest domain fits in the group count (max_domain_size <= ceil(n/k),
+    since balanced capacities differ by at most one). A whole-domain loss
+    then costs every affected group at most ONE member, i.e. any codec with
+    tolerance >= 1 survives a rack burst.
+
+    Infeasible topologies (one domain larger than the group count) degrade
+    to best effort — the group with the fewest same-domain members wins —
+    with a once-per-shape warning; :func:`placement_conflicts` reports the
+    residual co-locations.
+    """
+    if topology is None:
+        return balanced_parity_groups(n_ranks, group_size)
+    assert topology.n_ranks >= n_ranks, (
+        f"topology covers {topology.n_ranks} ranks, need {n_ranks}"
+    )
+    n_groups = -(-n_ranks // group_size)
+    base, rem = divmod(n_ranks, n_groups)
+    capacity = [base + (1 if gi < rem else 0) for gi in range(n_groups)]
+    members: list[list[int]] = [[] for _ in range(n_groups)]
+    group_domains: list[set[int]] = [set() for _ in range(n_groups)]
+
+    by_domain: dict[int, list[int]] = {}
+    for r in range(n_ranks):
+        by_domain.setdefault(topology.domain_of(r, level), []).append(r)
+    # Largest domains first: they have the fewest legal groups left late in
+    # the packing, so they must claim group slots before small domains do.
+    order = sorted(by_domain.items(), key=lambda kv: (-len(kv[1]), kv[0]))
+
+    for dom, ranks in order:
+        for r in sorted(ranks):
+            free = [
+                gi for gi in range(n_groups)
+                if len(members[gi]) < capacity[gi] and dom not in group_domains[gi]
+            ]
+            if free:
+                gi = max(free, key=lambda g: (capacity[g] - len(members[g]), -g))
+            else:  # infeasible domain: minimize the co-location damage
+                avail = [
+                    gi for gi in range(n_groups)
+                    if len(members[gi]) < capacity[gi]
+                ]
+                gi = min(
+                    avail,
+                    key=lambda g: (
+                        sum(
+                            1 for m in members[g]
+                            if topology.domain_of(m, level) == dom
+                        ),
+                        len(members[g]) - capacity[g],
+                        g,
+                    ),
+                )
+                key = (n_ranks, group_size, topology.labels)
+                if key not in _INFEASIBLE_WARNED:
+                    _INFEASIBLE_WARNED.add(key)
+                    warnings.warn(
+                        f"domain {topology.domain_label(r, level)} has more "
+                        f"members than the {n_groups} parity groups can "
+                        f"separate; placement is best-effort "
+                        f"(n={n_ranks}, k={group_size})",
+                        stacklevel=2,
+                    )
+            members[gi].append(r)
+            group_domains[gi].add(dom)
+    return [ParityGroup(tuple(sorted(ms))) for ms in members]
+
+
+def placement_conflicts(
+    groups: list[ParityGroup], topology, level: str | None = None
+) -> list[tuple[int, str, tuple[int, ...]]]:
+    """Co-location violations: (group_index, domain_label, ranks) for every
+    group holding two or more members of one failure domain. Empty for any
+    feasible domain-aware placement — the property the tier-1 suite asserts."""
+    out = []
+    for gi, grp in enumerate(groups):
+        by_dom: dict[int, list[int]] = {}
+        for r in grp.members:
+            by_dom.setdefault(topology.domain_of(r, level), []).append(r)
+        for dom, rs in sorted(by_dom.items()):
+            if len(rs) > 1:
+                lv = level or topology.placement_level
+                out.append((gi, f"{lv}:{dom}", tuple(rs)))
+    return out
 
 
 def blob_holder_group(n_groups: int, gi: int, b: int) -> int:

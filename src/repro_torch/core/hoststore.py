@@ -50,6 +50,25 @@ class StorePayload:
     parity: dict[int, Any] = field(default_factory=dict)    # group -> (entity, blob, stripe) -> bytes
     meta: dict[str, Any] = field(default_factory=dict)
 
+    @property
+    def nbytes(self) -> int:
+        return sum(self.nbytes_by_kind().values())
+
+    def nbytes_by_kind(self) -> dict[str, int]:
+        """Byte split for the engine's itemized memory report: own snapshot
+        payloads vs exchange subsets vs hosted redundancy stripes."""
+
+        def acc(obj: Any) -> int:
+            if isinstance(obj, torch.Tensor):
+                return obj.nbytes
+            if isinstance(obj, dict):
+                return sum(acc(v) for v in obj.values())
+            if isinstance(obj, (list, tuple)):
+                return sum(acc(v) for v in obj)
+            return 0
+
+        return {"own": acc(self.own), "exchange": acc(self.own_exch), "redundancy": acc(self.parity)}
+
 
 def pinned_empty(nbytes: int) -> torch.Tensor:
     """A uint8 host buffer of ``nbytes``, page-locked for the card. Registered
@@ -124,3 +143,16 @@ class HostStore:
         self._arenas = {}
         self.epoch += 1
         self.alive = True
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes both banks' payloads hold."""
+        return sum(p.nbytes for p in (self.buffer.read_only, self.buffer.writable) if p is not None)
+
+    def nbytes_by_kind(self) -> dict[str, int]:
+        out = {"own": 0, "exchange": 0, "redundancy": 0}
+        for payload in (self.buffer.read_only, self.buffer.writable):
+            if payload is not None:
+                for k, v in payload.nbytes_by_kind().items():
+                    out[k] += v
+        return out

@@ -980,8 +980,12 @@ class DiskTier(StorageTier):
             return True
         from repro_torch.core import codec as codec_mod
 
+        # a domain-aware engine's groups are not contiguous: the plan takes
+        # the engine's layout whenever the flushed world is the engine's
+        groups = (engine._groups() if getattr(engine, "topology", None) is not None
+                  and manifest["n_ranks"] == engine.n_ranks else None)
         try:
-            codec_mod.codec_recovery_plan(manifest["n_ranks"], missing, engine.codec)
+            codec_mod.codec_recovery_plan(manifest["n_ranks"], missing, engine.codec, groups=groups)
             return True
         except dist.DataLostError:
             return False

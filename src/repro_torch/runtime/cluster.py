@@ -57,17 +57,28 @@ class VirtualCluster:
         self.revoked = False
         self.fault_log: list[tuple[str, list[int]]] = []
         self.engine: CheckpointEngine | None = None
-        # Failure-domain topology (the reference's core/topology.py): labels
-        # every kill's journal record with the rank's domain. Not ported yet.
-        if topology is not None:
-            raise NotImplementedError(
-                "topology: failure-domain topologies wait for ROADMAP A9")
-        self.topology = None
+        # Failure-domain topology (core/topology.py): labels every kill's
+        # journal record with the rank's domain, the key fit_failure_stats
+        # clusters correlated bursts by.
+        self.topology = topology.resized(n_ranks) if topology is not None else None
 
     # ------------------------------------------------------------------ #
     def attach_engine(self, engine: CheckpointEngine) -> None:
         self.engine = engine
         engine._alive_fn = self.alive  # engine liveness = cluster liveness
+        # One topology serves both, whichever was given one, so placement
+        # and failure labels never disagree about which rack a rank is in.
+        if self.topology is None and engine.topology is not None:
+            self.topology = engine.topology
+        elif self.topology is not None and engine.topology is None:
+            engine.topology = self.topology.resized(engine.n_ranks)
+            engine._groups_cache = None
+
+    def domain_ranks(self, domain_index: int, level: str | None = None) -> list[int]:
+        """Alive-or-dead member ranks of one failure domain (burst targets)."""
+        if self.topology is None:
+            return []
+        return [r for r in range(self.n_ranks) if self.topology.domain_of(r, level) == domain_index]
 
     def alive(self) -> set[int]:
         return set(self._alive)
@@ -100,7 +111,8 @@ class VirtualCluster:
                 "failure", rank=rank, cause=cause,
                 gen=self.engine.stats.created,
                 alive=len(self._alive), n_ranks=self.n_ranks,
-                domain="",  # no topology yet (ROADMAP A9)
+                domain=(self.topology.domain_label(rank)
+                        if self.topology is not None and rank < self.topology.n_ranks else ""),
             )
         tracer().instant("kill", rank=rank, cause=cause, silent=silent)
         if not silent:

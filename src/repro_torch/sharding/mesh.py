@@ -6,13 +6,17 @@ rank's data on one card, in tensors stacked over the mesh coordinates in
 JAX's device order (first axis major), so a collective permute becomes an
 index permutation along that dimension. A ``PartitionSpec`` becomes a tuple
 with one entry per dim: ``None``, an axis name, or a tuple of axis names.
+``topology_of_mesh`` reads a failure-domain topology off a mesh's device
+order.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Any
 
+import numpy as np
 import torch
 
 Spec = tuple  # per-dim entries: None | str | tuple[str, ...]
@@ -74,3 +78,41 @@ def full_rank(spec: Spec, ndim: int) -> tuple:
     """A spec padded with ``None`` (or cut) to ``ndim`` entries."""
     entries = list(spec) + [None] * (ndim - len(spec))
     return tuple(entries[:ndim])
+
+
+def topology_of_mesh(
+    mesh: Any,
+    n_ranks: int | None = None,
+    host_chips: int = 8,
+    hosts_per_rack: int = 4,
+    racks_per_pod: int = 4,
+    placement_level: str = "rack",
+):
+    """A :class:`repro_torch.core.topology.ClusterTopology` for the engine's
+    rank space, read off the mesh's device order: one engine rank is one
+    coordinate of the data axes ("pod", "data"), its host the first device
+    of its contiguous block (``host_chips`` devices a host), racks and pods
+    packed above that as in ``ClusterTopology.regular``. A mesh with
+    ``devices`` (items with ``.id``) gives its ids; a ``VirtualMesh``, which
+    has no device objects, numbers its virtual devices 0..size-1 in
+    row-major axis order."""
+    from repro_torch.core.topology import ClusterTopology
+
+    shape = dict(mesh.shape)
+    if n_ranks is None:
+        n_ranks = math.prod(shape.get(a, 1) for a in ("pod", "data")) or 1
+    devices = getattr(mesh, "devices", None)
+    if devices is None:
+        devs = list(range(math.prod(shape.values())))
+    else:
+        devs = [d.id for d in np.asarray(devices, dtype=object).reshape(-1)]
+    # devices per engine rank under row-major order with the data axes
+    # leading: a contiguous block per rank
+    per_rank = max(len(devs) // max(n_ranks, 1), 1)
+    labels = []
+    for r in range(n_ranks):
+        host = devs[min(r * per_rank, len(devs) - 1)] // host_chips
+        rack = host // hosts_per_rack
+        labels.append((host, rack, rack // racks_per_pod))
+    return ClusterTopology(labels=tuple(labels), placement_level=placement_level,
+                           name=f"mesh[{','.join(f'{k}={v}' for k, v in shape.items())}]")

@@ -179,11 +179,6 @@ def test_heartbeat_gauge_and_journal(tmp_path):
     assert (ev["rank"], ev["missed"], ev["limit"]) == (1, 1, 1)
 
 
-def test_a_topology_raises_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A9"):
-        t_cluster.VirtualCluster(4, topology=object())
-
-
 # ---------------------------------------------------------------------------
 # the elastic drill, engine attached
 # ---------------------------------------------------------------------------

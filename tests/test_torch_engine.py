@@ -249,14 +249,6 @@ def test_host_striped_codecs_run(cfg, kills):
     assert eng.stats.reconstructed_restores == len(kills)
 
 
-@pytest.mark.parametrize("cfg,item", [
-    (EngineConfig(restore_mode="sync", topology=object()), "A9"),
-])
-def test_unported_settings_raise_naming_their_roadmap_item(cfg, item):
-    with pytest.raises(NotImplementedError, match=item):
-        CheckpointEngine(4, cfg, device="cpu")
-
-
 def test_the_engine_runs_on_cuda_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -12,10 +12,10 @@ and device calls are stubbed, nothing is built and no raw kernel is
 launched (the kernel wrappers take their plain versions on CPU tensors), and
 the launch counts read one for every kernel but the row gather, the
 runtime-matrix GF(2^8) product and the checksum, whose plain runs are
-counted for real (phase 6 checks the gather's exact count, phase 8 that the
-product ran, phase 4 that the mirror program folded its checksum), and
-every host tensor reports itself pinned (the engine on the CPU leases pageable arenas); the
-profiler traces the CPU only. Phase
+counted for real (phase 6 checks the gather's exact count, phases 8 and 8b
+that the product ran, phase 4 that the mirror program folded its checksum),
+and every host tensor reports itself pinned (the engine on the CPU leases
+pageable arenas); the profiler traces the CPU only. Phase
 9's tier directories go under a temporary directory, removed at the end;
 where the machine lacks ``os.posix_fadvise`` or ``/proc/mounts``, the page
 cache drop and the filesystem probe are stubbed. Phase 10 serves prompts of
