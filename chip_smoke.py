@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build the kernels, hold
 each against its plain PyTorch version, train full-width llama3.2-1b
 through a host failure with the fault-tolerant training loop, serve it
-through host failures with the fault-tolerant server, then create and
-restore its train state through the device tier and through the host-tier
-checkpoint engine.
+through host failures with the fault-tolerant server, train a full-width
+Mamba-2 and serve a full-width Mixtral and Mamba-2 through kills, then
+create and restore the llama train state through the device tier and
+through the host-tier checkpoint engine.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and the CUDA toolkit (``nvcc``); it exits non-zero,
@@ -181,7 +182,24 @@ printing no result, on any failure or without a card. Phases:
    equal the clean run's bit for bit, except that (e) may decode the
    restored rank's rows differently after the rollback (its int8 partner
    copies are lossy): there every other row, and every token up to the
-   rollback, must be equal.
+   rollback, must be equal;
+11. the model zoo (the scheme is architecture-agnostic), at the published
+   widths with the depth cut for time (``ZOO_SSM_LAYERS`` = 8 of
+   mamba2-780m's 48 layers, ``ZOO_MOE_LAYERS`` = 1 of mixtral-8x7b's 32),
+   under deterministic algorithms: (a) phase 7's run on mamba2-780m (d_model
+   1536, 48 SSD heads of 64, state 128) with 4 sequences of 512 tokens (4
+   SSD chunks) and ``EngineConfig(codec="rs", parity_group=4, rs_parity=2,
+   gf_backend="torch")`` over 8 hosts (``ZOO_TRAIN``: a blob lives on the
+   next group's hosts), host 2 killed at step 5, phase 7's checks, B4
+   launched; (b) phase 10's traffic through the ``Server`` on mixtral-8x7b
+   (8 experts top-2 of d_ff 14336, 1.72 B bf16 params from the seed): clean,
+   and phase 10's rs run (hosts 0 and 2 at tick 20), tokens bit-equal, B4
+   launched (prefill's 512-token groups have capacity 160, decode's one
+   group of 16 tokens capacity 5: both drop slots); (c) the same traffic on
+   mamba2-780m: clean, and the default engine with host 2 at tick 20, tokens
+   bit-equal (the restore writes the SSM's conv history and state back).
+   Each prints its create and restore seconds, the step time (trainer) or
+   the decode median and p99, the card and host peaks and B4's launches.
 
 Phase 3 also runs B6 at the main path's largest gather (the w_up master
 leaf, 4 origins of (16, 512, 8192) f32, gathered for one new rank of the
@@ -193,7 +211,7 @@ with a seeded permutation of its rows; each pair in alternating order over
 ``B6_AB_ROUNDS`` rounds (medians and spreads); then the leaf's whole
 reshard in place against the stack and gather that preceded it.
 
-Phase 7 runs right after phase 3, then phases 5, 8, 8b, 6, 9, 10 and 4: 7,
+Phase 7 runs right after phase 3, then phases 5, 8, 8b, 6, 9, 10, 11 and 4: 7,
 5, 8, 8b and 9 need the most host RAM, and phase 4's staged fetches leave pinned
 host blocks in PyTorch's cache. The kernels' launch counts are set to 0 before each of the
 paths and read after it; every kernel a path runs must have launched in it
@@ -2348,21 +2366,23 @@ TRAIN_LAYERS = 2
 TRAIN_ASYNC_LAYERS = 1
 
 
-def trainer_host_need_gib(layout, plan) -> float:
+def trainer_host_need_gib(layout, plan, n_ranks: int = ENGINE_RANKS, redundancy: float = 1.0) -> float:
     """Host RAM the trainer's engine adds at its peak, the capture of its
     second checkpoint: the committed generation (every rank's own arena and
-    the exchange arenas) beside the one being captured, and the growth of
-    ``np_checksum``'s weight table to the largest own buffer. The capture
-    copies each leaf from the card straight into its pinned arena."""
+    the exchange arenas, ``redundancy`` times the split bytes: 1 for the
+    copy codec, m/k for a striped one) beside the one being captured, and
+    the growth of ``np_checksum``'s weight table to the largest own buffer.
+    The capture copies each leaf from the card straight into its pinned
+    arena."""
     from repro_torch.core import integrity
     from repro_torch.utils.pytree import tree_flatten
 
     sizes = [int(math.prod(sd.shape)) * sd.dtype.itemsize for sd in tree_flatten(layout.sds)[1]]
-    split = sum(b for i, b in enumerate(sizes) if plan.split_dim(i, ENGINE_RANKS) is not None)
+    split = sum(b for i, b in enumerate(sizes) if plan.split_dim(i, n_ranks) is not None)
     repl = sum(sizes) - split
     held = integrity._WEIGHTS.nbytes
-    generation = ENGINE_RANKS * repl + 2 * split
-    need = 2 * generation + max(_pow2_words_bytes(repl + split // ENGINE_RANKS) - held, 0)
+    generation = n_ranks * repl + (1 + redundancy) * split
+    need = 2 * generation + max(_pow2_words_bytes(repl + split // n_ranks) - held, 0)
     return need / 2**30
 
 
@@ -2404,10 +2424,11 @@ def step_split_ms(trainer, reps: int = 3) -> dict:
     return dict(loss_grad_ms=grad_ms, update_ms=update_ms)
 
 
-def trainer_path(cfg, mode: str) -> tuple[dict, dict]:
-    """The port's Trainer on the card under its defaults (the reference's
-    default engine) with ``checkpoint_mode=mode``: TRAIN over TRAIN_STEPS
-    steps through TRAIN_KILLS under deterministic algorithms. Checks every
+def trainer_path(cfg, mode: str, engine=None, train: dict | None = None, label: str = "trainer") -> tuple[dict, dict]:
+    """The port's Trainer on the card with ``checkpoint_mode=mode`` and
+    ``engine`` (None: the Trainer's default, the reference's default
+    engine): ``train`` (TRAIN by default) over TRAIN_STEPS steps through
+    TRAIN_KILLS under deterministic algorithms. Checks every
     loss finite, one recovery, the replayed steps' losses bit-equal to their
     first pass, and every state leaf right after the restore byte-equal to
     the state at the step-3 checkpoint (a host copy where the host has room
@@ -2429,9 +2450,14 @@ def trainer_path(cfg, mode: str) -> tuple[dict, dict]:
     from repro_torch.sharding.mesh import make_mesh
     from repro_torch.utils.pytree import tree_flatten
 
+    train = TRAIN if train is None else train
+    hosts = train["n_virtual_hosts"]
+    redundancy = 1.0 if engine is None or not engine.parity_group else engine.rs_parity / engine.parity_group
+
     def reckon(c):
         layout = train_state_layout(c, make_mesh(*PROD_MESH))
-        return layout, trainer_host_need_gib(layout, ShardPlan.from_pspecs(layout.sds, layout.pspecs))
+        plan = ShardPlan.from_pspecs(layout.sds, layout.pspecs)
+        return layout, trainer_host_need_gib(layout, plan, hosts, redundancy)
 
     layers = cfg.num_layers
     layout, need = reckon(cfg)
@@ -2440,14 +2466,14 @@ def trainer_path(cfg, mode: str) -> tuple[dict, dict]:
     while need + HOST_HEADROOM_GIB > free and layers > 1:
         layers -= 1
         layout, need = reckon(replace(cfg, num_layers=layers))
-    check(need + HOST_HEADROOM_GIB <= free, f"trainer path: {need:.1f} GiB of host RAM needed, {free:.1f} free")
+    check(need + HOST_HEADROOM_GIB <= free, f"{label} path: {need:.1f} GiB of host RAM needed, {free:.1f} free")
     if layers != cfg.num_layers:
-        log(f"trainer ({mode}): depth cut to {layers} of {cfg.num_layers} layers (width kept): "
+        log(f"{label} ({mode}): depth cut to {layers} of {cfg.num_layers} layers (width kept): "
             f"{free:.1f} GiB host RAM free, {need:.1f} GiB needed at {layers} layers")
         cfg = replace(cfg, num_layers=layers)
     state_gib = sum(int(math.prod(sd.shape)) * sd.dtype.itemsize for sd in tree_flatten(layout.sds)[1]) / 2**30
     keep_copy = need + state_gib + HOST_HEADROOM_GIB <= free
-    log(f"trainer ({mode}): {layers} layers, state {state_gib * 2**30 / 1e9:.3f} GB, host RAM {free:.1f} GiB "
+    log(f"{label} ({mode}): {layers} layers, state {state_gib * 2**30 / 1e9:.3f} GB, host RAM {free:.1f} GiB "
         f"free, about {need:.1f} GiB needed; the step-3 state kept as "
         + ("a host copy" if keep_copy else "per-leaf np_checksums (no room for a host copy)"))
 
@@ -2473,7 +2499,8 @@ def trainer_path(cfg, mode: str) -> tuple[dict, dict]:
                                  leaves=len(same), leaves_equal=sum(same),
                                  compared="bytes" if keep_copy else "np_checksum")
 
-    tcfg = TrainerConfig(total_steps=TRAIN_STEPS, checkpoint_mode=mode, **TRAIN)
+    tcfg = TrainerConfig(total_steps=TRAIN_STEPS, checkpoint_mode=mode, **train,
+                         **({} if engine is None else {"engine": engine}))
     torch.use_deterministic_algorithms(True)
     # every tensor the path allocates is written before it is read; filling
     # fresh allocations would only slow the path
@@ -2481,10 +2508,11 @@ def trainer_path(cfg, mode: str) -> tuple[dict, dict]:
     torch.utils.deterministic.fill_uninitialized_memory = False
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    trainer = CheckedTrainer(build_model(cfg), tcfg, injector=FailureInjector(ENGINE_RANKS, schedule=TRAIN_KILLS))
+    trainer = CheckedTrainer(build_model(cfg), tcfg, injector=FailureInjector(hosts, schedule=TRAIN_KILLS))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    check(tcfg.engine == EngineConfig() and trainer.engine.cfg == EngineConfig(), "the trainer's engine default")
+    want_engine = EngineConfig() if engine is None else engine
+    check(tcfg.engine == want_engine and trainer.engine.cfg == want_engine, f"{label}: the trainer's engine")
     trainer.creates = []
     finalize = trainer.engine.finalize_async
 
@@ -2511,17 +2539,17 @@ def trainer_path(cfg, mode: str) -> tuple[dict, dict]:
     torch.utils.deterministic.fill_uninitialized_memory = fill
     s = trainer.engine.stats
     for h in hist:
-        log(f"train step {h['step']} ({mode}): loss {h['loss']!r} in {h['step_s']:.4f} s")
+        log(f"train step {h['step']} ({mode if label == 'trainer' else label + ', ' + mode}): loss {h['loss']!r} in {h['step_s']:.4f} s")
     losses = [h["loss"] for h in hist]
-    check(all(math.isfinite(x) for x in losses), f"trainer: a loss is not finite: {losses}")
-    check([h["step"] for h in hist] == TRAIN_HISTORY, f"trainer: steps {[h['step'] for h in hist]}")
-    check(trainer.n_recoveries == 1, f"trainer: {trainer.n_recoveries} recoveries, want 1")
-    check(losses[3:5] == losses[5:7], f"trainer: replayed losses {losses[5:7]} differ from {losses[3:5]}")
+    check(all(math.isfinite(x) for x in losses), f"{label}: a loss is not finite: {losses}")
+    check([h["step"] for h in hist] == TRAIN_HISTORY, f"{label}: steps {[h['step'] for h in hist]}")
+    check(trainer.n_recoveries == 1, f"{label}: {trainer.n_recoveries} recoveries, want 1")
+    check(losses[3:5] == losses[5:7], f"{label}: replayed losses {losses[5:7]} differ from {losses[3:5]}")
     r = trainer.restored
     check(r is not None and r["step"] == TRAIN_PERIOD and r["leaves_equal"] == r["leaves"],
-          f"trainer: the restored state differs from the step-{TRAIN_PERIOD} checkpoint's: {r}")
+          f"{label}: the restored state differs from the step-{TRAIN_PERIOD} checkpoint's: {r}")
     check([c["step"] for c in trainer.creates] == [TRAIN_PERIOD, 2 * TRAIN_PERIOD],
-          f"trainer: committed creates {trainer.creates}")
+          f"{label}: committed creates {trainer.creates}")
     run = dict(mode=mode, layers=layers, n_params=n_params, state_gb=state_gib * 2**30 / 1e9, setup_s=setup_s,
                step_s=[h["step_s"] for h in hist], loss=losses, checkpoints=trainer.creates,
                created=s.created, aborted=s.aborted, restore=r, keep_state_s=keep_s, step_split_ms=split,
@@ -2733,12 +2761,14 @@ def serve_run(model, params, prompts, ref, name: str, scfg_kw: dict, eng_kw: dic
     return run, out
 
 
-def serve_path(cfg) -> tuple[dict, list[dict]]:
+def serve_path(cfg, runs_spec=SERVE_RUNS, kernels=SERVE_KERNELS, label: str = "serve") -> tuple[dict, list[dict]]:
     """Phase 10: the port's Server on the card with llama3.2-1b at full
     width and depth (bf16 params from the seed, not snapshotted) through
     SERVE_RUNS under deterministic algorithms; every faulted run's tokens
-    held against the clean run's. Returns the kernels' launch counts over
-    the whole phase and the runs' numbers."""
+    held against the clean run's (the first of ``runs_spec``). Phase 11
+    drives its servers through the same path with its own runs. Returns
+    the kernels' launch counts over the whole phase and the runs' numbers,
+    each run's B4 launches among them."""
     import gc
 
     import torch
@@ -2755,14 +2785,14 @@ def serve_path(cfg) -> tuple[dict, list[dict]]:
     # every rank's own shard and exchange subset of the cache
     need = 8 * cache_bytes / 2**30
     free = host_free_settled_gib(need + HOST_HEADROOM_GIB)
-    check(need + HOST_HEADROOM_GIB <= free, f"serve path: {need:.1f} GiB of host RAM needed, {free:.1f} free")
+    check(need + HOST_HEADROOM_GIB <= free, f"{label} path: {need:.1f} GiB of host RAM needed, {free:.1f} free")
     t0 = time.perf_counter()
     params = model.init(threefry.PRNGKey(SEED), "cuda")
     prompts = threefry.randint(threefry.fold_in(threefry.PRNGKey(SEED), 10), (SERVE["batch"], SERVE_PROMPT), 0,
                                cfg.vocab_size, device="cuda").cpu().numpy().astype("int32")
     torch.cuda.synchronize()
     params_gb = sum(x.numel() * x.element_size() for x in tree_leaves(params)) / 1e9
-    log(f"serve: {cfg.name}, {cfg.num_layers} layers, params {params_gb:.3f} GB ({model.n_params} bf16) in "
+    log(f"{label}: {cfg.name}, {cfg.num_layers} layers, params {params_gb:.3f} GB ({model.n_params} bf16) in "
         f"{time.perf_counter() - t0:.1f} s; KV cache {cache_bytes / 1e9:.3f} GB; host RAM {free:.1f} GiB free, "
         f"about {need:.1f} GiB needed")
     torch.use_deterministic_algorithms(True)
@@ -2770,21 +2800,103 @@ def serve_path(cfg) -> tuple[dict, list[dict]]:
     torch.utils.deterministic.fill_uninitialized_memory = False
     runs, ref = [], None
     ops.reset_launch_counts()  # this path's counts start here
-    for name, scfg_kw, eng_kw, kills, silent, recoveries in SERVE_RUNS:
+    for name, scfg_kw, eng_kw, kills, silent, recoveries in runs_spec:
+        b4 = ops.launch_counts()["gf256_matmul_dyn"]
         run, out = serve_run(model, params, prompts, ref, name, scfg_kw, eng_kw, kills, silent, recoveries)
+        run["b4_launches"] = ops.launch_counts()["gf256_matmul_dyn"] - b4
         if ref is None:
             ref = out
         runs.append(run)
-        log(f"serve {name}: " + json.dumps(run))
+        log(f"{label} {name}: " + json.dumps(run))
     counts = ops.launch_counts()
     torch.use_deterministic_algorithms(False)
     torch.utils.deterministic.fill_uninitialized_memory = fill
-    for k in SERVE_KERNELS:
-        check(counts[k] > 0, f"kernel {k} was launched no time on the serving path")
+    for k in kernels:
+        check(counts[k] > 0, f"kernel {k} was launched no time on the {label} path")
     del params
     gc.collect()
     torch.cuda.empty_cache()
     return counts, runs
+
+# ---------------------------------------------------------------------------
+# phase 11: the model zoo (MoE and Mamba-2 through kills)
+# ---------------------------------------------------------------------------
+
+# depth of the Mamba-2 runs (of 48 layers) and of the mixtral server (of
+# 32), width kept: for the run's time
+ZOO_SSM_LAYERS = 8
+ZOO_MOE_LAYERS = 1
+# (a) phase 7's run on mamba2-780m with 4 sequences of 512 tokens (4 SSD
+# chunks of 128: the inter-chunk recurrence runs) and rs g=4 m=2 with every
+# GF(2^8) product through B4. 8 hosts: a striped blob lives on the next
+# group's hosts, so with one group of 4 any loss takes every blob with it
+ZOO_TRAIN = {**TRAIN, "batch": 4, "seq": 512, "n_virtual_hosts": 8}
+ZOO_TRAIN_ENGINE = dict(codec="rs", parity_group=4, rs_parity=2, gf_backend="torch")
+# (b) phase 10's traffic on mixtral-8x7b: clean, and rs over 8 hosts with
+# {0, 2} killed at tick 20
+ZOO_MOE_RUNS = tuple(r for r in SERVE_RUNS if r[0] in ("clean", "rs"))
+# (c) the same traffic on mamba2-780m: clean, and the default engine with
+# host 2 killed at tick 20 (a spare); the restore writes the SSM's conv
+# history and state back in place
+ZOO_SSM_RUNS = (ZOO_MOE_RUNS[0], ("spare", {}, {}, {20: [2]}, {}, 1))
+
+
+def zoo_configs():
+    """(mamba2-780m at ZOO_SSM_LAYERS, mixtral-8x7b at ZOO_MOE_LAYERS): the
+    published widths."""
+    from repro_torch.configs import get_config
+
+    return (replace(get_config("mamba2-780m"), num_layers=ZOO_SSM_LAYERS),
+            replace(get_config("mixtral-8x7b"), num_layers=ZOO_MOE_LAYERS))
+
+
+def zoo_path() -> tuple[dict, dict]:
+    """Phase 11: (a) the Trainer on the Mamba-2 config through a kill with
+    the rs engine on the card, phase 7's checks; (b) the Server on the
+    mixtral config, clean and rs over 8 hosts through two kills; (c) the
+    Server on the Mamba-2 config, clean and through a kill. Checks B4
+    launched in (a) and (b). Returns the kernels' launch counts over the
+    phase and each run's numbers."""
+    from repro_torch.core.checkpoint import EngineConfig
+
+    ssm_cfg, moe_cfg = zoo_configs()
+    log(f"zoo: {ssm_cfg.name} at {ssm_cfg.num_layers} of 48 layers and {moe_cfg.name} at {moe_cfg.num_layers} "
+        f"of 32, width kept (ZOO_SSM_LAYERS, ZOO_MOE_LAYERS: for the run's time)")
+    out, counts = {}, {}
+
+    def add(c: dict) -> None:
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    run, c = trainer_path(ssm_cfg, "sync", engine=EngineConfig(**ZOO_TRAIN_ENGINE), train=ZOO_TRAIN,
+                          label="zoo trainer")
+    run.update(b4_launches=c["gf256_matmul_dyn"], phase_s=time.perf_counter() - t0)
+    log("zoo trainer: " + json.dumps(run))
+    check(run["b4_launches"] > 0, "zoo trainer: B4 was launched no time")
+    out["trainer"] = run
+    add(c)
+    for name, cfg, runs in (("moe serve", moe_cfg, ZOO_MOE_RUNS), ("ssm serve", ssm_cfg, ZOO_SSM_RUNS)):
+        t0 = time.perf_counter()
+        c, served = serve_path(cfg, runs, kernels=("gf256_matmul_dyn",) if name == "moe serve" else (),
+                               label=f"zoo {name}")
+        out[name] = dict(runs=served, phase_s=time.perf_counter() - t0)
+        add(c)
+    r = out["trainer"]
+    log(f"zoo trainer ({ssm_cfg.name}): setup {r['setup_s']:.2f} s, creates "
+        + json.dumps([round(x["create_s"], 4) for x in r["checkpoints"]])
+        + f" s, restore {r['restore']['restore_s']:.3f} s, step median "
+        f"{statistics.median(r['step_s']) * 1e3:.1f} ms, card peak {r['peak_device_gb']:.2f} GB, host peak "
+        f"{r['host_peak_rss_gib']:.2f} GiB, B4 launches {r['b4_launches']}")
+    for name in ("moe serve", "ssm serve"):
+        for r in out[name]["runs"]:
+            log(f"zoo {name} {r['name']}: prefill {r['prefill_s']:.2f} s, creates "
+                + json.dumps([round(x["create_s"], 4) for x in r["checkpoints"]])
+                + " s, restores " + json.dumps([round(x["recover_s"], 4) for x in r["recoveries"]])
+                + f" s, decode median {r['step_ms_median']:.2f} ms, p99 {r['step_ms_p99']:.2f} ms, card peak "
+                f"{r['peak_device_gb']:.2f} GB, host peak {r['host_peak_rss_gib']:.2f} GiB, "
+                f"B4 launches {r['b4_launches']}")
+    return counts, out
 
 
 def main() -> int:
@@ -2890,6 +3002,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("phase 10")
+    counts11, runs11 = zoo_path()
+    log(f"zoo path launches: {json.dumps(counts11)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("phase 11")
     t0 = time.perf_counter()
     state = init_train_state(layout, mesh, torch.Generator(device="cuda").manual_seed(SEED))
     torch.cuda.synchronize()
@@ -2901,8 +3018,8 @@ def main() -> int:
     log(f"device-tier path launches: {json.dumps(counts4)}")
     phase_done("phase 4")
     for k in kernels:
-        k["launches"] = sum(c[k["name"]] for c in (counts4, counts5, counts6, counts7, counts8, counts8b, counts9,
-                                                   counts10))
+        k["launches"] = sum(c.get(k["name"], 0) for c in (counts4, counts5, counts6, counts7, counts8, counts8b,
+                                                          counts9, counts10, counts11))
         k["route"] = "cuda"
         check(k["launches"] > 0, f"kernel {k['name']} was launched no time on the main paths")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,9 +1,12 @@
-"""ModelConfig: the fields of ``repro.configs.base.ModelConfig`` that the
-train-state layout and the dense forward pass read, with torch dtypes.
+"""ModelConfig: one dataclass covering all ten architecture families (the
+fields of ``repro.configs.base.ModelConfig``, with torch dtypes).
 
-The MoE, SSM and modality fields are carried so that a config which sets
-them is recognised: the port's model declares dense decoders only, and
-raises for the rest (ROADMAP A10)."""
+The port's model runs the decoders: dense, MoE, Mamba-2 (SSM) and the
+hybrid pattern. The modality fields (``is_encoder``, ``vision_tokens``,
+``frontend_stub_dim``) are carried so that the encoder and VLM configs are
+registered; their inputs raise naming ROADMAP A10. ``moe_mode`` and
+``fsdp_gather_per_layer`` are the reference's GSPMD knobs: inert on one
+card, carried so that ``replace()`` calls written for the reference work."""
 
 from __future__ import annotations
 
@@ -36,16 +39,28 @@ class ModelConfig:
     tie_embeddings: bool = False
     scale_embed: bool = False            # gemma: h *= sqrt(d_model)
 
-    # MoE, SSM and modality: 0 / False for the dense decoders the port runs
+    # MoE
     num_experts: int = 0
+    experts_per_tok: int = 0
+    moe_every: int = 1  # MoE replaces the dense MLP in every k-th layer
+    moe_capacity_factor: float = 1.25  # >= num_experts/experts_per_tok -> dropless
+
+    # SSM (Mamba2 SSD)
     ssm_state: int = 0
-    is_encoder: bool = False
-    vision_tokens: int = 0
-    frontend_stub_dim: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_conv: int = 4
+
+    # Modality
+    is_encoder: bool = False          # encoder-only: no decode step
+    vision_tokens: int = 0            # >0: cross-attn layers attend to a vision stub
+    frontend_stub_dim: int = 0        # >0: inputs are precomputed frame/patch embeds
 
     param_dtype: Any = torch.bfloat16
     compute_dtype: Any = torch.bfloat16
     sharding_preset: str = "tp"       # tp | fsdp
+    moe_mode: str = "tp"              # tp | ep: the reference's GSPMD option; inert here
+    fsdp_gather_per_layer: bool = True  # the reference's GSPMD option; inert here
     remat: str = "full"               # none | full ("dots" is not ported)
     attn_chunk: int = 1024            # blockwise-attention query/KV chunk
     scan_layers: bool = True          # the reference's lax.scan; the port always loops
@@ -78,15 +93,39 @@ class ModelConfig:
         return self.num_layers // self.period
 
     @property
+    def attention_free(self) -> bool:
+        return all(k == "mamba" for k in self.layer_pattern)
+
+    @property
+    def subquadratic(self) -> bool:
+        """True if prefill/decode memory does not grow quadratically in
+        seq_len: SSM and hybrid (mostly-SSM) stacks; the long_500k
+        applicability rule reads it."""
+        n_attn = sum(k in ("attn", "local", "cross") for k in self.layer_pattern)
+        return n_attn == 0 or (self.family in ("ssm", "hybrid"))
+
+    @property
     def has_moe(self) -> bool:
         return self.num_experts > 0
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim if self.ssm_state else 0
+
+    def with_(self, **kw: Any) -> "ModelConfig":
+        return replace(self, **kw)
+
     def reduced(self) -> "ModelConfig":
         """Tiny same-family config for CPU tests (the reference's reduced())."""
+        period = len(self.layer_pattern)
         return replace(
             self,
             name=f"{self.name}-reduced",
-            num_layers=len(self.layer_pattern),
+            num_layers=period,  # one full period
             d_model=64,
             num_heads=4,
             num_kv_heads=min(self.num_kv_heads, 2),
@@ -95,6 +134,7 @@ class ModelConfig:
             vocab_size=256,
             num_experts=min(self.num_experts, 4),
             ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_headdim=16 if self.ssm_state else self.ssm_headdim,
             vision_tokens=16 if self.vision_tokens else 0,
             frontend_stub_dim=32 if self.frontend_stub_dim else 0,
             sliding_window=32,

@@ -4,8 +4,10 @@
         --batch 4 --prompt-len 8 --gen 32 --kill-at 10:2
 
 Without ``--device`` it serves on the card (``cuda``) and raises where there
-is none. ``--arch`` defaults to ``llama3.2-1b``, the port's one config
-(ROADMAP A10 brings the rest).
+is none. ``--arch`` takes every registered config and defaults to
+``llama3.2-1b``; the eight decoders serve (dense, MoE, Mamba-2 and the
+hybrid). hubert-xlarge has no decode step (the ``Server`` refuses
+encoders), and llama-3.2-vision-90b's inputs wait for ROADMAP A10.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import argparse
 
 import numpy as np
 
-from repro_torch.configs import CONFIGS, get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.core.checkpoint import EngineConfig
 from repro_torch.models import build_model
 from repro_torch.obs.trace import tracer
@@ -25,7 +27,7 @@ from repro_torch.utils.logging import get_logger
 log = get_logger("launch.serve")
 
 
-def _parse_kills(spec: str | None) -> dict[int, list[int]]:
+def parse_kills(spec: str | None) -> dict[int, list[int]]:
     schedule: dict[int, list[int]] = {}
     for ev in (spec or "").split(","):
         if not ev:
@@ -37,7 +39,7 @@ def _parse_kills(spec: str | None) -> dict[int, list[int]]:
 
 def main(argv: list[str] | None = None) -> np.ndarray:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3.2-1b", choices=sorted(CONFIGS))
+    ap.add_argument("--arch", default="llama3.2-1b", choices=list_archs())
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--batch", type=int, default=4)
@@ -76,8 +78,8 @@ def main(argv: list[str] | None = None) -> np.ndarray:
 
     injector = None
     if args.kill_at or args.silent_kill_at:
-        injector = FailureInjector(args.hosts, schedule=_parse_kills(args.kill_at),
-                                   silent_schedule=_parse_kills(args.silent_kill_at))
+        injector = FailureInjector(args.hosts, schedule=parse_kills(args.kill_at),
+                                   silent_schedule=parse_kills(args.silent_kill_at))
     scfg = ServerConfig(
         batch=args.batch,
         max_seq=args.prompt_len + args.gen + 2,

@@ -1,5 +1,6 @@
-"""The dense decoder's forward pass, loss and parameter declarations
-(``lm``), behind the ``Model`` facade (``model``)."""
+"""The decoder LM's forward pass, loss and parameter declarations (``lm``;
+dense, MoE, Mamba-2 and hybrid slots in ``blocks``), behind the ``Model``
+facade (``model``)."""
 
 from repro_torch.models.model import Model, build_model
 

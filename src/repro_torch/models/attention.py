@@ -1,4 +1,5 @@
-"""Attention for the dense decoder: GQA/MQA, sliding window, softcap.
+"""Attention for the decoders (dense, MoE, hybrid): GQA/MQA, sliding
+window, softcap.
 
 Training runs the reference's blockwise (flash-style) formulation in plain
 tensor ops: a loop over query chunks, each an online softmax over its

@@ -1,9 +1,10 @@
-"""One transformer-stack "slot": pre-norm attention + dense FFN. A period =
+"""One stack "slot": pre-norm mixer (attn/local self-attention or a Mamba-2
+SSD block) + optional FFN (dense MLP or MoE). A period =
 cfg.layer_pattern of slots; the model loops over periods with per-slot
 parameters stacked.
 
-Mamba and MoE slots (and cross-attention) wait for ROADMAP A10; each
-raises ``NotImplementedError`` naming its item.
+Cross-attention (the VLM's "cross" slots) waits for ROADMAP A10 and raises
+``NotImplementedError`` naming it, in ``attention.py``.
 """
 
 from __future__ import annotations
@@ -13,26 +14,24 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, mlp
+from repro_torch.models import attention, mlp, moe, ssm
 from repro_torch.models.common import rmsnorm, rmsnorm_spec
 
 
-def _dense_slot(cfg: ModelConfig, slot: int) -> str:
-    kind = cfg.layer_pattern[slot]
-    if kind == "mamba":
-        raise NotImplementedError(f"{cfg.name}: Mamba-2 (SSM) slots wait for ROADMAP A10")
-    if cfg.has_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE slots wait for ROADMAP A10")
-    return kind
+def slot_is_moe(cfg: ModelConfig, slot: int) -> bool:
+    return cfg.has_moe and cfg.d_ff > 0 and (slot % cfg.moe_every == cfg.moe_every - 1)
 
 
 def block_specs(cfg: ModelConfig, slot: int) -> dict[str, Any]:
-    kind = _dense_slot(cfg, slot)
+    kind = cfg.layer_pattern[slot]
     specs: dict[str, Any] = {"ln1": rmsnorm_spec(cfg.d_model)}
-    specs["mixer"] = attention.abstract_params(cfg, cross=(kind == "cross"))
+    if kind == "mamba":
+        specs["mixer"] = ssm.abstract_params(cfg)
+    else:
+        specs["mixer"] = attention.abstract_params(cfg, cross=(kind == "cross"))
     if cfg.d_ff > 0:
         specs["ln2"] = rmsnorm_spec(cfg.d_model)
-        specs["ffn"] = mlp.abstract_params(cfg)
+        specs["ffn"] = moe.abstract_params(cfg) if slot_is_moe(cfg, slot) else mlp.abstract_params(cfg)
     return specs
 
 
@@ -45,16 +44,23 @@ def apply_block(
     q_offset: int = 0,
 ) -> tuple[torch.Tensor, dict[str, Any], torch.Tensor]:
     """Full-sequence block application. Returns (h, cache_entry, moe_aux)."""
-    kind = _dense_slot(cfg, slot)
+    kind = cfg.layer_pattern[slot]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
 
     hin = rmsnorm(h, params["ln1"], cfg.norm_eps)
-    mixed, cache = attention.apply(params["mixer"], hin, cfg, kind=kind, q_offset=q_offset)
+    if kind == "mamba":
+        mixed, cache = ssm.apply(params["mixer"], hin, cfg)
+    else:
+        mixed, cache = attention.apply(params["mixer"], hin, cfg, kind=kind, q_offset=q_offset)
     h = h + mixed
 
     if cfg.d_ff > 0:
         hin = rmsnorm(h, params["ln2"], cfg.norm_eps)
-        h = h + mlp.apply(params["ffn"], hin, cfg)
+        if slot_is_moe(cfg, slot):
+            out, aux = moe.apply(params["ffn"], hin, cfg)
+        else:
+            out = mlp.apply(params["ffn"], hin, cfg)
+        h = h + out
     return h, cache, aux
 
 
@@ -66,17 +72,28 @@ def decode_block(
     cfg: ModelConfig,
     slot: int,
 ) -> tuple[torch.Tensor, dict[str, Any]]:
-    """One token through the slot; the slot's KV cache is written in place."""
-    kind = _dense_slot(cfg, slot)
+    """One token through the slot; the slot's cache (k/v, or the SSM's conv
+    history and state) is written in place."""
+    kind = cfg.layer_pattern[slot]
     hin = rmsnorm(h, params["ln1"], cfg.norm_eps)
-    mixed, cache = attention.decode(params["mixer"], hin, cache, pos, cfg, kind=kind)
+    if kind == "mamba":
+        mixed, cache = ssm.decode(params["mixer"], hin, cache, cfg)
+    else:
+        mixed, cache = attention.decode(params["mixer"], hin, cache, pos, cfg, kind=kind)
     h = h + mixed
 
     if cfg.d_ff > 0:
         hin = rmsnorm(h, params["ln2"], cfg.norm_eps)
-        h = h + mlp.apply(params["ffn"], hin, cfg)
+        if slot_is_moe(cfg, slot):
+            out, _ = moe.apply(params["ffn"], hin, cfg, num_groups=1)
+        else:
+            out = mlp.apply(params["ffn"], hin, cfg)
+        h = h + out
     return h, cache
 
 
 def block_cache_spec(cfg: ModelConfig, slot: int, batch: int, max_seq: int) -> dict[str, Any]:
-    return attention.decode_cache_spec(cfg, batch, max_seq, _dense_slot(cfg, slot))
+    kind = cfg.layer_pattern[slot]
+    if kind == "mamba":
+        return ssm.cache_spec(cfg, batch)
+    return attention.decode_cache_spec(cfg, batch, max_seq, kind)

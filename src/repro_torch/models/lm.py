@@ -1,5 +1,6 @@
-"""The dense decoder LM: parameter declarations, forward pass, train loss,
-prefill and the single-token decode step.
+"""The decoder LM for the dense, MoE, Mamba-2 (SSM) and hybrid families:
+parameter declarations, forward pass, train loss, prefill and the
+single-token decode step.
 
 Parameters keep the reference's layout, per-slot leaves stacked along a
 leading "layers" dim (``params["layers"]["slot0"][leaf][i]`` is layer i):
@@ -8,9 +9,13 @@ reference scans over periods with ``lax.scan``; the port loops over them in
 Python, each period under ``torch.utils.checkpoint`` when ``cfg.remat`` is
 ``"full"``.
 
-The decode cache is the reference's: per slot, k and v of shape
-``(num_periods, batch, max_seq, kv_heads, head_dim)``. ``decode_step``
-writes each layer's new k/v into it in place and returns the same tree.
+The decode cache is the reference's, stacked over the periods: per
+attention slot k and v of shape ``(num_periods, batch, max_seq, kv_heads,
+head_dim)``, per Mamba slot ``conv`` (the last ``ssm_conv - 1`` raw xBC
+rows) and ``state`` (the SSD state, f32). ``decode_step`` writes each
+layer's new entries into it in place and returns the same tree. The MoE
+slots' load-balance losses are summed over the stack; ``loss_fn`` adds
+their mean over the layers times ``aux_weight``.
 
 Not ported yet: ``remat="dots"`` (the reference's save-the-matmuls policy),
 encoder and VLM inputs (ROADMAP A10).
@@ -27,9 +32,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import blocks
+from repro_torch.models import blocks, moe
 from repro_torch.models.common import einsum, embed_spec, rmsnorm, rmsnorm_spec, softcap
-from repro_torch.sharding.spec import ParamSpec, stack_tree
+from repro_torch.sharding.spec import ParamSpec, stack_tree, tree_count
 from repro_torch.utils.pytree import tree_flatten, tree_map, tree_unflatten
 
 LOSS_CHUNK = 512  # sequence-chunked cross-entropy (bounds logits memory)
@@ -55,6 +60,23 @@ def abstract_params(cfg: ModelConfig) -> dict[str, Any]:
         layers[f"slot{j}"] = stack_tree(blocks.block_specs(cfg, j), cfg.num_periods)
     p["layers"] = layers
     return p
+
+
+def param_count(cfg: ModelConfig) -> int:
+    return tree_count(abstract_params(cfg))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: the top-k experts only)."""
+    total = param_count(cfg)
+    if not cfg.has_moe:
+        return total
+    moe_slots = [j for j in range(cfg.period) if blocks.slot_is_moe(cfg, j)]
+    specs = moe.abstract_params(cfg)
+    per_slot = tree_count(specs) - tree_count({"router": specs["router"]})
+    inactive_frac = 1.0 - cfg.experts_per_tok / cfg.num_experts
+    inactive = int(len(moe_slots) * cfg.num_periods * per_slot * inactive_frac)
+    return total - inactive
 
 
 # ---------------------------------------------------------------------------
@@ -84,8 +106,9 @@ def forward(
     collect_cache: bool = False,
 ) -> tuple[torch.Tensor, Any, torch.Tensor]:
     """tokens (B, S) integers -> (final hidden (B, S, D), cache, moe_aux).
-    With ``collect_cache`` the cache holds each slot's k/v stacked over the
-    layers, (num_periods, B, S, KV, D); else it is None."""
+    With ``collect_cache`` the cache holds each slot's entries stacked over
+    the periods (k/v: (num_periods, B, S, KV, D); Mamba: conv and state);
+    else it is None."""
     h = _embed_tokens(params, tokens, cfg)
 
     def period_body(h, aux, layer_params):
@@ -99,7 +122,7 @@ def forward(
 
     body = _remat(period_body, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    per_layer = []  # each period's {slot: {k, v}} when collecting
+    per_layer = []  # each period's {slot: cache entry} when collecting
     for i in range(cfg.num_periods):
         sliced = tree_map(lambda x: x[i], params["layers"])
         h, aux, c = body(h, aux, sliced)

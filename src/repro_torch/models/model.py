@@ -37,6 +37,10 @@ class Model:
     def n_params(self) -> int:
         return tree_count(self.abstract_params)
 
+    @cached_property
+    def n_active_params(self) -> int:
+        return lm.active_param_count(self.cfg)
+
     @property
     def rules(self) -> ShardingRules:
         return FSDP_RULES if self.cfg.sharding_preset == "fsdp" else TP_RULES

@@ -256,6 +256,8 @@ class Trainer:
                 self.scheduler.record_step_time(self.timers("train_step").mean)
                 loss = float(metrics["loss"])
                 self.history.append({"step": step, "loss": loss, "step_s": step_s})
+                if self.cfg.has_moe:  # the MoE load-balance loss, mean over the layers
+                    self.history[-1]["moe_aux"] = float(metrics["moe_aux"])
                 log.debug(
                     "step", extra={"fields": {
                         "component": "trainer", "step": step, "loss": loss,

@@ -3,13 +3,15 @@ engine (copy and striped codecs) and its elastic N-to-M
 restore on the card, against their plain PyTorch versions and the CPU path,
 bit for bit; and the Trainer on the card against the Trainer on the CPU
 (f32 arithmetic: losses and final state within rtol 1e-4, atol 1e-4 of
-each leaf's largest magnitude). Each test needs a
+each leaf's largest magnitude); the MoE and Mamba-2 layers on the card
+against the CPU, forward and backward deterministic. Each test needs a
 CUDA card and ``nvcc`` and skips without them; on the GPU run
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``."""
 
 from __future__ import annotations
 
 import itertools
+import os
 
 import numpy as np
 import pytest
@@ -36,6 +38,8 @@ from repro_torch.sharding.mesh import make_mesh
 from repro_torch.utils.pytree import tree_flatten
 
 pytestmark = pytest.mark.cuda
+# before the first cuBLAS call: deterministic cuBLAS (the MoE and SSD tests)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 
 @pytest.fixture
@@ -753,3 +757,97 @@ def test_trainer_on_the_card_matches_the_cpu(cuda, policy, kills):
         want = y.numpy()
         np.testing.assert_allclose(x.cpu().numpy(), want, rtol=1e-4, atol=1e-4 * float(np.abs(want).max()),
                                    err_msg="/".join(p))
+
+
+def _twice_deterministic(fn):
+    """``fn()`` twice under ``torch.use_deterministic_algorithms(True)``: both
+    results, which must be the same bits."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        a, b = fn(), fn()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for x, y in zip(a, b):
+        assert torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+    return a
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "mixtral-8x7b"])
+@pytest.mark.parametrize("shape,groups", [((2, 32), None), ((16, 1), 1)])
+def test_moe_on_the_card_matches_the_cpu(cuda, arch, shape, groups):
+    """The reduced MoE layer at 8 experts (decode's 16 tokens in one group:
+    C = 5, slots dropped), f32: the card routes exactly as the CPU (experts,
+    capacity positions, drops), its output and aux loss within rtol 1e-5 /
+    atol 1e-6; the forward and its backward (cumsum, the argmax top-k, the
+    one-hot comparisons, the einsums) run under deterministic algorithms
+    and give the same bits twice."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = replace(get_config(arch).reduced(), num_experts=8)
+    rng = np.random.default_rng(20)
+    specs = moe.abstract_params(cfg)
+    params = {k: torch.from_numpy((rng.standard_normal(s.shape) / np.sqrt(s.shape[-2])).astype(np.float32))
+              for k, s in specs.items()}
+    x = torch.from_numpy(rng.standard_normal((*shape, cfg.d_model)).astype(np.float32))
+    r_cpu = moe.route(params, x, cfg, groups)
+    out_cpu, aux_cpu = moe.apply(params, x, cfg, num_groups=groups)
+    pc = {k: v.to(cuda).requires_grad_() for k, v in params.items()}
+    xc = x.to(cuda).requires_grad_()
+
+    def run():
+        out, aux = moe.apply(pc, xc, cfg, num_groups=groups)
+        grads = torch.autograd.grad(out.square().sum() + aux, [xc, *pc.values()])
+        return [out.detach(), aux.detach(), *grads]
+
+    out, aux, *_ = _twice_deterministic(run)
+    r = moe.route(pc, xc, cfg, groups)
+    for name in ("sel", "pos_in_expert", "within_cap"):
+        assert torch.equal(getattr(r, name).cpu(), getattr(r_cpu, name)), name
+    np.testing.assert_allclose(out.cpu().numpy(), out_cpu.numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(float(aux), float(aux_cpu), rtol=1e-5, atol=1e-6)
+
+
+def test_ssd_on_the_card_matches_the_cpu(cuda):
+    """The reduced Mamba-2 SSD layer, f32: ``apply`` at chunk 8 and 128 and
+    three ``decode`` steps on the card against the CPU (out, conv and state
+    within rtol 1e-5 / atol 1e-5); the chunked forward and its backward run
+    under deterministic algorithms and give the same bits twice."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+
+    cfg = get_config("mamba2-780m").reduced()
+    rng = np.random.default_rng(21)
+    params = {}
+    for k, s in ssm.abstract_params(cfg).items():
+        scale = 0.3 if len(s.shape) == 1 or k == "conv_w" else 1 / np.sqrt(s.shape[0])
+        params[k] = torch.from_numpy((scale * rng.standard_normal(s.shape)).astype(np.float32))
+    pc = {k: v.to(cuda).requires_grad_() for k, v in params.items()}
+    tol = dict(rtol=1e-5, atol=1e-5)
+    for seq, chunk in ((32, 8), (256, 128)):
+        x = torch.from_numpy((0.5 * rng.standard_normal((2, seq, cfg.d_model))).astype(np.float32))
+        out_cpu, cache_cpu = ssm.apply(params, x, cfg, chunk=chunk)
+        xc = x.to(cuda).requires_grad_()
+
+        def run():
+            out, cache = ssm.apply(pc, xc, cfg, chunk=chunk)
+            grads = torch.autograd.grad(out.square().sum() + cache["state"].sum(), [xc, *pc.values()])
+            return [out.detach(), cache["conv"].detach(), cache["state"].detach(), *grads]
+
+        out, conv, state, *_ = _twice_deterministic(run)
+        np.testing.assert_allclose(out.cpu().numpy(), out_cpu.detach().numpy(), **tol)
+        np.testing.assert_allclose(conv.cpu().numpy(), cache_cpu["conv"].detach().numpy(), **tol)
+        np.testing.assert_allclose(state.cpu().numpy(), cache_cpu["state"].detach().numpy(), **tol)
+    with torch.no_grad():
+        cache = {k: v.detach() for k, v in cache_cpu.items()}
+        card = {k: v.to(cuda, copy=True) for k, v in cache.items()}
+        plain = {k: v.detach() for k, v in params.items()}
+        for _ in range(3):
+            x = torch.from_numpy(rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32))
+            want, _ = ssm.decode(plain, x, cache, cfg)
+            got, _ = ssm.decode({k: v.detach() for k, v in pc.items()}, x.to(cuda), card, cfg)
+            np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **tol)
+            for k in ("conv", "state"):
+                np.testing.assert_allclose(card[k].cpu().numpy(), cache[k].numpy(), **tol)

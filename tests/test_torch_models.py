@@ -25,7 +25,6 @@ from repro.models import mlp as ref_mlp
 from repro_torch.configs import get_config
 from repro_torch.launch.steps import state_from_numpy
 from repro_torch.models import attention, build_model, common, lm, mlp
-from repro_torch.models.blocks import block_specs
 from repro_torch.sharding.spec import init_tree, tree_count
 from repro_torch.utils import threefry
 from repro_torch.utils.pytree import tree_flatten, tree_unflatten
@@ -208,9 +207,9 @@ def test_remat_full_gives_the_same_loss_and_grads(loss_case):
 UNPORTED = {
     "cross-attention": (lambda cfg: attention.abstract_params(cfg, cross=True), "A10"),
     "cross-attention decode cache": (lambda cfg: attention.decode_cache_spec(cfg, 1, 8, "cross"), "A10"),
-    "mamba slot": (lambda cfg: block_specs(replace(cfg, layer_pattern=("mamba",)), 0), "A10"),
-    "MoE slot": (lambda cfg: block_specs(replace(cfg, num_experts=4), 0), "A10"),
     "encoder inputs": (lambda cfg: lm.abstract_params(replace(cfg, is_encoder=True)), "A10"),
+    "hubert-xlarge": (lambda cfg: lm.abstract_params(get_config("hubert-xlarge").reduced()), "A10"),
+    "llama-3.2-vision-90b": (lambda cfg: lm.abstract_params(get_config("llama-3.2-vision-90b").reduced()), "A10"),
     "remat dots": (lambda cfg: lm._remat(lambda h: h, replace(cfg, remat="dots")), "A3"),
 }
 

@@ -4,6 +4,7 @@ CPU, at a small config, in seconds.
 
     python3 tools/rehearse_chip_smoke.py            # all phases through main()
     python3 tools/rehearse_chip_smoke.py --phase7   # the training loop alone, both checkpoint modes
+    python3 tools/rehearse_chip_smoke.py --phase11  # the model zoo alone
 
 It runs a copy of ``chip_smoke.py``'s source in which the card is the CPU:
 ``"cuda"`` strings and ``.cuda()`` calls name the CPU, every entry point of
@@ -19,7 +20,9 @@ pageable arenas); the profiler traces the CPU only. Phase
 9's tier directories go under a temporary directory, removed at the end;
 where the machine lacks ``os.posix_fadvise`` or ``/proc/mounts``, the page
 cache drop and the filesystem probe are stubbed. Phase 10 serves prompts of
-64 tokens in a 128-token cache (the runs, kills and checks unchanged). What it finds are wrong
+64 tokens in a 128-token cache (the runs, kills and checks unchanged), and
+so does phase 11, whose Mamba-2 and mixtral configs shrink to 2 and 1
+layers of d_model 256 (``small_zoo``). What it finds are wrong
 paths, shapes, arguments and control flow; its times mean nothing.
 """
 
@@ -51,6 +54,7 @@ from repro_torch.core import checkpoint  # noqa: E402
 from repro_torch.kernels import _build, checksum, ops, reshard, rs_decode  # noqa: E402
 
 KERNELS = ("xor_reduce", "gf256_matmul", "quantize_blockwise", "dequantize_blockwise")
+_get_config = configs.get_config  # the real one: the rehearsal's returns its small config
 
 
 class _Event:
@@ -67,6 +71,15 @@ class _Event:
 def small_config():
     return replace(configs.get_config("llama3.2-1b"), num_layers=2, d_model=256, num_heads=4, num_kv_heads=2,
                    head_dim=64, d_ff=512, vocab_size=1000)
+
+
+def small_zoo():
+    """Phase 11's (Mamba-2, mixtral) pair at d_model 256: 2 layers of 4 SSD
+    heads of 64 with state 32, and 1 layer of 8 experts top-2 of d_ff 512."""
+    ssm = replace(_get_config("mamba2-780m"), num_layers=2, d_model=256, ssm_state=32, vocab_size=1000)
+    moe = replace(_get_config("mixtral-8x7b"), num_layers=1, d_model=256, num_heads=4, num_kv_heads=2,
+                  head_dim=64, d_ff=512, vocab_size=1000)
+    return ssm, moe
 
 
 def load_chip_smoke(cfg) -> types.ModuleType:
@@ -121,6 +134,7 @@ def load_chip_smoke(cfg) -> types.ModuleType:
         setattr(mod, name, lambda *a: None)
     mod.gpu_line = lambda: "CPU rehearsal, 0 W"
     mod.get_config = configs.get_config = lambda name: cfg
+    mod.zoo_configs = small_zoo
     mod.TIER_ROOT = Path(tempfile.mkdtemp(prefix="rehearse-tiers-"))
     # at this width a rank's exchange bytes span two chunks of the default
     # 1 MiB dirty map: both layers and a 4 KiB grid keep phase 9's rewrite
@@ -142,16 +156,21 @@ def load_chip_smoke(cfg) -> types.ModuleType:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase7", action="store_true", help="run the training loop's phase alone")
+    ap.add_argument("--phase11", action="store_true", help="run the model zoo's phase alone")
     args = ap.parse_args()
     torch.set_num_threads(4)
     cfg = small_config()
     mod = load_chip_smoke(cfg)
-    if not args.phase7:
+    if not (args.phase7 or args.phase11):
         try:
             return mod.main()
         finally:
             shutil.rmtree(mod.TIER_ROOT, ignore_errors=True)
     mod._HOST_START[:] = [mod.host_free_gib(), mod.host_rss_gib()]
+    if args.phase11:
+        counts, runs = mod.zoo_path()
+        print(json.dumps(counts))
+        return 0
     for mode in ("sync", "async"):
         run, counts = mod.trainer_path(cfg, mode)
         print(json.dumps(run))
