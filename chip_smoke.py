@@ -3,9 +3,10 @@
 each against its plain PyTorch version, train full-width llama3.2-1b
 through a host failure with the fault-tolerant training loop, serve it
 through host failures with the fault-tolerant server, train a full-width
-Mamba-2 and serve a full-width Mixtral and Mamba-2 through kills, then
-create and restore the llama train state through the device tier and
-through the host-tier checkpoint engine.
+Mamba-2 and serve a full-width Mixtral and Mamba-2 through kills, train a
+full-width HuBERT encoder and serve a full-width vision-language model
+through kills, then create and restore the llama train state through the
+device tier and through the host-tier checkpoint engine.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and the CUDA toolkit (``nvcc``); it exits non-zero,
@@ -184,7 +185,7 @@ printing no result, on any failure or without a card. Phases:
    copies are lossy): there every other row, and every token up to the
    rollback, must be equal;
 11. the model zoo (the scheme is architecture-agnostic), at the published
-   widths with the depth cut for time (``ZOO_SSM_LAYERS`` = 8 of
+   widths with the depth cut for time (``ZOO_SSM_LAYERS`` = 4 of
    mamba2-780m's 48 layers, ``ZOO_MOE_LAYERS`` = 1 of mixtral-8x7b's 32),
    under deterministic algorithms: (a) phase 7's run on mamba2-780m (d_model
    1536, 48 SSD heads of 64, state 128) with 4 sequences of 512 tokens (4
@@ -199,7 +200,27 @@ printing no result, on any failure or without a card. Phases:
    mamba2-780m: clean, and the default engine with host 2 at tick 20, tokens
    bit-equal (the restore writes the SSM's conv history and state back).
    Each prints its create and restore seconds, the step time (trainer) or
-   the decode median and p99, the card and host peaks and B4's launches.
+   the decode median and p99, the card and host peaks and B4's launches;
+12. the encoder and the VLM, at the published widths with the depth cut
+   for time (``HUBERT_LAYERS`` = 4 of hubert-xlarge's 48 layers,
+   ``VLM_LAYERS`` = 5 of llama-3.2-vision-90b's 100: one period, 4
+   self-attention slots and 1 cross slot), under deterministic algorithms:
+   (a) phase 11's trainer traffic (4 x 512 frame embeddings of width 512,
+   masked prediction) on hubert-xlarge (d_model 1280, 16 heads of 80, d_ff
+   5120 gelu) with ``EngineConfig(codec="xor", parity_group=4,
+   gf_backend="torch")`` over 8 hosts, host 2 killed at step 5, phase 7's
+   checks, B4 launched (the xor encode and the pipelined decode), and the
+   encoder shown bidirectional on the card: a prefill of the step-0 frames
+   and one with the last frame changed differ at the first position; (c)
+   ``compressed_psum`` of (a)'s ``w_in`` gradient (26.2 M bf16 elements) in
+   a one-process NCCL group (a ``file://`` rendezvous under ``build/``),
+   bit-equal to the plain quantize and multiply, B5a launched; (b) phase
+   10's traffic through the ``Server`` on the VLM (d_model 8192, 64 heads
+   over 8 KV heads of 128, d_ff 28,672; 6.39 B bf16 params from the seed)
+   with the serve CLI's vision stub (``threefry.normal(PRNGKey(0))``, 16 x
+   1600 x 1280): clean, and phase 10's rs run (hosts 0 and 2 at tick 20),
+   tokens bit-equal, the restored cross-attention cache byte-equal to the
+   clean run's, B4 launched.
 
 Phase 3 also runs B6 at the main path's largest gather (the w_up master
 leaf, 4 origins of (16, 512, 8192) f32, gathered for one new rank of the
@@ -211,7 +232,7 @@ with a seeded permutation of its rows; each pair in alternating order over
 ``B6_AB_ROUNDS`` rounds (medians and spreads); then the leaf's whole
 reshard in place against the stack and gather that preceded it.
 
-Phase 7 runs right after phase 3, then phases 5, 8, 8b, 6, 9, 10, 11 and 4: 7,
+Phase 7 runs right after phase 3, then phases 5, 8, 8b, 6, 9, 10, 11, 12 and 4: 7,
 5, 8, 8b and 9 need the most host RAM, and phase 4's staged fetches leave pinned
 host blocks in PyTorch's cache. The kernels' launch counts are set to 0 before each of the
 paths and read after it; every kernel a path runs must have launched in it
@@ -2414,7 +2435,7 @@ def step_split_ms(trainer, reps: int = 3) -> dict:
         torch.cuda.synchronize()
         ev[0].record()
         loss, _ = trainer.model.loss(tree_unflatten(paths, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
         ev[1].record()
         adamw_update(tree_unflatten(paths, list(grads)), st["params"], st["opt"], st["step"], hp, sched)
         ev[2].record()
@@ -2424,7 +2445,8 @@ def step_split_ms(trainer, reps: int = 3) -> dict:
     return dict(loss_grad_ms=grad_ms, update_ms=update_ms)
 
 
-def trainer_path(cfg, mode: str, engine=None, train: dict | None = None, label: str = "trainer") -> tuple[dict, dict]:
+def trainer_path(cfg, mode: str, engine=None, train: dict | None = None, label: str = "trainer",
+                 probe=None) -> tuple[dict, dict]:
     """The port's Trainer on the card with ``checkpoint_mode=mode`` and
     ``engine`` (None: the Trainer's default, the reference's default
     engine): ``train`` (TRAIN by default) over TRAIN_STEPS steps through
@@ -2432,9 +2454,12 @@ def trainer_path(cfg, mode: str, engine=None, train: dict | None = None, label: 
     loss finite, one recovery, the replayed steps' losses bit-equal to their
     first pass, and every state leaf right after the restore byte-equal to
     the state at the step-3 checkpoint (a host copy where the host has room
-    for it, else the leaves' ``np_checksum``s). Returns the run's numbers
-    (each create's and the restore's times as the engine recorded them) and
-    the kernels' launch counts over it (the copy codec launches none)."""
+    for it, else the leaves' ``np_checksum``s). ``probe(trainer)``, if
+    given, runs after the counts are read and before the trainer is torn
+    down; its dict lands in the run's numbers under "probe". Returns the
+    run's numbers (each create's and the restore's times as the engine
+    recorded them) and the kernels' launch counts over it (the copy codec
+    launches none)."""
     import gc
     import resource
 
@@ -2558,6 +2583,8 @@ def trainer_path(cfg, mode: str, engine=None, train: dict | None = None, label: 
                peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
                host_peak_rss_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
                host_free_before_gib=free)
+    if probe is not None:
+        run["probe"] = probe(trainer)
     trainer.engine.close()
     del trainer.engine.finalize_async  # the recording wrapper holds the trainer
     del trainer, leaves, finalize, finalize_and_record
@@ -2633,13 +2660,25 @@ def decode_profile(server, step_s: float, steps: int = 4) -> dict:
                 top_kernels_ms_per_step=[[e.key[:60], dev_us(e) / 1e3 / steps] for e in top])
 
 
+def cross_leaves(server) -> list:
+    """The sessions' cross-attention cache leaves (the VLM's "cross" slots:
+    filled at prefill, read by decode); empty for other models."""
+    cfg = server.model.cfg
+    cache = server.sessions["cache"]
+    return [cache[f"slot{j}"][k] for j, kind in enumerate(cfg.layer_pattern) if kind == "cross" for k in ("k", "v")]
+
+
 def serve_run(model, params, prompts, ref, name: str, scfg_kw: dict, eng_kw: dict, kills: dict,
-              silent: dict, recoveries: int) -> tuple[dict, object]:
+              silent: dict, recoveries: int, extra: dict | None = None,
+              cross_ref: list | None = None) -> tuple[dict, object, list]:
     """One run of SERVE_RUNS: the port's Server through its kills, timed
     (prefill, every decode step ending in ``torch.cuda.synchronize()``,
     every committed create, every recovery); its tokens held against
-    ``ref``, the clean run's (None for the clean run itself). Returns the
-    run's numbers and its tokens."""
+    ``ref``, the clean run's (None for the clean run itself). ``extra`` are
+    the model's other prefill inputs (the VLM's vision stub). After every
+    recovery the sessions' cross-attention cache is held byte for byte
+    against ``cross_ref``, the clean run's. Returns the run's numbers, its
+    tokens and (clean run) a copy of its cross-attention cache."""
     import gc
 
     import numpy as np
@@ -2669,9 +2708,9 @@ def serve_run(model, params, prompts, ref, name: str, scfg_kw: dict, eng_kw: dic
             eng.finalize_async = finalize_and_record
             return eng
 
-        def prefill(self, prompts) -> None:
+        def prefill(self, prompts, **inputs) -> None:
             t0 = time.perf_counter()
-            super().prefill(prompts)
+            super().prefill(prompts, **inputs)
             torch.cuda.synchronize()
             self.prefill_s = time.perf_counter() - t0
 
@@ -2689,6 +2728,10 @@ def serve_run(model, params, prompts, ref, name: str, scfg_kw: dict, eng_kw: dic
             rec = dict(recover_s=time.perf_counter() - t0, pos=int(self.sessions["pos"]),
                        ranks=self.engine.n_ranks, promoted=self.promotions > promotions,
                        **restore_line(self.engine.stats))
+            if cross_ref:
+                rec["cross_cache_equal"] = all(torch.equal(a, b) for a, b in zip(cross_leaves(self), cross_ref))
+                check(rec["cross_cache_equal"], f"serve {name}: the restored cross-attention cache differs "
+                                                f"from the clean run's at position {rec['pos']}")
             rep = self.engine.last_elastic_report
             if rep is not None:
                 rec.update(bytes_moved=rep.bytes_moved, bytes_lower_bound=rep.bytes_lower_bound,
@@ -2708,7 +2751,7 @@ def serve_run(model, params, prompts, ref, name: str, scfg_kw: dict, eng_kw: dic
     server = TimedServer(model, scfg, params=params, injector=injector)
     check(server.device.type == "cuda", f"serve {name}: the server runs on {server.device}")
     t0 = time.perf_counter()
-    out = server.prefill_and_decode(prompts, SERVE_GEN)
+    out = server.prefill_and_decode(prompts, SERVE_GEN, **(extra or {}))
     serve_s = time.perf_counter() - t0
     host_peak = stop_rss()
     run = dict(name=name, hosts=hosts, engine=eng_kw, server=scfg_kw, kills=kills, silent_kills=silent,
@@ -2752,23 +2795,27 @@ def serve_run(model, params, prompts, ref, name: str, scfg_kw: dict, eng_kw: dic
         check(np.array_equal(out, ref), f"serve {name}: tokens differ from the clean run's "
                                         f"({int((out != ref).sum())} tokens)")
     run["tokens_equal"] = ref is None or bool(np.array_equal(out, ref))
+    cross = [x.clone() for x in cross_leaves(server)] if ref is None else []
     if ref is None:
         run["decode_profile"] = decode_profile(server, statistics.median(server.steps))
     server.close()
     del server
     gc.collect()
     torch.cuda.empty_cache()
-    return run, out
+    return run, out, cross
 
 
-def serve_path(cfg, runs_spec=SERVE_RUNS, kernels=SERVE_KERNELS, label: str = "serve") -> tuple[dict, list[dict]]:
+def serve_path(cfg, runs_spec=SERVE_RUNS, kernels=SERVE_KERNELS, label: str = "serve",
+               extra=None) -> tuple[dict, list[dict]]:
     """Phase 10: the port's Server on the card with llama3.2-1b at full
     width and depth (bf16 params from the seed, not snapshotted) through
     SERVE_RUNS under deterministic algorithms; every faulted run's tokens
-    held against the clean run's (the first of ``runs_spec``). Phase 11
-    drives its servers through the same path with its own runs. Returns
-    the kernels' launch counts over the whole phase and the runs' numbers,
-    each run's B4 launches among them."""
+    held against the clean run's (the first of ``runs_spec``). Phases 11
+    and 12 drive their servers through the same path with their own runs;
+    ``extra(cfg)`` makes the model's other prefill inputs on the card (the
+    VLM's vision stub), drawn once for every run. Returns the kernels'
+    launch counts over the whole phase and the runs' numbers, each run's B4
+    launches among them."""
     import gc
 
     import torch
@@ -2790,6 +2837,7 @@ def serve_path(cfg, runs_spec=SERVE_RUNS, kernels=SERVE_KERNELS, label: str = "s
     params = model.init(threefry.PRNGKey(SEED), "cuda")
     prompts = threefry.randint(threefry.fold_in(threefry.PRNGKey(SEED), 10), (SERVE["batch"], SERVE_PROMPT), 0,
                                cfg.vocab_size, device="cuda").cpu().numpy().astype("int32")
+    inputs = {} if extra is None else extra(cfg)
     torch.cuda.synchronize()
     params_gb = sum(x.numel() * x.element_size() for x in tree_leaves(params)) / 1e9
     log(f"{label}: {cfg.name}, {cfg.num_layers} layers, params {params_gb:.3f} GB ({model.n_params} bf16) in "
@@ -2798,14 +2846,15 @@ def serve_path(cfg, runs_spec=SERVE_RUNS, kernels=SERVE_KERNELS, label: str = "s
     torch.use_deterministic_algorithms(True)
     fill = torch.utils.deterministic.fill_uninitialized_memory
     torch.utils.deterministic.fill_uninitialized_memory = False
-    runs, ref = [], None
+    runs, ref, cross = [], None, None
     ops.reset_launch_counts()  # this path's counts start here
     for name, scfg_kw, eng_kw, kills, silent, recoveries in runs_spec:
         b4 = ops.launch_counts()["gf256_matmul_dyn"]
-        run, out = serve_run(model, params, prompts, ref, name, scfg_kw, eng_kw, kills, silent, recoveries)
+        run, out, clean_cross = serve_run(model, params, prompts, ref, name, scfg_kw, eng_kw, kills, silent,
+                                          recoveries, inputs, cross)
         run["b4_launches"] = ops.launch_counts()["gf256_matmul_dyn"] - b4
         if ref is None:
-            ref = out
+            ref, cross = out, clean_cross
         runs.append(run)
         log(f"{label} {name}: " + json.dumps(run))
     counts = ops.launch_counts()
@@ -2813,7 +2862,7 @@ def serve_path(cfg, runs_spec=SERVE_RUNS, kernels=SERVE_KERNELS, label: str = "s
     torch.utils.deterministic.fill_uninitialized_memory = fill
     for k in kernels:
         check(counts[k] > 0, f"kernel {k} was launched no time on the {label} path")
-    del params
+    del params, inputs, cross
     gc.collect()
     torch.cuda.empty_cache()
     return counts, runs
@@ -2824,7 +2873,7 @@ def serve_path(cfg, runs_spec=SERVE_RUNS, kernels=SERVE_KERNELS, label: str = "s
 
 # depth of the Mamba-2 runs (of 48 layers) and of the mixtral server (of
 # 32), width kept: for the run's time
-ZOO_SSM_LAYERS = 8
+ZOO_SSM_LAYERS = 4
 ZOO_MOE_LAYERS = 1
 # (a) phase 7's run on mamba2-780m with 4 sequences of 512 tokens (4 SSD
 # chunks of 128: the inter-chunk recurrence runs) and rs g=4 m=2 with every
@@ -2896,6 +2945,168 @@ def zoo_path() -> tuple[dict, dict]:
                 + f" s, decode median {r['step_ms_median']:.2f} ms, p99 {r['step_ms_p99']:.2f} ms, card peak "
                 f"{r['peak_device_gb']:.2f} GB, host peak {r['host_peak_rss_gib']:.2f} GiB, "
                 f"B4 launches {r['b4_launches']}")
+    return counts, out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the encoder and the VLM (hubert-xlarge, llama-3.2-vision-90b)
+# ---------------------------------------------------------------------------
+
+# depth of the hubert trainer (of 48 layers) and of the VLM server (one
+# period of its 100 layers: 4 self-attention slots and 1 cross slot), width
+# kept: for the run's time
+HUBERT_LAYERS = 4
+VLM_LAYERS = 5
+# (a) phase 11's trainer traffic (4 x 512 frames, 8 hosts) with xor g=4 on
+# B4 (its encode and the pipelined decode): with one group of 4 a group's
+# parity stripe dies with its hosts, so 8 hosts, two groups
+HUBERT_ENGINE = dict(codec="xor", parity_group=4, gf_backend="torch")
+# (b) phase 10's traffic on the VLM with the serve CLI's vision stub: clean,
+# and rs over 8 hosts with {0, 2} killed at tick 20
+VLM_RUNS = ZOO_MOE_RUNS
+# (c) compressed_psum in a one-process NCCL group: its rendezvous file
+PSUM_BACKEND = "nccl"
+PSUM_RDV = ROOT / "build" / "psum_rdv"
+PSUM_LEAF = ("layers", "slot0", "ffn", "w_in")  # (a)'s, 4 x 1280 x 5120: a multiple of 8192
+
+
+def encoder_vlm_configs():
+    """(hubert-xlarge at HUBERT_LAYERS, llama-3.2-vision-90b at VLM_LAYERS):
+    the published widths."""
+    from repro_torch.configs import get_config
+
+    return (replace(get_config("hubert-xlarge"), num_layers=HUBERT_LAYERS),
+            replace(get_config("llama-3.2-vision-90b"), num_layers=VLM_LAYERS))
+
+
+def vision_stub(cfg) -> dict:
+    """The serve CLI's vision stub on the card: ``threefry.normal`` of
+    ``PRNGKey(0)``, (sessions, vision_tokens, frontend_stub_dim)."""
+    from repro_torch.utils import threefry
+
+    return {"vision": threefry.normal(threefry.PRNGKey(0), (SERVE["batch"], cfg.vision_tokens,
+                                                            cfg.frontend_stub_dim), device="cuda")}
+
+
+def encoder_probe(grads: dict):
+    """(a)'s probe: the encoder is bidirectional on the card (a prefill of
+    the step-0 frames and one with the last frame changed differ at the
+    first position), and one gradient of the trained params for (c)."""
+
+    def probe(trainer) -> dict:
+        import torch
+
+        from repro_torch.utils.pytree import tree_flatten, tree_unflatten
+
+        frames = trainer.data.peek(0)["frames"]
+        moved = frames.clone()
+        moved[:, -1] += 1.0
+        params = trainer.state["params"]
+        with torch.no_grad():
+            l1, c1 = trainer.model.prefill(params, frames=frames)
+            l2, _ = trainer.model.prefill(params, frames=moved)
+        first = float((l1[:, 0] - l2[:, 0]).abs().max())
+        check(c1 is None and tuple(l1.shape) == (*frames.shape[:2], trainer.model.cfg.padded_vocab),
+              f"encoder prefill: logits {tuple(l1.shape)}, cache {type(c1).__name__}")
+        check(first > 0, "encoder: changing the last frame left the first position's logits unchanged")
+        paths, live = tree_flatten(params)
+        leaves = [p.detach().requires_grad_() for p in live]
+        loss, _ = trainer.model.loss(tree_unflatten(paths, leaves), trainer.data.peek(0))
+        grads["leaf"] = torch.autograd.grad(loss, leaves[paths.index(PSUM_LEAF)])[0].detach()
+        return dict(first_position_max_abs_change=first, logits_shape=list(l1.shape))
+
+    return probe
+
+
+def psum_run(grad) -> dict:
+    """(c): ``compressed_psum`` of ``grad`` in a one-process NCCL group
+    (rendezvous through a ``file://`` path under ``build/``), held bit for
+    bit against its plain version: ``ref.quantize_blockwise`` then the plain
+    multiply (the all-reduce over one rank is the identity). Returns its
+    numbers; the kernels' launch counts are set to 0 at its start."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.optim.grad_compress import compressed_psum
+
+    PSUM_RDV.parent.mkdir(parents=True, exist_ok=True)
+    PSUM_RDV.unlink(missing_ok=True)
+    dist.init_process_group(PSUM_BACKEND, init_method=f"file://{PSUM_RDV}", world_size=1, rank=0)
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = compressed_psum(grad)
+        torch.cuda.synchronize()
+        psum_s = time.perf_counter() - t0
+        launches = ops.launch_counts()["quantize_blockwise"]
+    finally:
+        dist.destroy_process_group()
+        PSUM_RDV.unlink(missing_ok=True)
+    x = grad.reshape(-1)
+    q, scale = ref.quantize_blockwise(x.to(torch.float32), 256)
+    plain = (q.to(torch.float32) * scale.repeat_interleave(256)).reshape(grad.shape).to(grad.dtype)
+    check(tuple(out.shape) == tuple(grad.shape) and out.dtype == grad.dtype,
+          f"compressed_psum: {tuple(out.shape)} {out.dtype} from {tuple(grad.shape)} {grad.dtype}")
+    equal = bool(torch.equal(out.view(torch.int16), plain.view(torch.int16))) if out.dtype == torch.bfloat16 \
+        else bool(torch.equal(out, plain))
+    check(equal, "compressed_psum differs from the plain quantize then multiply")
+    check(launches > 0, "compressed_psum: B5a was launched no time")
+    return dict(elements=grad.numel(), dtype=str(grad.dtype), psum_s=psum_s, b5a_launches=launches,
+                bit_equal=equal, max_abs_err=float((out.float() - plain.float()).abs().max()))
+
+
+def encoder_vlm_path() -> tuple[dict, dict]:
+    """Phase 12: (a) the Trainer on the hubert-xlarge config through a kill
+    with xor over 8 hosts on B4, phase 7's checks, and its encoder shown
+    bidirectional on the card; (b) the Server on the VLM config with the
+    serve CLI's vision stub, clean and rs over 8 hosts through two kills,
+    tokens bit-equal and the restored cross-attention cache byte-equal to
+    the clean run's; (c) ``compressed_psum`` of a gradient leaf of (a)
+    through B5a. Returns the kernels' launch counts over the phase and each
+    part's numbers."""
+    from repro_torch.core.checkpoint import EngineConfig
+    from repro_torch.kernels import ops
+
+    enc_cfg, vlm_cfg = encoder_vlm_configs()
+    log(f"encoder/vlm: {enc_cfg.name} at {enc_cfg.num_layers} of 48 layers and {vlm_cfg.name} at "
+        f"{vlm_cfg.num_layers} of 100, width kept (HUBERT_LAYERS, VLM_LAYERS: for the run's time)")
+    out, counts, grads = {}, {}, {}
+
+    def add(c: dict) -> None:
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    run, c = trainer_path(enc_cfg, "sync", engine=EngineConfig(**HUBERT_ENGINE), train=ZOO_TRAIN,
+                          label="encoder trainer", probe=encoder_probe(grads))
+    run.update(b4_launches=c["gf256_matmul_dyn"], phase_s=time.perf_counter() - t0)
+    log("encoder trainer: " + json.dumps(run))
+    check(run["b4_launches"] > 0, "encoder trainer: B4 was launched no time")
+    out["trainer"] = run
+    add(c)
+    t0 = time.perf_counter()
+    out["psum"] = dict(**psum_run(grads.pop("leaf")), phase_s=time.perf_counter() - t0)
+    log("compressed_psum: " + json.dumps(out["psum"]))
+    add(ops.launch_counts())
+    t0 = time.perf_counter()
+    c, served = serve_path(vlm_cfg, VLM_RUNS, kernels=("gf256_matmul_dyn",), label="vlm serve", extra=vision_stub)
+    out["vlm serve"] = dict(runs=served, phase_s=time.perf_counter() - t0)
+    add(c)
+    r = out["trainer"]
+    log(f"encoder trainer ({enc_cfg.name}): {r['n_params']} params, setup {r['setup_s']:.2f} s, creates "
+        + json.dumps([round(x["create_s"], 4) for x in r["checkpoints"]])
+        + f" s, restore {r['restore']['restore_s']:.3f} s, step median "
+        f"{statistics.median(r['step_s']) * 1e3:.1f} ms, card peak {r['peak_device_gb']:.2f} GB, host peak "
+        f"{r['host_peak_rss_gib']:.2f} GiB, B4 launches {r['b4_launches']}, first-position change "
+        f"{r['probe']['first_position_max_abs_change']:.4g}")
+    for r in out["vlm serve"]["runs"]:
+        log(f"vlm serve {r['name']}: prefill {r['prefill_s']:.2f} s, creates "
+            + json.dumps([round(x["create_s"], 4) for x in r["checkpoints"]])
+            + " s, restores " + json.dumps([round(x["recover_s"], 4) for x in r["recoveries"]])
+            + f" s, decode median {r['step_ms_median']:.2f} ms, p99 {r['step_ms_p99']:.2f} ms, card peak "
+            f"{r['peak_device_gb']:.2f} GB, host peak {r['host_peak_rss_gib']:.2f} GiB, "
+            f"B4 launches {r['b4_launches']}")
     return counts, out
 
 
@@ -3007,6 +3218,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("phase 11")
+    counts12, runs12 = encoder_vlm_path()
+    log(f"encoder/vlm path launches: {json.dumps(counts12)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("phase 12")
     t0 = time.perf_counter()
     state = init_train_state(layout, mesh, torch.Generator(device="cuda").manual_seed(SEED))
     torch.cuda.synchronize()
@@ -3019,7 +3235,7 @@ def main() -> int:
     phase_done("phase 4")
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in (counts4, counts5, counts6, counts7, counts8, counts8b,
-                                                          counts9, counts10, counts11))
+                                                          counts9, counts10, counts11, counts12))
         k["route"] = "cuda"
         check(k["launches"] > 0, f"kernel {k['name']} was launched no time on the main paths")
     log(f"total {time.perf_counter() - t_start:.1f} s")

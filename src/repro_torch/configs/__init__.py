@@ -1,7 +1,5 @@
 """Architecture config registry: ``get_config(arch)`` / ``--arch`` ids, all
-ten of the reference's. The port's model builds the eight decoders;
-hubert-xlarge and llama-3.2-vision-90b are registered, and their inputs
-raise naming ROADMAP A10."""
+ten of the reference's, and the port's model builds every one of them."""
 
 from __future__ import annotations
 

@@ -1,10 +1,10 @@
 """ModelConfig: one dataclass covering all ten architecture families (the
 fields of ``repro.configs.base.ModelConfig``, with torch dtypes).
 
-The port's model runs the decoders: dense, MoE, Mamba-2 (SSM) and the
-hybrid pattern. The modality fields (``is_encoder``, ``vision_tokens``,
-``frontend_stub_dim``) are carried so that the encoder and VLM configs are
-registered; their inputs raise naming ROADMAP A10. ``moe_mode`` and
+The port's model runs every family: dense, MoE, Mamba-2 (SSM), the hybrid
+pattern, the encoder and the VLM. The modality fields (``is_encoder``,
+``vision_tokens``, ``frontend_stub_dim``) select the encoder's frame inputs
+and the VLM's vision stub and cross-attention slots. ``moe_mode`` and
 ``fsdp_gather_per_layer`` are the reference's GSPMD knobs: inert on one
 card, carried so that ``replace()`` calls written for the reference work."""
 
@@ -61,7 +61,7 @@ class ModelConfig:
     sharding_preset: str = "tp"       # tp | fsdp
     moe_mode: str = "tp"              # tp | ep: the reference's GSPMD option; inert here
     fsdp_gather_per_layer: bool = True  # the reference's GSPMD option; inert here
-    remat: str = "full"               # none | full ("dots" is not ported)
+    remat: str = "full"               # none | full | dots
     attn_chunk: int = 1024            # blockwise-attention query/KV chunk
     scan_layers: bool = True          # the reference's lax.scan; the port always loops
     optimizer_dtype: Any = torch.float32  # moments dtype

@@ -7,10 +7,14 @@ makes the replayed trajectory bitwise identical.
 
 The token stream follows a fixed random bigram permutation (x[t] =
 perm[x[t-1]] with 5% noise resets), so the model can reduce its loss on it
-quickly. The draws are the reference's, key for key, on the port's
-threefry (``utils/threefry.py``): the same ``(seed, step)`` gives the same
-int32 tokens as ``repro.data.synthetic``, byte for byte. Batches are made on
-the host and moved to the pipeline's device.
+quickly. The encoder's batch is frame embeddings, random labels and a
+HuBERT-style masked-prediction mask (8% of the positions); the VLM's adds a
+vision stub of patch embeddings to the token stream. The draws are the
+reference's, key for key, on the port's threefry (``utils/threefry.py``):
+the same ``(seed, step)`` gives the same int32 tokens and labels and the
+same mask as ``repro.data.synthetic``, byte for byte, and normals within
+``threefry.normal``'s few ulp. Batches are made on the host and moved to
+the pipeline's device.
 """
 
 from __future__ import annotations
@@ -27,10 +31,12 @@ NOISE_P = 0.05
 
 
 def make_batch(cfg: ModelConfig, seed: int, step: int, batch: int, seq: int) -> dict[str, torch.Tensor]:
-    """One global batch (int32 CPU tensors) from (seed, step)."""
-    if cfg.is_encoder or cfg.vision_tokens:
-        raise NotImplementedError(f"{cfg.name}: encoder and VLM batches wait for ROADMAP A10")
-    k1, k2, _ = threefry.split(threefry.fold_in(threefry.PRNGKey(seed), step), 3)
+    """One global batch (CPU tensors) from (seed, step)."""
+    k1, k2, k3 = threefry.split(threefry.fold_in(threefry.PRNGKey(seed), step), 3)
+    if cfg.is_encoder:
+        return {"frames": threefry.normal(k1, (batch, seq, cfg.frontend_stub_dim)),
+                "labels": threefry.randint(k2, (batch, seq), 0, cfg.vocab_size),
+                "mask": threefry.bernoulli(k3, 0.08, (batch, seq))}
     v = cfg.vocab_size
     # the permutation depends only on the seed: the mapping is stationary
     perm = threefry.permutation(threefry.PRNGKey(seed ^ 0x5EED), v)
@@ -42,7 +48,10 @@ def make_batch(cfg: ModelConfig, seed: int, step: int, batch: int, seq: int) -> 
     for t in range(seq):
         prev = torch.where(noise_mask[:, t], noise_tok[:, t], perm[prev.long()])
         toks[:, t] = prev
-    return {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    out = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    if cfg.vision_tokens:
+        out["vision"] = threefry.normal(k3, (batch, cfg.vision_tokens, cfg.frontend_stub_dim))
+    return out
 
 
 class SyntheticDataPipeline:

@@ -5,9 +5,10 @@
 
 Without ``--device`` it serves on the card (``cuda``) and raises where there
 is none. ``--arch`` takes every registered config and defaults to
-``llama3.2-1b``; the eight decoders serve (dense, MoE, Mamba-2 and the
-hybrid). hubert-xlarge has no decode step (the ``Server`` refuses
-encoders), and llama-3.2-vision-90b's inputs wait for ROADMAP A10.
+``llama3.2-1b``; the nine decoding configs serve (dense, MoE, Mamba-2, the
+hybrid and the VLM, whose vision stub is drawn from ``PRNGKey(0)`` as the
+reference's CLI draws it). hubert-xlarge is encoder-only and exits with the
+reference's message.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from repro_torch.models import build_model
 from repro_torch.obs.trace import tracer
 from repro_torch.runtime.failures import FailureInjector
 from repro_torch.runtime.server import Server, ServerConfig
+from repro_torch.utils import threefry
 from repro_torch.utils.logging import get_logger
 
 log = get_logger("launch.serve")
@@ -74,6 +76,8 @@ def main(argv: list[str] | None = None) -> np.ndarray:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.is_encoder:
+        raise SystemExit(f"{cfg.name} is encoder-only (no decode step)")
     model = build_model(cfg)
 
     injector = None
@@ -94,8 +98,12 @@ def main(argv: list[str] | None = None) -> np.ndarray:
     if args.metrics_port is not None:
         server.start_metrics_server(args.metrics_port)
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32)
+    extra = {}
+    if cfg.vision_tokens:
+        extra["vision"] = threefry.normal(threefry.PRNGKey(0), (args.batch, cfg.vision_tokens,
+                                                                cfg.frontend_stub_dim), device=server.device)
     try:
-        out = server.prefill_and_decode(prompts, args.gen)
+        out = server.prefill_and_decode(prompts, args.gen, **extra)
     finally:
         server.close()
     log.info("generated %d tokens x %d sessions; %d recoveries (%d via replica promotion)",

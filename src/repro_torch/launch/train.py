@@ -5,8 +5,9 @@
         --device cpu --steps 12 --period 4 --kill-at 6:2 --out history.json
 
 Without ``--device`` it trains on the card (``cuda``) and raises where there
-is none. ``--arch`` takes every registered config; the eight decoders train
-(hubert-xlarge and llama-3.2-vision-90b raise naming ROADMAP A10).
+is none. ``--arch`` takes every registered config: the decoders on the
+token stream, hubert-xlarge on masked prediction over frame embeddings,
+llama-3.2-vision-90b on the token stream with a vision stub per batch.
 ``--kill-at STEP:HOST[,STEP:HOST]`` kills hosts at given steps, as
 ``launch/serve.py``'s ``--kill-at`` does at decode ticks (a kill before the
 first checkpoint has nothing to restore: at the default MTBF the

@@ -1,5 +1,6 @@
-"""Attention for the decoders (dense, MoE, hybrid): GQA/MQA, sliding
-window, softcap.
+"""Attention: GQA/MQA, sliding window, softcap, cross-attention (the VLM's
+"cross" slots, keys and values from the projected vision stub), KV-cache
+decode.
 
 Training runs the reference's blockwise (flash-style) formulation in plain
 tensor ops: a loop over query chunks, each an online softmax over its
@@ -13,8 +14,8 @@ Decode attends a single query over the whole ``max_seq`` KV cache with a
 position mask, as the reference does, and writes the new token's k/v into
 the cache **in place** at ``pos`` (the reference returns a new cache): the
 cache is allocated once per serving session and never rebuilt per token.
-
-Not ported yet: cross-attention (ROADMAP A10).
+A cross slot's cache holds ``vision_tokens`` rows, filled at prefill and
+only read by decode.
 """
 
 from __future__ import annotations
@@ -37,8 +38,8 @@ NEG_INF = -2.0e38
 # ---------------------------------------------------------------------------
 
 def abstract_params(cfg: ModelConfig, cross: bool = False) -> dict[str, ParamSpec]:
-    if cross:
-        raise NotImplementedError("cross-attention (VLM) waits for ROADMAP A10")
+    """The same four leaves for self- and cross-attention (``cross`` is the
+    reference's signature)."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     dt = cfg.param_dtype
     return {
@@ -163,28 +164,31 @@ def apply(
     x: torch.Tensor,                 # (B, S, d_model)
     cfg: ModelConfig,
     *,
-    kind: str,                       # attn | local
+    kind: str,                       # attn | local | cross
+    kv_src: torch.Tensor | None = None,  # cross-attention source (B, S_kv, d_model)
     positions: torch.Tensor | None = None,
     q_offset: int = 0,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """Returns (output, kv) where kv holds this layer's k/v for cache building."""
-    if kind not in ("attn", "local"):
-        raise NotImplementedError(f"attention kind {kind!r}: cross-attention waits for ROADMAP A10")
+    """Returns (output, kv) where kv holds this layer's k/v for cache
+    building. A cross slot takes q from ``x`` and k/v from ``kv_src``, with
+    no RoPE and no causal mask."""
     B, S, _ = x.shape
     if positions is None:
         positions = q_offset + torch.arange(S, device=x.device)
 
     q = einsum("bsd,dhk->bshk", x, params["wq"]).to(cfg.compute_dtype)
-    k = einsum("bsd,dhk->bshk", x, params["wk"]).to(cfg.compute_dtype)
-    v = einsum("bsd,dhk->bshk", x, params["wv"]).to(cfg.compute_dtype)
+    src = x if kv_src is None else kv_src
+    k = einsum("bsd,dhk->bshk", src, params["wk"]).to(cfg.compute_dtype)
+    v = einsum("bsd,dhk->bshk", src, params["wv"]).to(cfg.compute_dtype)
 
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if kind != "cross":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     window = cfg.sliding_window if kind == "local" else None
 
     o = blockwise_attention(
         q, k, v,
-        causal=not cfg.is_encoder,
+        causal=kind != "cross" and not cfg.is_encoder,
         window=window,
         attn_cap=cfg.attn_softcap,
         q_offset=q_offset,
@@ -200,13 +204,12 @@ def apply(
 # ---------------------------------------------------------------------------
 
 def decode_cache_spec(cfg: ModelConfig, batch: int, max_seq: int, kind: str) -> dict[str, ParamSpec]:
-    if kind == "cross":
-        raise NotImplementedError("cross-attention (VLM) waits for ROADMAP A10")
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    seq = cfg.vision_tokens if kind == "cross" else max_seq
     dims = ("batch", "kv_seq", "kv_heads", None)
     return {
-        "k": ParamSpec((batch, max_seq, kv, hd), dims, dtype=cfg.compute_dtype, init="zeros"),
-        "v": ParamSpec((batch, max_seq, kv, hd), dims, dtype=cfg.compute_dtype, init="zeros"),
+        "k": ParamSpec((batch, seq, kv, hd), dims, dtype=cfg.compute_dtype, init="zeros"),
+        "v": ParamSpec((batch, seq, kv, hd), dims, dtype=cfg.compute_dtype, init="zeros"),
     }
 
 
@@ -220,23 +223,26 @@ def decode(
     kind: str,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """One token through the layer. The new k/v land in ``cache`` at ``pos``
-    (``index_copy_``: no host sync on ``pos``); returns (output, cache)."""
-    if kind not in ("attn", "local"):
-        raise NotImplementedError(f"attention kind {kind!r}: cross-attention waits for ROADMAP A10")
+    (``index_copy_``: no host sync on ``pos``); a cross slot reads its
+    static cache, filled at prefill, and writes nothing. Returns (output,
+    cache)."""
     B = x.shape[0]
-    at = pos.reshape(1, 1)
     q = einsum("bsd,dhk->bshk", x, params["wq"]).to(cfg.compute_dtype)
-    q = apply_rope(q, at, cfg.rope_theta)
-    knew = einsum("bsd,dhk->bshk", x, params["wk"]).to(cfg.compute_dtype)
-    vnew = einsum("bsd,dhk->bshk", x, params["wv"]).to(cfg.compute_dtype)
-    knew = apply_rope(knew, at, cfg.rope_theta)
     k, v = cache["k"], cache["v"]
-    k.index_copy_(1, pos.reshape(1).to(torch.int64), knew)
-    v.index_copy_(1, pos.reshape(1).to(torch.int64), vnew)
-    idx = torch.arange(k.shape[1], device=k.device)
-    valid = idx <= pos
-    if kind == "local":
-        valid &= idx > pos - cfg.sliding_window
+    if kind == "cross":
+        valid = torch.ones((k.shape[1],), dtype=torch.bool, device=k.device)
+    else:
+        at = pos.reshape(1, 1)
+        q = apply_rope(q, at, cfg.rope_theta)
+        knew = einsum("bsd,dhk->bshk", x, params["wk"]).to(cfg.compute_dtype)
+        vnew = einsum("bsd,dhk->bshk", x, params["wv"]).to(cfg.compute_dtype)
+        knew = apply_rope(knew, at, cfg.rope_theta)
+        k.index_copy_(1, pos.reshape(1).to(torch.int64), knew)
+        v.index_copy_(1, pos.reshape(1).to(torch.int64), vnew)
+        idx = torch.arange(k.shape[1], device=k.device)
+        valid = idx <= pos
+        if kind == "local":
+            valid &= idx > pos - cfg.sliding_window
 
     KV, D = k.shape[2], k.shape[3]
     H = q.shape[2]

@@ -1,10 +1,7 @@
-"""One stack "slot": pre-norm mixer (attn/local self-attention or a Mamba-2
-SSD block) + optional FFN (dense MLP or MoE). A period =
-cfg.layer_pattern of slots; the model loops over periods with per-slot
-parameters stacked.
-
-Cross-attention (the VLM's "cross" slots) waits for ROADMAP A10 and raises
-``NotImplementedError`` naming it, in ``attention.py``.
+"""One stack "slot": pre-norm mixer (attn/local self-attention,
+cross-attention over the projected vision stub, or a Mamba-2 SSD block) +
+optional FFN (dense MLP or MoE). A period = cfg.layer_pattern of slots; the
+model loops over periods with per-slot parameters stacked.
 """
 
 from __future__ import annotations
@@ -41,9 +38,11 @@ def apply_block(
     cfg: ModelConfig,
     slot: int,
     *,
+    vision_kv: torch.Tensor | None = None,
     q_offset: int = 0,
 ) -> tuple[torch.Tensor, dict[str, Any], torch.Tensor]:
-    """Full-sequence block application. Returns (h, cache_entry, moe_aux)."""
+    """Full-sequence block application; a "cross" slot attends to
+    ``vision_kv``. Returns (h, cache_entry, moe_aux)."""
     kind = cfg.layer_pattern[slot]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
 
@@ -51,7 +50,8 @@ def apply_block(
     if kind == "mamba":
         mixed, cache = ssm.apply(params["mixer"], hin, cfg)
     else:
-        mixed, cache = attention.apply(params["mixer"], hin, cfg, kind=kind, q_offset=q_offset)
+        mixed, cache = attention.apply(params["mixer"], hin, cfg, kind=kind,
+                                       kv_src=vision_kv if kind == "cross" else None, q_offset=q_offset)
     h = h + mixed
 
     if cfg.d_ff > 0:

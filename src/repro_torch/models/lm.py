@@ -1,13 +1,20 @@
-"""The decoder LM for the dense, MoE, Mamba-2 (SSM) and hybrid families:
-parameter declarations, forward pass, train loss, prefill and the
-single-token decode step.
+"""The full model for all ten architectures (decoder LM, MoE, Mamba-2 (SSM),
+hybrid, encoder-only, VLM backbone): parameter declarations, forward pass,
+train loss, prefill and the single-token decode step.
 
 Parameters keep the reference's layout, per-slot leaves stacked along a
 leading "layers" dim (``params["layers"]["slot0"][leaf][i]`` is layer i):
 the checkpoint's shard plan, manifests and bytes are keyed on it. The
 reference scans over periods with ``lax.scan``; the port loops over them in
 Python, each period under ``torch.utils.checkpoint`` when ``cfg.remat`` is
-``"full"``.
+``"full"`` (nothing saved), or ``"dots"`` (the matmul outputs saved, the
+rest recomputed: ``jax.checkpoint_policies.checkpoint_dots``).
+
+Inputs by family: token ids (decoders); precomputed frame embeddings of
+width ``frontend_stub_dim`` through ``in_proj`` (the encoder, which attends
+bidirectionally and has no decode step); token ids plus a vision stub of
+``vision_tokens`` patch embeddings, projected once per forward by
+``vision_proj`` into the keys and values of the "cross" slots (the VLM).
 
 The decode cache is the reference's, stacked over the periods: per
 attention slot k and v of shape ``(num_periods, batch, max_seq, kv_heads,
@@ -15,10 +22,8 @@ head_dim)``, per Mamba slot ``conv`` (the last ``ssm_conv - 1`` raw xBC
 rows) and ``state`` (the SSD state, f32). ``decode_step`` writes each
 layer's new entries into it in place and returns the same tree. The MoE
 slots' load-balance losses are summed over the stack; ``loss_fn`` adds
-their mean over the layers times ``aux_weight``.
-
-Not ported yet: ``remat="dots"`` (the reference's save-the-matmuls policy),
-encoder and VLM inputs (ROADMAP A10).
+their mean over the layers times ``aux_weight``. A cross slot's cache holds
+the ``vision_tokens`` keys and values from prefill; decode only reads it.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks, moe
@@ -46,13 +51,15 @@ LOSS_CHUNK = 512  # sequence-chunked cross-entropy (bounds logits memory)
 
 def abstract_params(cfg: ModelConfig) -> dict[str, Any]:
     """The one declaration of the params (the train-state layout derives
-    from it too). Raises for what the port does not declare yet."""
-    if cfg.is_encoder or cfg.vision_tokens or cfg.frontend_stub_dim:
-        raise NotImplementedError(f"{cfg.name}: encoder and VLM inputs wait for ROADMAP A10")
+    from it too)."""
     p: dict[str, Any] = {
         "embed": embed_spec(cfg.padded_vocab, cfg.d_model, cfg.param_dtype),
         "final_norm": rmsnorm_spec(cfg.d_model),
     }
+    if cfg.is_encoder and cfg.frontend_stub_dim:
+        p["in_proj"] = ParamSpec((cfg.frontend_stub_dim, cfg.d_model), (None, "embed"), dtype=cfg.param_dtype)
+    if cfg.vision_tokens:
+        p["vision_proj"] = ParamSpec((cfg.frontend_stub_dim, cfg.d_model), (None, "embed"), dtype=cfg.param_dtype)
     if not cfg.tie_embeddings:
         p["head"] = ParamSpec((cfg.d_model, cfg.padded_vocab), ("embed", "vocab"), dtype=cfg.param_dtype)
     layers = {}
@@ -80,7 +87,7 @@ def active_param_count(cfg: ModelConfig) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Forward (train)
+# Forward (train / prefill)
 # ---------------------------------------------------------------------------
 
 def _embed_tokens(params: dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -90,31 +97,55 @@ def _embed_tokens(params: dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig
     return h
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``checkpoint_dots``: keep the matmul outputs, recompute the rest."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _remat(fn, cfg: ModelConfig):
     if cfg.remat == "none":
         return fn
     if cfg.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save the matmul outputs only) is not ported; see ROADMAP A3's leftovers")
+        return partial(checkpoint, fn, use_reentrant=False,
+                       context_fn=partial(create_selective_checkpoint_contexts, _save_dots))
     return partial(checkpoint, fn, use_reentrant=False)
 
 
 def forward(
     params: dict[str, Any],
     cfg: ModelConfig,
-    tokens: torch.Tensor,
+    tokens: torch.Tensor | None = None,    # (B, S) integers
+    *,
+    frames: torch.Tensor | None = None,    # (B, S, stub) encoder inputs
+    vision: torch.Tensor | None = None,    # (B, V, stub) VLM patch embeddings
     collect_cache: bool = False,
 ) -> tuple[torch.Tensor, Any, torch.Tensor]:
-    """tokens (B, S) integers -> (final hidden (B, S, D), cache, moe_aux).
-    With ``collect_cache`` the cache holds each slot's entries stacked over
-    the periods (k/v: (num_periods, B, S, KV, D); Mamba: conv and state);
-    else it is None."""
-    h = _embed_tokens(params, tokens, cfg)
+    """-> (final hidden (B, S, D), cache, moe_aux). With ``collect_cache``
+    the cache holds each slot's entries stacked over the periods (k/v:
+    (num_periods, B, S, KV, D), a cross slot's S the vision tokens; Mamba:
+    conv and state); else it is None."""
+    if cfg.is_encoder and cfg.frontend_stub_dim:
+        if frames is None:
+            raise ValueError(f"{cfg.name} takes frame embeddings (frames=)")
+        h = einsum("bse,ed->bsd", frames.to(cfg.compute_dtype), params["in_proj"])
+    else:
+        if tokens is None:
+            raise ValueError(f"{cfg.name} takes token ids (tokens=)")
+        h = _embed_tokens(params, tokens, cfg)
+
+    vision_kv = None
+    if cfg.vision_tokens:
+        if vision is None:
+            raise ValueError(f"{cfg.name} requires vision embeddings (vision=)")
+        vision_kv = einsum("bve,ed->bvd", vision.to(cfg.compute_dtype), params["vision_proj"])
 
     def period_body(h, aux, layer_params):
         caches = {}
         for j in range(cfg.period):
-            h, cache_j, aux_j = blocks.apply_block(layer_params[f"slot{j}"], h, cfg, j)
+            h, cache_j, aux_j = blocks.apply_block(layer_params[f"slot{j}"], h, cfg, j, vision_kv=vision_kv)
             aux = aux + aux_j
             if collect_cache:
                 caches[f"slot{j}"] = cache_j
@@ -174,8 +205,9 @@ def loss_fn(
     cfg: ModelConfig,
     aux_weight: float = 0.01,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """Mean next-token cross-entropy (+ the MoE aux loss, 0 for dense)."""
-    h, _, aux = forward(params, cfg, batch["tokens"])
+    """Mean next-token (or, with the batch's ``mask``, masked-prediction)
+    cross-entropy (+ the MoE aux loss, 0 for dense)."""
+    h, _, aux = forward(params, cfg, batch.get("tokens"), frames=batch.get("frames"), vision=batch.get("vision"))
     labels = batch["labels"]
     mask = batch.get("mask")
     if mask is None:
@@ -206,9 +238,19 @@ def loss_fn(
 # Serving: prefill + single-token decode
 # ---------------------------------------------------------------------------
 
-def prefill(params: dict[str, Any], cfg: ModelConfig, *, tokens: torch.Tensor) -> tuple[torch.Tensor, Any]:
-    """Returns (last-position logits (B, V), cache of length S)."""
-    h, cache, _ = forward(params, cfg, tokens, collect_cache=True)
+def prefill(
+    params: dict[str, Any],
+    cfg: ModelConfig,
+    *,
+    tokens: torch.Tensor | None = None,
+    frames: torch.Tensor | None = None,
+    vision: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, Any]:
+    """Returns (last-position logits (B, V), cache of length S). Encoder:
+    (every position's logits (B, S, V), None)."""
+    h, cache, _ = forward(params, cfg, tokens, frames=frames, vision=vision, collect_cache=not cfg.is_encoder)
+    if cfg.is_encoder:
+        return logits_fn(params, h, cfg), None
     return logits_fn(params, h[:, -1, :], cfg), cache
 
 
@@ -221,6 +263,8 @@ def decode_step(
 ) -> tuple[torch.Tensor, Any]:
     """One decode step: returns (logits (B, V) for position pos, cache), the
     cache written in place."""
+    if cfg.is_encoder:
+        raise ValueError(f"{cfg.name}: encoder-only archs have no decode step")
     h = _embed_tokens(params, token[:, None], cfg)  # (B, 1, D)
     for i in range(cfg.num_periods):
         layer_params = tree_map(lambda x: x[i], params["layers"])

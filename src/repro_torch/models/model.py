@@ -58,8 +58,9 @@ class Model:
     def loss(self, params: Any, batch: dict[str, torch.Tensor]):
         return lm.loss_fn(params, batch, self.cfg)
 
-    def prefill(self, params: Any, tokens: torch.Tensor):
-        return lm.prefill(params, self.cfg, tokens=tokens)
+    def prefill(self, params: Any, tokens: torch.Tensor | None = None, frames: torch.Tensor | None = None,
+                vision: torch.Tensor | None = None):
+        return lm.prefill(params, self.cfg, tokens=tokens, frames=frames, vision=vision)
 
     def decode_step(self, params: Any, cache: Any, token: torch.Tensor, pos: torch.Tensor):
         return lm.decode_step(params, cache, token, pos, self.cfg)

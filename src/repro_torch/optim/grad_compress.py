@@ -9,8 +9,9 @@ result into the partner copy. A quantized leaf becomes the dict
 index, size]}``, byte for byte the reference's, so the packed buffers and
 their manifests are the same.
 
-``compressed_psum`` (the quantized all-reduce) waits for the collectives
-(ROADMAP A10).
+``compressed_psum``: the quantized all-reduce for manual data-parallel
+gradient reduction over a ``torch.distributed`` group (the reference's is a
+``psum`` inside ``shard_map``).
 """
 
 from __future__ import annotations
@@ -18,9 +19,11 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.serialization import dtype_from_name, dtype_name
 from repro_torch.kernels import ops
+from repro_torch.kernels.quantize import ROWS_PER_TILE
 
 # dtype registry so compressed payloads stay pure-tensor trees (packable to
 # flat bytes + manifest without string leaves).
@@ -75,3 +78,22 @@ def _map(fn, tree: Any, is_leaf) -> Any:
     if isinstance(tree, dict) and not is_leaf(tree):
         return {k: _map(fn, v, is_leaf) for k, v in tree.items()}
     return fn(tree)
+
+
+def compressed_psum(x: torch.Tensor, group: Any = None, block: int = 256) -> torch.Tensor:
+    """Quantize (B5a on the card), dequantize locally, all-reduce (SUM) over
+    ``group``, and cast back to ``x``'s shape and dtype: int8 gradient
+    all-reduce's numerics, quantize once then sum. The reference reshapes
+    the padded length back to ``x``'s shape, which works only when
+    ``x.numel()`` is a multiple of ``block * ROWS_PER_TILE`` (8192); the port
+    raises a ``ValueError`` for any other size."""
+    tile = block * ROWS_PER_TILE
+    if x.numel() % tile:
+        raise ValueError(f"compressed_psum: {x.numel()} elements is not a multiple of block x "
+                         f"ROWS_PER_TILE = {tile} (the padded codes do not reshape to {tuple(x.shape)})")
+    q, scale = ops.quantize_blockwise(x.reshape(-1), block)
+    # the wire format of a real int8 all-reduce stays int8 per hop; the
+    # numerics (quantize once, then sum) are these
+    deq = q.to(torch.float32) * scale.repeat_interleave(block)[: q.numel()]
+    dist.all_reduce(deq, op=dist.ReduceOp.SUM, group=group)
+    return deq.reshape(x.shape).to(x.dtype)

@@ -228,17 +228,20 @@ class Server:
             self.replica.engine.close()
 
     # ------------------------------------------------------------------ #
-    def prefill(self, prompts: Any) -> None:
-        """prompts: (batch, prompt_len) integers. Allocates the ``max_seq``
-        sessions on the device and fills them from the prompt's cache."""
+    def prefill(self, prompts: Any, **extra_inputs: Any) -> None:
+        """prompts: (batch, prompt_len) integers; ``extra_inputs`` the
+        model's other inputs (the VLM's ``vision``). Allocates the
+        ``max_seq`` sessions on the device and fills them from the prompt's
+        cache (a cross slot's ``vision_tokens`` rows whole)."""
         toks = torch.as_tensor(np.asarray(prompts, dtype=np.int32)).to(self.device)
+        extra = {k: torch.as_tensor(v).to(self.device) for k, v in extra_inputs.items()}
         B, P = toks.shape
         if B != self.scfg.batch:
             raise ValueError(f"{B} prompts for a batch of {self.scfg.batch}")
         if P >= self.scfg.max_seq:
             raise ValueError(f"prompt length {P} leaves no room in max_seq {self.scfg.max_seq}")
         with torch.no_grad():
-            logits, pcache = self.model.prefill(self.params, toks)
+            logits, pcache = self.model.prefill(self.params, toks, **extra)
             cache = self.model.init_cache(B, self.scfg.max_seq, self.device)
             for full, part in zip(tree_leaves(cache), tree_leaves(pcache)):
                 full[tuple(slice(0, n) for n in part.shape)] = part
@@ -323,9 +326,9 @@ class Server:
     def _produced(self) -> int:
         return int(self.sessions["pos"]) - self._prompt_len
 
-    def prefill_and_decode(self, prompts: Any, n_tokens: int) -> np.ndarray:
+    def prefill_and_decode(self, prompts: Any, n_tokens: int, **extra: Any) -> np.ndarray:
         self._prompt_len = int(np.shape(prompts)[1])
-        self.prefill(prompts)
+        self.prefill(prompts, **extra)
         # first checkpoint right after prefill (the serving baseline state)
         if self.engine.checkpoint({"pos": self._prompt_len}):
             if self.replica is not None:

@@ -209,7 +209,8 @@ class Trainer:
             paths, live = tree_flatten(state["params"])
             leaves = [p.detach().requires_grad_() for p in live]
             loss, metrics = model.loss(tree_unflatten(paths, leaves), batch)
-            grads = torch.autograd.grad(loss, leaves)
+            # zeros for a leaf the loss does not read (the encoder's embedding)
+            grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
             stats = adamw_update(tree_unflatten(paths, list(grads)), state["params"], state["opt"],
                                  state["step"], hp, lr_schedule=sched)
             return {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}, **stats}

@@ -9,8 +9,9 @@ cases; ``... state OUT.npz`` runs the llama3.2-1b layout and slice cases;
 through two kills (``TRAINER_CASE``); ``... trainer_tiers OUT.npz`` the
 reference ``Trainer`` through a whole-system loss and a cold 4 -> 3 restart
 from its disk rung (``TRAINER_TIERS_CASE``); ``... async OUT.npz`` the create
-drain's and the pipelined restore's cases (``async_cases``). The arrays go to the ``.npz``, the
-metadata to ``OUT.npz.json``.
+drain's and the pipelined restore's cases (``async_cases``); ``... psum OUT.npz`` the reference's
+``compressed_psum`` under ``shard_map`` over 4 devices (``psum_inputs``). The arrays go to the
+``.npz``, the metadata to ``OUT.npz.json``.
 
 The engine cases' entities (``ShardedVec``, ``Counter``, ``engine_state``),
 the dump of an engine's committed stores (``dump_engine``) and the elastic
@@ -1148,6 +1149,52 @@ def run_trainer_tiers(out_path: str) -> None:
     _save(out_path, arrays, meta)
 
 
+PSUM_WORLD = 4
+
+
+def psum_inputs() -> dict:
+    """Per-rank gradient shards for ``compressed_psum`` (rank r's is row r):
+    f32 of 8192 and of (2, 8192) elements, bf16 of 8192, with magnitudes
+    spread over blocks; and a ragged f32 shard of 5000, which neither
+    package reduces."""
+    rng = np.random.default_rng(11)
+
+    def grads(shape):
+        spread = np.exp(rng.uniform(-6, 3, (PSUM_WORLD, *shape[:-1], shape[-1] // 256, 1)))
+        x = rng.standard_normal((PSUM_WORLD, *shape[:-1], shape[-1] // 256, 256)) * spread
+        return x.reshape(PSUM_WORLD, *shape).astype(np.float32)
+
+    import ml_dtypes
+
+    return {"f32": grads((8192,)), "f32_2d": grads((2, 8192)),
+            "bf16": grads((8192,)).astype(ml_dtypes.bfloat16),
+            "ragged": rng.standard_normal((PSUM_WORLD, 5000)).astype(np.float32)}
+
+
+def run_psum(out_path: str) -> None:
+    """Each case's per-rank results (identical on every rank), or the name
+    of the exception the reference raised."""
+    from jax.sharding import Mesh
+
+    from repro.optim.grad_compress import compressed_psum
+    from repro.sharding.mesh import shard_map
+
+    mesh = Mesh(np.array(jax.devices()[:PSUM_WORLD]), ("d",))
+    arrays, meta = {}, {}
+    for name, x in psum_inputs().items():
+        g = jnp.asarray(x.reshape(-1, *x.shape[2:]))  # the ranks' shards stacked on the leading dim
+        fn = jax.jit(shard_map(lambda s: compressed_psum(s, "d"), mesh=mesh, in_specs=P("d"), out_specs=P("d"),
+                               check_rep=False))
+        try:
+            out = np.asarray(fn(jax.device_put(g, NamedSharding(mesh, P("d")))))
+        except Exception as e:  # the reference's failure on a ragged shard
+            meta[name] = type(e).__name__
+            continue
+        arrays[name] = out.reshape(x.shape)
+        meta[name] = "ok"
+    _save(out_path, arrays, meta)
+
+
 def _save(out_path: str, arrays: dict, meta: dict) -> None:
     # bf16 leaves travel as their 16-bit patterns (npz has no bf16)
     enc = {}
@@ -1180,4 +1227,4 @@ def load(out_path: str) -> tuple[dict, dict]:
 if __name__ == "__main__":
     {"device_tier": run_device_tier, "state": run_state, "engine": run_engine,
      "elastic": run_elastic, "trainer": run_trainer, "async": run_async,
-     "trainer_tiers": run_trainer_tiers}[sys.argv[1]](sys.argv[2])
+     "trainer_tiers": run_trainer_tiers, "psum": run_psum}[sys.argv[1]](sys.argv[2])

@@ -8,9 +8,9 @@ attention decode layer alone (global and sliding-window), and the session
 ``ShardPlan`` against the reference server's. Then each case of
 tests/test_server.py on the port's ``Server``: the generated tokens must
 equal both the port's fault-free run and the reference ``Server``'s tokens
-(run in-process, fault-free, once). tests/test_server.py's encoder case is
-not mirrored: the port has no encoder config until ROADMAP A10. Then the
-elastic policy 4 -> 3 -> 2, the metrics endpoint against the engine's stats
+(run in-process, fault-free, once); its encoder case, a ``Server`` on the
+reduced hubert-xlarge refused (the port raises ``ValueError`` where the
+reference asserts), and the serve CLI's exit on it. Then the elastic policy 4 -> 3 -> 2, the metrics endpoint against the engine's stats
 (tests/test_obs.py), and the serve CLI.
 """
 
@@ -187,6 +187,14 @@ def test_session_plan_matches_reference(setup, batch):
 # ---------------------------------------------------------------------------
 # tests/test_server.py on the port
 # ---------------------------------------------------------------------------
+
+def test_encoder_arch_rejected():
+    model = build_model(get_config("hubert-xlarge").reduced())
+    with pytest.raises(ValueError, match="encoder"):
+        Server(model, ServerConfig(batch=2, max_seq=16), device="cpu")
+    with pytest.raises(SystemExit, match="hubert-xlarge-reduced is encoder-only"):
+        serve.main(["--arch", "hubert-xlarge", "--reduced", "--device", "cpu"])
+
 
 def test_fault_free_run_matches_reference_server(clean, ref_tokens):
     assert clean.dtype == np.int32 and clean.shape == (4, SERVE["max_seq"])

@@ -1,17 +1,18 @@
 """The port's model zoo on the CPU: every config against the JAX package's,
-and the twins of ``tests/test_models.py`` for the eight decoders the port
-builds (dense, MoE, Mamba-2 and the hybrid) at their reduced size.
+and the twins of ``tests/test_models.py`` for all ten archs (dense, MoE,
+Mamba-2, the hybrid, the encoder and the VLM) at their reduced size.
 
 * Configs: all ten registered, every field equal to the reference's (dtypes
   by name), their derived properties and reduced forms too; the input
   shapes and the (arch x shape) applicability matrix.
 * Declarations: ``abstract_params`` of every reduced config equal to the
-  reference's (paths, shapes, logical dims, init rules, dtypes);
-  hubert-xlarge and llama-3.2-vision-90b raise naming ROADMAP A10. At full
+  reference's (paths, shapes, logical dims, init rules, dtypes). At full
   width, the parameter and active-parameter counts equal the reference's.
-* ``tests/test_models.py``'s smoke train step, forward shapes, decode
-  against prefill (err < 5e-4; MoE dropless), the sliding window (mixtral),
-  vocab padding (granite) and the MoE aux loss.
+* ``tests/test_models.py``'s smoke train step and forward shapes (all ten),
+  decode against prefill (the nine decoding archs; err < 5e-4; MoE
+  dropless), the sliding window (mixtral), vocab padding (granite) and the
+  MoE aux loss. The encoder's inputs are frames (and its loss masked
+  prediction), the VLM's tokens and a vision stub.
 * ``launch/train.py`` on the reduced mixtral through a kill against its
   clean run (and the reference's CLI), and
   ``examples/fault_tolerance_demo_torch.py --device cpu``.
@@ -43,8 +44,8 @@ from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
 from repro_torch.utils import threefry
 from repro_torch.utils.pytree import tree_flatten, tree_leaves, tree_unflatten
 
-DECODERS = [a for a in list_archs() if not (CONFIGS[a].is_encoder or CONFIGS[a].vision_tokens)]
-UNPORTED_INPUTS = ("hubert-xlarge", "llama-3.2-vision-90b")
+ARCHS = list_archs()
+DECODING = [a for a in ARCHS if not CONFIGS[a].is_encoder]  # all but the encoder
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -71,7 +72,7 @@ def _fields(cfg) -> dict:
 
 def test_every_reference_config_is_registered():
     assert list_archs() == sorted(REF_CONFIGS) and len(CONFIGS) == 10
-    assert sorted(DECODERS + list(UNPORTED_INPUTS)) == list_archs()
+    assert [a for a in ARCHS if a not in DECODING] == ["hubert-xlarge"]
 
 
 @pytest.mark.parametrize("arch", sorted(REF_CONFIGS))
@@ -105,10 +106,6 @@ def _ref_specs(tree):
 @pytest.mark.parametrize("arch", sorted(REF_CONFIGS))
 def test_abstract_params_match_reference(arch):
     ref = ref_lm.abstract_params(REF_CONFIGS[arch].reduced())
-    if arch in UNPORTED_INPUTS:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A10\b"):
-            lm.abstract_params(CONFIGS[arch].reduced())
-        return
     paths, specs = tree_flatten(lm.abstract_params(CONFIGS[arch].reduced()))
     want = _ref_specs(ref)
     assert paths == [p for p, _ in want]
@@ -117,7 +114,7 @@ def test_abstract_params_match_reference(arch):
         assert str(a.dtype).split(".")[-1] == np.dtype(b.dtype).name, p
 
 
-@pytest.mark.parametrize("arch", DECODERS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_full_width_param_counts_match_reference(arch):
     model, ref = build_model(CONFIGS[arch]), ref_build_model(REF_CONFIGS[arch])
     assert model.n_params == ref.n_params == lm.param_count(CONFIGS[arch])
@@ -134,18 +131,33 @@ def _tokens(cfg, B: int, S: int, seed: int = 0) -> torch.Tensor:
     return torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32))
 
 
-@pytest.mark.parametrize("arch", DECODERS)
+def _inputs(cfg, B: int, S: int, seed: int = 0) -> dict:
+    """The model's inputs, as ``tests/test_models.py`` makes them: frames for
+    the encoder, tokens (and a vision stub for the VLM) for the others."""
+    rng = np.random.default_rng(seed + 100)
+    if cfg.is_encoder:
+        return {"frames": torch.from_numpy(rng.standard_normal((B, S, cfg.frontend_stub_dim)).astype(np.float32))}
+    out = {"tokens": _tokens(cfg, B, S, seed)}
+    if cfg.vision_tokens:
+        out["vision"] = torch.from_numpy(
+            rng.standard_normal((B, cfg.vision_tokens, cfg.frontend_stub_dim)).astype(np.float32))
+    return out
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 def test_smoke_train_step(arch):
-    """One forward + backward + AdamW step on the reduced config."""
+    """One forward + backward + AdamW step on the reduced config (the
+    encoder's masked prediction over every position)."""
     cfg = CONFIGS[arch].reduced()
     model = build_model(cfg)
     params = _params(cfg)
-    toks = _tokens(cfg, 2, 32)
-    batch = {"tokens": toks, "labels": _tokens(cfg, 2, 32, seed=1)}
+    batch = {**_inputs(cfg, 2, 32), "labels": _tokens(cfg, 2, 32, seed=1)}
+    if cfg.is_encoder:
+        batch["mask"] = torch.ones((2, 32), dtype=torch.bool)
     paths, live = tree_flatten(params)
     leaves = [p.detach().requires_grad_() for p in live]
     loss, _ = model.loss(tree_unflatten(paths, leaves), batch)
-    grads = torch.autograd.grad(loss, leaves)
+    grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
     before = [p.clone() for p in live]
     opt = init_opt_state(params)
     adamw_update(tree_unflatten(paths, list(grads)), params, opt, torch.zeros((), dtype=torch.int32),
@@ -156,19 +168,24 @@ def test_smoke_train_step(arch):
     assert any(not torch.equal(a, b) for a, b in zip(before, tree_leaves(params)))
 
 
-@pytest.mark.parametrize("arch", DECODERS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_smoke_forward_shapes(arch):
     cfg = CONFIGS[arch].reduced()
     with torch.no_grad():
-        logits, cache = build_model(cfg).prefill(_params(cfg), _tokens(cfg, 2, 32))
+        logits, cache = build_model(cfg).prefill(_params(cfg), **_inputs(cfg, 2, 32))
+    assert not torch.isnan(logits).any()
+    if cfg.is_encoder:  # every position's logits, no cache
+        assert tuple(logits.shape) == (2, 32, cfg.padded_vocab) and cache is None
+        return
     assert tuple(logits.shape) == (2, cfg.padded_vocab)
     assert cache is not None and set(cache) == {f"slot{j}" for j in range(cfg.period)}
     for j, kind in enumerate(cfg.layer_pattern):
         assert set(cache[f"slot{j}"]) == ({"conv", "state"} if kind == "mamba" else {"k", "v"})
-    assert not torch.isnan(logits).any()
+        if kind == "cross":
+            assert cache[f"slot{j}"]["k"].shape[2] == cfg.vision_tokens
 
 
-@pytest.mark.parametrize("arch", DECODERS)
+@pytest.mark.parametrize("arch", DECODING)
 def test_decode_matches_prefill(arch):
     """The decode step at position S-1 reproduces prefill's logits."""
     cfg = CONFIGS[arch].reduced()
@@ -177,10 +194,11 @@ def test_decode_matches_prefill(arch):
     model = build_model(cfg)
     params = _params(cfg)
     B, S = 2, 32
-    toks = _tokens(cfg, B, S)
+    inputs = _inputs(cfg, B, S)
+    toks = inputs.pop("tokens")
     with torch.no_grad():
-        logits_full, _ = model.prefill(params, toks)
-        _, prefix = model.prefill(params, toks[:, : S - 1])
+        logits_full, _ = model.prefill(params, toks, **inputs)
+        _, prefix = model.prefill(params, toks[:, : S - 1], **inputs)
         cache = model.init_cache(B, S, "cpu")
         for full, part in zip(tree_leaves(cache), tree_leaves(prefix)):
             full[tuple(slice(0, n) for n in part.shape)] = part

@@ -5,6 +5,7 @@ CPU, at a small config, in seconds.
     python3 tools/rehearse_chip_smoke.py            # all phases through main()
     python3 tools/rehearse_chip_smoke.py --phase7   # the training loop alone, both checkpoint modes
     python3 tools/rehearse_chip_smoke.py --phase11  # the model zoo alone
+    python3 tools/rehearse_chip_smoke.py --phase12  # the encoder and the VLM alone
 
 It runs a copy of ``chip_smoke.py``'s source in which the card is the CPU:
 ``"cuda"`` strings and ``.cuda()`` calls name the CPU, every entry point of
@@ -22,8 +23,11 @@ where the machine lacks ``os.posix_fadvise`` or ``/proc/mounts``, the page
 cache drop and the filesystem probe are stubbed. Phase 10 serves prompts of
 64 tokens in a 128-token cache (the runs, kills and checks unchanged), and
 so does phase 11, whose Mamba-2 and mixtral configs shrink to 2 and 1
-layers of d_model 256 (``small_zoo``). What it finds are wrong
-paths, shapes, arguments and control flow; its times mean nothing.
+layers of d_model 256 (``small_zoo``), and phase 12, whose hubert and VLM
+configs shrink to 2 layers and one period of d_model 256
+(``small_encoder_vlm``; its ``compressed_psum`` runs in a gloo group). What
+it finds are wrong paths, shapes, arguments and control flow; its times
+mean nothing.
 """
 
 from __future__ import annotations
@@ -82,6 +86,19 @@ def small_zoo():
     return ssm, moe
 
 
+def small_encoder_vlm():
+    """Phase 12's (hubert, VLM) pair at d_model 256: 2 encoder layers of 4
+    heads of 64 over 512-wide frames, and one period of the VLM (4 self and
+    1 cross slot) over 100 vision tokens of width 64, in attention chunks of
+    64 (so the vision keys pad)."""
+    enc = replace(_get_config("hubert-xlarge"), num_layers=2, d_model=256, num_heads=4, num_kv_heads=4,
+                  head_dim=64, d_ff=512)
+    vlm = replace(_get_config("llama-3.2-vision-90b"), num_layers=5, d_model=256, num_heads=4, num_kv_heads=2,
+                  head_dim=64, d_ff=512, vocab_size=1000, vision_tokens=100, frontend_stub_dim=64,
+                  attn_chunk=64)
+    return enc, vlm
+
+
 def load_chip_smoke(cfg) -> types.ModuleType:
     src = (ROOT / "chip_smoke.py").read_text()
     src = src.replace('"cuda"', '"cpu"').replace(".cuda()", '.to("cpu")')
@@ -135,6 +152,8 @@ def load_chip_smoke(cfg) -> types.ModuleType:
     mod.gpu_line = lambda: "CPU rehearsal, 0 W"
     mod.get_config = configs.get_config = lambda name: cfg
     mod.zoo_configs = small_zoo
+    mod.encoder_vlm_configs = small_encoder_vlm
+    mod.PSUM_BACKEND = "gloo"
     mod.TIER_ROOT = Path(tempfile.mkdtemp(prefix="rehearse-tiers-"))
     # at this width a rank's exchange bytes span two chunks of the default
     # 1 MiB dirty map: both layers and a 4 KiB grid keep phase 9's rewrite
@@ -157,18 +176,19 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase7", action="store_true", help="run the training loop's phase alone")
     ap.add_argument("--phase11", action="store_true", help="run the model zoo's phase alone")
+    ap.add_argument("--phase12", action="store_true", help="run the encoder and VLM phase alone")
     args = ap.parse_args()
     torch.set_num_threads(4)
     cfg = small_config()
     mod = load_chip_smoke(cfg)
-    if not (args.phase7 or args.phase11):
+    if not (args.phase7 or args.phase11 or args.phase12):
         try:
             return mod.main()
         finally:
             shutil.rmtree(mod.TIER_ROOT, ignore_errors=True)
     mod._HOST_START[:] = [mod.host_free_gib(), mod.host_rss_gib()]
-    if args.phase11:
-        counts, runs = mod.zoo_path()
+    if args.phase11 or args.phase12:
+        counts, runs = mod.zoo_path() if args.phase11 else mod.encoder_vlm_path()
         print(json.dumps(counts))
         return 0
     for mode in ("sync", "async"):
