@@ -5,8 +5,10 @@ through a host failure with the fault-tolerant training loop, serve it
 through host failures with the fault-tolerant server, train a full-width
 Mamba-2 and serve a full-width Mixtral and Mamba-2 through kills, train a
 full-width HuBERT encoder and serve a full-width vision-language model
-through kills, then create and restore the llama train state through the
-device tier and through the host-tier checkpoint engine.
+through kills, run the paper's phase-field application on an 8192 x 8192
+field through kills and a two-host burst, then create and restore the llama
+train state through the device tier and through the host-tier checkpoint
+engine.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and the CUDA toolkit (``nvcc``); it exits non-zero,
@@ -14,11 +16,12 @@ printing no result, on any failure or without a card. Phases:
 
 1. build: one ``nvcc`` per kernel source, all at once (the two GF(2^8)
    sources in parts, see ``kernels/_build.py``), timed; the card's
-   name and power limit and the host's free memory; the GF(2^8) kernels'
-   issued instructions per word by pipe, read from their SASS
-   (``tools/sass_mix.py``);
+   name and power limit; the GF(2^8) kernels' issued instructions per word
+   by pipe, read from their SASS (``tools/sass_mix.py``);
 2. kernel tests: ``pytest -m cuda tests/test_torch_cuda.py`` in a child
-   process: B1-B6 against their plain versions at ragged small sizes
+   process, started right after the build so that it runs while phase 1
+   disassembles the GF(2^8) libraries on the host (the host's free memory
+   is read once it has ended): B1-B6 against their plain versions at ragged small sizes
    (quantize: f32/bf16/f16, unaligned inputs, all-zero blocks, values on the
    round-half-even boundaries; gather: f32/bf16/int8/int32 rows of 1 byte to
    512 KiB, unaligned rows, repeated and reversed indices, 0 and 1 output
@@ -81,7 +84,7 @@ printing no result, on any failure or without a card. Phases:
    width, if the host lacks the RAM, and the cut is printed;
 7. training loop (paper Algorithm 3): the port's ``Trainer`` under its
    defaults (the reference's default engine) on llama3.2-1b at full width
-   and ``TRAIN_LAYERS`` (2) of its 16 layers, params drawn from the seed by the reference's threefry streams, bf16
+   and ``TRAIN_LAYERS`` (1) of its 16 layers, params drawn from the seed by the reference's threefry streams, bf16
    params and compute with f32 master/m/v (batch 8, seq 128, lr 1e-3 as
    ``launch/train.py``'s defaults; 4 virtual hosts, one spare, a checkpoint
    every 3 steps, host 2 killed at step 5: checkpoints at 3 and 6, a
@@ -202,7 +205,7 @@ printing no result, on any failure or without a card. Phases:
    Each prints its create and restore seconds, the step time (trainer) or
    the decode median and p99, the card and host peaks and B4's launches;
 12. the encoder and the VLM, at the published widths with the depth cut
-   for time (``HUBERT_LAYERS`` = 4 of hubert-xlarge's 48 layers,
+   for time (``HUBERT_LAYERS`` = 2 of hubert-xlarge's 48 layers,
    ``VLM_LAYERS`` = 5 of llama-3.2-vision-90b's 100: one period, 4
    self-attention slots and 1 cross slot), under deterministic algorithms:
    (a) phase 11's trainer traffic (4 x 512 frame embeddings of width 512,
@@ -220,7 +223,23 @@ printing no result, on any failure or without a card. Phases:
    with the serve CLI's vision stub (``threefry.normal(PRNGKey(0))``, 16 x
    1600 x 1280): clean, and phase 10's rs run (hosts 0 and 2 at tick 20),
    tokens bit-equal, the restored cross-attention cache byte-equal to the
-   clean run's, B4 launched.
+   clean run's, B4 launched;
+13. the paper's phase-field application
+   (``examples/phase_field_stencil_torch.py``: a 2-D Allen-Cahn stencil with
+   the moving window, block-partitioned over 8 hosts, checkpointed by the
+   same engine) on one f32 field of ``PF_SHAPE`` = 8192 x 8192 (268 MB, 8
+   blocks of 1024 rows), under deterministic algorithms: the stencil
+   timed beside its bytes floor; (a) the reference's drill under
+   ``EngineConfig()``: a clean run of 300 steps and one with host 3 killed
+   at step 120 and host 6 at step 260, the final fields bit-equal, 2
+   recoveries, the window offset at 24, the clean field at step 150 kept on
+   the card; (b) ``EngineConfig(codec="rs", parity_group=4, rs_parity=2,
+   gf_backend="torch")`` to step 150 with hosts 1 and 2 both lost at step
+   120 (the field NaN-filled): the field at step 150 bit-equal to (a)'s, B4
+   launched in the encodes and the decode; (c) xor over groups of 4 on B4 to
+   step 50, one create, the same burst: the restore raises
+   ``DataLostError``. Prints each run's creates (first and warm), restores,
+   bytes staged per create, B4's launches and the card and host peaks.
 
 Phase 3 also runs B6 at the main path's largest gather (the w_up master
 leaf, 4 origins of (16, 512, 8192) f32, gathered for one new rank of the
@@ -232,7 +251,7 @@ with a seeded permutation of its rows; each pair in alternating order over
 ``B6_AB_ROUNDS`` rounds (medians and spreads); then the leaf's whole
 reshard in place against the stack and gather that preceded it.
 
-Phase 7 runs right after phase 3, then phases 5, 8, 8b, 6, 9, 10, 11, 12 and 4: 7,
+Phase 7 runs right after phase 3, then phases 5, 8, 8b, 6, 9, 10, 11, 12, 13 and 4: 7,
 5, 8, 8b and 9 need the most host RAM, and phase 4's staged fetches leave pinned
 host blocks in PyTorch's cache. The kernels' launch counts are set to 0 before each of the
 paths and read after it; every kernel a path runs must have launched in it
@@ -486,26 +505,36 @@ def sass_phase() -> None:
 # phase 2: the kernels on the card at small and ragged sizes (pytest -m cuda)
 # ---------------------------------------------------------------------------
 
-def kernel_tests_phase() -> None:
+def kernel_tests_phase():
     """tests/test_torch_cuda.py: B1-B6 against their plain versions at
     ragged lengths, unaligned rows, all-ones words, every coefficient, zero
     blocks, half steps and every row width of the reshard; the device tier
     on the card against the CPU path for every codec and failure
     combination and for compress=True; the host engine and its elastic
     restore on the card against the CPU. Its launches happen in its own
-    process."""
+    process, started here; the returned function waits for it and checks
+    it (the SASS disassembly of phase 1 runs on the host meanwhile)."""
     import os
 
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    proc = subprocess.run(
+    out, err = tempfile.TemporaryFile(mode="w+"), tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(
         [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", "-m", "cuda",
          str(ROOT / "tests" / "test_torch_cuda.py")],
-        capture_output=True, text=True, env=env, cwd=ROOT, timeout=600,
+        stdout=out, stderr=err, text=True, env=env, cwd=ROOT,
     )
-    lines = proc.stdout.strip().splitlines()
-    check(proc.returncode == 0 and lines and " passed" in lines[-1] and "skipped" not in lines[-1],
-          "tests/test_torch_cuda.py:\n" + proc.stdout[-4000:] + proc.stderr[-2000:])
-    log(f"kernel tests on the card: {lines[-1]}")
+
+    def finish() -> None:
+        rc = proc.wait(timeout=600)
+        stdout, stderr = [f.seek(0) or f.read() for f in (out, err)]
+        for f in (out, err):
+            f.close()
+        lines = stdout.strip().splitlines()
+        check(rc == 0 and lines and " passed" in lines[-1] and "skipped" not in lines[-1],
+              "tests/test_torch_cuda.py:\n" + stdout[-4000:] + stderr[-2000:])
+        log(f"kernel tests on the card: {lines[-1]}")
+
+    return finish
 
 
 # ---------------------------------------------------------------------------
@@ -2381,9 +2410,9 @@ TRAIN = dict(batch=8, seq=128, lr=1e-3, warmup_steps=2, n_virtual_hosts=ENGINE_R
 TRAIN_STEPS, TRAIN_KILLS = 8, {5: [2]}
 TRAIN_HISTORY = [0, 1, 2, 3, 4, 3, 4, 5, 6, 7]
 # depth of the sync run and of the async run (width kept), for the run's
-# time: two and one of the 16 layers leave it for phases 8b, 9 and 10 (the
+# time: one each of the 16 layers leave it for phases 8b, 9, 10 and 13 (the
 # async run drives the sync run's path with the drain behind the next step)
-TRAIN_LAYERS = 2
+TRAIN_LAYERS = 1
 TRAIN_ASYNC_LAYERS = 1
 
 
@@ -2955,7 +2984,7 @@ def zoo_path() -> tuple[dict, dict]:
 # depth of the hubert trainer (of 48 layers) and of the VLM server (one
 # period of its 100 layers: 4 self-attention slots and 1 cross slot), width
 # kept: for the run's time
-HUBERT_LAYERS = 4
+HUBERT_LAYERS = 2
 VLM_LAYERS = 5
 # (a) phase 11's trainer traffic (4 x 512 frames, 8 hosts) with xor g=4 on
 # B4 (its encode and the pipelined decode): with one group of 4 a group's
@@ -3110,6 +3139,191 @@ def encoder_vlm_path() -> tuple[dict, dict]:
     return counts, out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the paper's phase-field application (examples/phase_field_stencil_torch.py)
+# ---------------------------------------------------------------------------
+
+# one f32 field of 8192 x 8192 cells (268 MB), 8 hosts of 1024-row blocks
+# (33.5 MB each): a per-GPU size of a 2-D stencil code. At 16384 x 16384
+# (1.074 GB) phase 13 took 50.6 s on an H100 whose host ran the whole script
+# in 1263.6 s, past its 1200 s limit; this size takes about a third of that
+PF_SHAPE = (8192, 8192)
+PF_KILLS = {120: 3, 260: 6}   # the reference's kills, (a)
+PF_BURST = (1, 2)             # two hosts of group 0, (b) and (c)
+PF_BURST_STEP = 120
+PF_KEEP = 150                 # (b) runs to here; (a)'s clean field at this step is kept
+PF_RS = dict(codec="rs", parity_group=4, rs_parity=2, gf_backend="torch")
+PF_XOR = dict(parity_group=4, gf_backend="torch")
+# field passes (reads + writes) of step_field's 18 eager ops: 4 rolls, 3
+# adds and 4.0*phi and a subtract for the Laplacian (13 reads, 9 writes);
+# 5 ops for the double well (7, 5); 4 ops for the update (6, 4)
+PF_EAGER_PASSES = 44
+
+
+def load_phase_field():
+    """``examples/phase_field_stencil_torch.py`` as a module (its pieces run
+    under its ``main()``, so importing it runs nothing)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("phase_field_stencil_torch",
+                                                  ROOT / "examples" / "phase_field_stencil_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_field_run(pf, label: str, kill_at: dict, cfg, steps: int, keep: dict | None = None) -> dict:
+    """One ``pf.run`` on a fresh PF_SHAPE field on the card, recording every
+    create's and restore's engine stats and B4's launches in the run up to
+    each; ``keep[step]`` receives a copy of the field (on the card) at that
+    step of the first pass. Returns the run's numbers (the window offset at
+    its last event, B4's launches over it) and its final field (or the
+    ``DataLostError`` that ended it) under "field" / "error"."""
+    import torch
+
+    from repro_torch.core.distribution import DataLostError
+    from repro_torch.kernels import ops
+
+    creates, restores, seen, offset = [], [], set(), [None]
+    b4 = lambda: ops.launch_counts()["gf256_matmul_dyn"] - b4_start  # noqa: E731
+
+    def observe(event, sim, engine):
+        offset[0] = sim.window_offset
+        if event == "step" and keep is not None and sim.step in keep and sim.step not in seen:
+            seen.add(sim.step)
+            keep[sim.step] = sim.phi.clone()
+        elif event == "checkpoint":
+            creates.append(dict(step=sim.step, **create_line(engine.stats), b4=b4()))
+        elif event == "restore":
+            restores.append(dict(step=sim.step, **restore_line(engine.stats), b4=b4()))
+
+    sampler = rss_sampler()
+    torch.cuda.reset_peak_memory_stats()
+    b4_start = ops.launch_counts()["gf256_matmul_dyn"]
+    t0 = time.perf_counter()
+    out = dict(label=label, kills={str(k): v for k, v in kill_at.items()}, steps=steps)
+    try:
+        field, step, recoveries = pf.run(kill_at, cfg=cfg, steps=steps, shape=PF_SHAPE, device="cuda",
+                                         observe=observe)
+        torch.cuda.synchronize()
+        out.update(field=field, step=step, recoveries=recoveries, error=None)
+    except DataLostError as e:  # (c) expects it; the caller checks every run's
+        out.update(field=None, step=None, recoveries=None, error=e)
+    out.update(run_s=time.perf_counter() - t0, creates=creates, restores=restores, window_offset=offset[0],
+               b4_launches=b4(), peak_device_gb=torch.cuda.max_memory_allocated() / 1e9, host_peak_rss_gib=sampler())
+    return out
+
+
+def phase_field_path() -> tuple[dict, dict]:
+    """Phase 13: the paper's phase-field application at PF_SHAPE on the
+    card under deterministic algorithms. The stencil timed; (a) the
+    reference's drill under ``EngineConfig()``: a clean run and one with
+    host 3 killed at step 120 and host 6 at step 260, the final fields
+    bit-equal, 2 recoveries, the window offset at 24; (b) rs 4+2 on B4 to
+    step PF_KEEP through the burst of PF_BURST at step 120, bit-equal to
+    (a)'s clean field there, B4 launched in the encodes and the decode; (c)
+    xor over groups of 4 on B4 to step 50, one create, the burst: the
+    restore raises ``DataLostError``, B4 launched in the encode. Returns the
+    kernels' launch counts over the phase and the numbers."""
+    import torch
+
+    from repro_torch.core.checkpoint import EngineConfig
+    from repro_torch.core.distribution import DataLostError
+    from repro_torch.kernels import ops
+
+    pf = load_phase_field()
+    cells = math.prod(PF_SHAPE)
+    field_bytes = cells * 4
+    log(f"phase field: {PF_SHAPE[0]} x {PF_SHAPE[1]} f32 ({field_bytes / 1e9:.3f} GB) over {pf.N_HOSTS} hosts "
+        f"of {PF_SHAPE[0] // pf.N_HOSTS} rows ({field_bytes / pf.N_HOSTS / 1e6:.1f} MB each); host RAM "
+        f"{host_free_gib():.1f} GiB free")
+    torch.use_deterministic_algorithms(True)
+    ops.reset_launch_counts()  # this path's counts start here
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        sim = pf.PhaseFieldEntity(PF_SHAPE, "cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        check(tuple(sim.phi.shape) == PF_SHAPE and bool(torch.isfinite(sim.phi).all()),
+              f"phase field: the initial field is {tuple(sim.phi.shape)} or not finite")
+        step_ms = time_ms(lambda: pf.step_field(sim.phi), reps=10, warmup=2)
+        del sim
+        out["stencil"] = dict(
+            init_s=init_s, step_ms=step_ms,
+            floor_ms=2 * field_bytes / HBM_BYTES_PER_S * 1e3,
+            eager_floor_ms=PF_EAGER_PASSES * field_bytes / HBM_BYTES_PER_S * 1e3)
+        log("phase field stencil: " + json.dumps(out["stencil"]))
+
+        keep = {PF_KEEP: None}
+        clean = phase_field_run(pf, "clean", {}, EngineConfig(), pf.STEPS, keep=keep)
+        faulty = phase_field_run(pf, "faulty", PF_KILLS, EngineConfig(), pf.STEPS)
+        for r in (clean, faulty):
+            check(r["error"] is None, f"phase field {r['label']}: {r['error']!r}")
+            check(r["step"] == pf.STEPS, f"phase field {r['label']}: ended at step {r['step']}")
+        ref, got = clean.pop("field"), faulty.pop("field")
+        check(bool(torch.isfinite(ref).all()), "phase field: the clean field is not finite")
+        check(torch.equal(ref, got), "phase field: the faulty run's final field differs from the clean run's")
+        check(faulty["recoveries"] == len(PF_KILLS) and clean["recoveries"] == 0,
+              f"phase field: {faulty['recoveries']} recoveries, want {len(PF_KILLS)}")
+        offset = pf.STEPS // pf.WINDOW_SHIFT_EVERY * pf.WINDOW_ROWS
+        check(clean["window_offset"] == faulty["window_offset"] == offset,
+              f"phase field: window offsets {clean['window_offset']}, {faulty['window_offset']}, want {offset}")
+        check([c["step"] for c in faulty["creates"]] == list(range(pf.CKPT_EVERY, pf.STEPS + 1, pf.CKPT_EVERY)),
+              f"phase field: faulty run's creates at {[c['step'] for c in faulty['creates']]}")
+        clean.update(field_min=float(ref.min()), field_max=float(ref.max()),
+                     field_mean=float(ref.double().mean()))
+        del ref, got
+        check(keep[PF_KEEP] is not None, f"phase field: the clean field at step {PF_KEEP} was not kept")
+
+        burst = phase_field_run(pf, "rs burst", {PF_BURST_STEP: PF_BURST}, EngineConfig(**PF_RS), PF_KEEP)
+        check(burst["error"] is None, f"phase field rs burst: {burst['error']!r}")
+        check(burst["recoveries"] == 1 and burst["step"] == PF_KEEP,
+              f"phase field rs burst: {burst['recoveries']} recoveries, step {burst['step']}")
+        field = burst.pop("field")
+        check(torch.equal(field, keep[PF_KEEP]),
+              f"phase field rs burst: the field at step {PF_KEEP} differs from the clean run's")
+        del field, keep[PF_KEEP]
+        before = [c for c in burst["creates"] if c["step"] <= PF_BURST_STEP]
+        rest = burst["restores"][0]
+        burst.update(encode_b4=before[0]["b4"], decode_b4=rest["b4"] - before[-1]["b4"])
+        check(burst["encode_b4"] > 0, "phase field rs burst: B4 was launched no time in the encode")
+        check(burst["decode_b4"] > 0, "phase field rs burst: B4 was launched no time in the decode")
+
+        lost = phase_field_run(pf, "xor burst", {pf.CKPT_EVERY: PF_BURST}, EngineConfig(**PF_XOR),
+                               pf.CKPT_EVERY + 1)
+        lost.pop("field")
+        err = lost.pop("error")
+        check(isinstance(err, DataLostError), f"phase field xor burst: the restore gave {err!r}, not DataLostError")
+        check(len(lost["creates"]) == 1 and lost["creates"][0]["b4"] > 0,
+              f"phase field xor burst: creates {lost['creates']} (B4 must launch in the encode)")
+        lost["error"] = f"{type(err).__name__}: {err}"
+        for r in (clean, faulty, burst):
+            r.pop("error")
+        out.update(clean=clean, faulty=faulty, rs_burst=burst, xor_burst=lost)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    counts = ops.launch_counts()
+    st = out["stencil"]
+    log(f"phase field stencil: {st['step_ms']:.3f} ms a step ({PF_SHAPE[0]} x {PF_SHAPE[1]} f32), bytes floor "
+        f"{st['floor_ms']:.3f} ms (one read and one write at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), the eager ops' "
+        f"{PF_EAGER_PASSES} passes {st['eager_floor_ms']:.3f} ms; "
+        f"initial field drawn in {st['init_s']:.2f} s")
+    for key in ("clean", "faulty", "rs_burst", "xor_burst"):
+        r = out[key]
+        cr = [c["create_s"] for c in r["creates"]]
+        log(f"phase field {r['label']}: {r['run_s']:.1f} s; creates {json.dumps([round(x, 4) for x in cr])} s "
+            f"(first {cr[0]:.3f}, warm {(statistics.median(cr[1:]) if len(cr) > 1 else float('nan')):.3f}), "
+            f"{r['creates'][0]['bytes_staged'] / 1e9:.3f} GB staged a create; restores "
+            + json.dumps([round(x["restore_s"], 4) for x in r["restores"]])
+            + f" s; B4 launches {r['b4_launches']}; "
+            f"card peak {r['peak_device_gb']:.2f} GB, host peak {r['host_peak_rss_gib']:.2f} GiB"
+            + (f"; {r['error']}" if key == "xor_burst" else ""))
+    log("phase field: " + json.dumps(out))
+    log(f"phase field launches: {json.dumps(counts)}")
+    return counts, out
+
+
 def main() -> int:
     import gc
     import os
@@ -3133,10 +3347,9 @@ def main() -> int:
         + ", ".join(f"{k} {v:.1f} s" for k, v in _build.build_seconds.items()) + ")")
     for name, text in logs.items():
         ptxas_summary(name, text)
+    kernel_tests_done = kernel_tests_phase()  # phase 2 runs in a child process beside the disassembly
     sass_phase()
     card = gpu_line()
-    _HOST_START[:] = [host_free_gib(), host_rss_gib()]
-    log(f"host free memory: {_HOST_START[0]:.1f} GiB")
     last = [t_start]
 
     def phase_done(name: str) -> None:
@@ -3145,8 +3358,10 @@ def main() -> int:
         last[0] = now
 
     phase_done("phase 1 (build, SASS)")
-    kernel_tests_phase()
-    phase_done("phase 2 (kernel tests)")
+    kernel_tests_done()
+    phase_done("phase 2 (kernel tests, the rest of the wait)")
+    _HOST_START[:] = [host_free_gib(), host_rss_gib()]  # once the tests' process has ended
+    log(f"host free memory: {_HOST_START[0]:.1f} GiB")
     from repro_torch.configs import get_config
     from repro_torch.core.device_tier import build_snapshot_program
     from repro_torch.launch.steps import init_train_state, train_state_layout
@@ -3223,6 +3438,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("phase 12")
+    counts13, runs13 = phase_field_path()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("phase 13")
     t0 = time.perf_counter()
     state = init_train_state(layout, mesh, torch.Generator(device="cuda").manual_seed(SEED))
     torch.cuda.synchronize()
@@ -3235,7 +3454,7 @@ def main() -> int:
     phase_done("phase 4")
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in (counts4, counts5, counts6, counts7, counts8, counts8b,
-                                                          counts9, counts10, counts11, counts12))
+                                                          counts9, counts10, counts11, counts12, counts13))
         k["route"] = "cuda"
         check(k["launches"] > 0, f"kernel {k['name']} was launched no time on the main paths")
     log(f"total {time.perf_counter() - t_start:.1f} s")

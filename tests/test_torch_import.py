@@ -1,6 +1,8 @@
-"""The port stands alone: importing every ``repro_torch`` module and the
-module-level code of ``chip_smoke.py`` loads neither ``jax`` nor the JAX
-package ``repro``, and no source of the port imports either. The host
+"""The port stands alone: importing every ``repro_torch`` module, the
+module-level code of ``chip_smoke.py`` and the example twins
+(``examples/*_torch.py``, which ``chip_smoke.py`` loads) loads neither
+``jax`` nor the JAX package ``repro``, and no source of the port, of
+``chip_smoke.py`` or of an example twin imports either. The host
 engine's path on the card needs no ``ml_dtypes`` either (the GPU machine
 has none)."""
 
@@ -24,8 +26,9 @@ import repro_torch
 names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for path in sys.argv[1:]:
+    spec = importlib.util.spec_from_file_location(path.rsplit("/", 1)[-1].removesuffix(".py"), path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 print(json.dumps({"modules": names, "loaded": loaded}))
 """
@@ -35,10 +38,14 @@ def _port_sources() -> list[Path]:
     return sorted(PORT.rglob("*.py"))
 
 
+def _example_twins() -> list[Path]:
+    return sorted((ROOT / "examples").glob("*_torch.py"))
+
+
 def test_importing_the_port_loads_no_jax_and_no_repro():
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     proc = subprocess.run(
-        [sys.executable, "-c", _PROBE, str(ROOT / "chip_smoke.py")],
+        [sys.executable, "-c", _PROBE, str(ROOT / "chip_smoke.py"), *map(str, _example_twins())],
         capture_output=True, text=True, env=env, timeout=300, cwd=ROOT,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -51,7 +58,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     assert set(out["modules"]) == want  # every module was imported
 
 
-@pytest.mark.parametrize("path", _port_sources() + [ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
+@pytest.mark.parametrize("path", _port_sources() + [ROOT / "chip_smoke.py"] + _example_twins(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_repro(path):
     text = path.read_text()
     assert not [f for f in FORBIDDEN if f in text]

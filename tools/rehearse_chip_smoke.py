@@ -6,6 +6,7 @@ CPU, at a small config, in seconds.
     python3 tools/rehearse_chip_smoke.py --phase7   # the training loop alone, both checkpoint modes
     python3 tools/rehearse_chip_smoke.py --phase11  # the model zoo alone
     python3 tools/rehearse_chip_smoke.py --phase12  # the encoder and the VLM alone
+    python3 tools/rehearse_chip_smoke.py --phase13  # the phase-field application alone
 
 It runs a copy of ``chip_smoke.py``'s source in which the card is the CPU:
 ``"cuda"`` strings and ``.cuda()`` calls name the CPU, every entry point of
@@ -25,7 +26,8 @@ cache drop and the filesystem probe are stubbed. Phase 10 serves prompts of
 so does phase 11, whose Mamba-2 and mixtral configs shrink to 2 and 1
 layers of d_model 256 (``small_zoo``), and phase 12, whose hubert and VLM
 configs shrink to 2 layers and one period of d_model 256
-(``small_encoder_vlm``; its ``compressed_psum`` runs in a gloo group). What
+(``small_encoder_vlm``; its ``compressed_psum`` runs in a gloo group), and
+phase 13 runs the phase-field drills on a 256 x 256 field. What
 it finds are wrong paths, shapes, arguments and control flow; its times
 mean nothing.
 """
@@ -147,8 +149,9 @@ def load_chip_smoke(cfg) -> types.ModuleType:
                                  "gf256_matmul_dyn": decodes[0], "checksum": checksums[0]}
     ops.reset_launch_counts = lambda: None
     checkpoint.reshard_leaves = checkpoint.reshard_leaves_device  # the engine picks the host one on the CPU
-    for name in ("sass_phase", "kernel_tests_phase", "free_pinned_cache"):
+    for name in ("sass_phase", "free_pinned_cache"):
         setattr(mod, name, lambda *a: None)
+    mod.kernel_tests_phase = lambda: lambda: None
     mod.gpu_line = lambda: "CPU rehearsal, 0 W"
     mod.get_config = configs.get_config = lambda name: cfg
     mod.zoo_configs = small_zoo
@@ -164,6 +167,7 @@ def load_chip_smoke(cfg) -> types.ModuleType:
     # interval and kills, prompts of 64 in a cache of 128
     mod.SERVE = {**mod.SERVE, "max_seq": 128}
     mod.SERVE_PROMPT = 64
+    mod.PF_SHAPE = (256, 256)  # 8 hosts of 32 rows
     if not hasattr(os, "posix_fadvise"):
         mod.drop_cached = lambda root: False
     if not os.path.exists("/proc/mounts"):
@@ -177,16 +181,22 @@ def main() -> int:
     ap.add_argument("--phase7", action="store_true", help="run the training loop's phase alone")
     ap.add_argument("--phase11", action="store_true", help="run the model zoo's phase alone")
     ap.add_argument("--phase12", action="store_true", help="run the encoder and VLM phase alone")
+    ap.add_argument("--phase13", action="store_true", help="run the phase-field phase alone")
     args = ap.parse_args()
     torch.set_num_threads(4)
     cfg = small_config()
     mod = load_chip_smoke(cfg)
-    if not (args.phase7 or args.phase11 or args.phase12):
+    if not (args.phase7 or args.phase11 or args.phase12 or args.phase13):
         try:
             return mod.main()
         finally:
             shutil.rmtree(mod.TIER_ROOT, ignore_errors=True)
     mod._HOST_START[:] = [mod.host_free_gib(), mod.host_rss_gib()]
+    if args.phase13:
+        counts, runs = mod.phase_field_path()
+        print(json.dumps(runs))
+        print(json.dumps(counts))
+        return 0
     if args.phase11 or args.phase12:
         counts, runs = mod.zoo_path() if args.phase11 else mod.encoder_vlm_path()
         print(json.dumps(counts))
