@@ -55,6 +55,16 @@ printing no result, on any failure or without a card. Phases:
    folded checksum (B1) equal to the main runs', its mirrored buckets,
    re-aligned by the copy codec's ``restore_fn``, byte-equal to every
    exchanged leaf;
+4b. the dry run's accounting (``launch/dryrun.py``) of phase 4's layout
+   held against what phase 4 moved and what the card holds: the snapshot
+   cells' own and PCIe bytes equal the pinned host buffers each staged
+   fetch filled, the restore cells' PCIe bytes the stripes uploaded plus
+   the leaves rebuilt on the card, and the train cell's per-device state
+   bytes those of each rank's shard tensors of the state on the card
+   (times 8: the state plus 7 copies of the leaves every rank holds
+   whole); then the records of the dry-run CLI (``DRYRUN_CLI``) on meta
+   tensors, run on one thread in a child process beside phase 4, printed
+   and checked. It measures bytes, not time;
 5. engine path: a seeded llama3.2-1b train state cut to ``PATH_LAYERS``
    (1) of its 16 layers, width kept, held by a ShardedStateEntity over 4
    ranks (the ZeRO-1 data dim split four ways) plus an RngEntity, through three
@@ -251,7 +261,7 @@ with a seeded permutation of its rows; each pair in alternating order over
 ``B6_AB_ROUNDS`` rounds (medians and spreads); then the leaf's whole
 reshard in place against the stack and gather that preceded it.
 
-Phase 7 runs right after phase 3, then phases 5, 8, 8b, 6, 9, 10, 11, 12, 13 and 4: 7,
+Phase 7 runs right after phase 3, then phases 5, 8, 8b, 6, 9, 10, 11, 12, 13, 4 and 4b: 7,
 5, 8, 8b and 9 need the most host RAM, and phase 4's staged fetches leave pinned
 host blocks in PyTorch's cache. The kernels' launch counts are set to 0 before each of the
 paths and read after it; every kernel a path runs must have launched in it
@@ -265,6 +275,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -939,6 +950,7 @@ def main_run(state, layout, mesh, codec: str, g: int, m: int, kill) -> dict:
     t0 = time.perf_counter()
     host = staged_snapshot_fetch(prog, state, double_buffer=True)
     d2h_s = time.perf_counter() - t0
+    d2h_bytes, own_d2h_bytes = tree_nbytes(host), tree_nbytes(host["own"])  # the pinned buffers it filled
     t0 = time.perf_counter()
     want = host_checksum(prog, host["own"], layout.pspecs, mesh)
     host_sum_s = time.perf_counter() - t0
@@ -950,6 +962,7 @@ def main_run(state, layout, mesh, codec: str, g: int, m: int, kill) -> dict:
     parity = {tag: t.to("cuda", non_blocking=True) for tag, t in host["parity"].items()}
     torch.cuda.synchronize()
     h2d_s = time.perf_counter() - t0
+    h2d_bytes = tree_nbytes(parity)
     rows, mask = striped_decode_rows(mesh.shape["data"], g, codec, m, set(kill))
     t0 = time.perf_counter()
     restored = rest.restore_fn(state, parity, {"data": rows}, {"data": mask})
@@ -957,6 +970,7 @@ def main_run(state, layout, mesh, codec: str, g: int, m: int, kill) -> dict:
     restore_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     check(len(restored) == len(prog.exchanged_names), "restore returned every exchanged leaf")
+    restored_bytes = tree_nbytes(restored)
     del parity, restored
     for i, (h, x) in enumerate(zip(tree_flatten(host["own"])[1], tree_flatten(state)[1])):
         check(torch.equal(h.to("cuda").reshape(-1).view(torch.uint8), x.reshape(-1).view(torch.uint8)),
@@ -969,6 +983,9 @@ def main_run(state, layout, mesh, codec: str, g: int, m: int, kill) -> dict:
         d2h_first_s=d2h_first_s, d2h_s=d2h_s, d2h_gbps=prog.pcie_bytes / d2h_s / 1e9,
         h2d_parity_s=h2d_s, restore_s=restore_s, restore_gbps=fused / restore_s / 1e9,
         host_checksum_s=host_sum_s, pcie_bytes=prog.pcie_bytes, peak_device_gb=peak / 1e9,
+        own_bytes=prog.own_bytes, exchanged_bytes=prog.exchanged_bytes, fused_buckets=len(prog.buckets),
+        restore_pcie_bytes=rest.pcie_bytes, host_decode_pcie_bytes=rest.host_decode_pcie_bytes,
+        d2h_bytes=d2h_bytes, own_d2h_bytes=own_d2h_bytes, h2d_bytes=h2d_bytes, restored_bytes=restored_bytes,
     )
 
 
@@ -1025,6 +1042,8 @@ def compressed_run(state, layout, mesh) -> dict:
     t0 = time.perf_counter()
     host = staged_snapshot_fetch(prog, state, double_buffer=True)
     d2h_s = time.perf_counter() - t0
+    d2h_bytes, own_d2h_bytes = tree_nbytes(host), tree_nbytes(host["own"])
+    code_d2h_bytes = tree_nbytes(host["partner"][tag]["q"])
     hq = host["partner"][tag]["q"].to("cuda")
     hs = host["partner"][tag]["scale"].to("cuda")
     del host
@@ -1049,7 +1068,9 @@ def compressed_run(state, layout, mesh) -> dict:
     free_pinned_cache()
     return dict(codec="copy", compress=True, create_s=create_s, d2h_s=d2h_s,
                 d2h_gbps=prog.pcie_bytes / d2h_s / 1e9, dequantize_s=deq_s,
-                worst_err_in_steps=worst, pcie_bytes=prog.pcie_bytes, peak_device_gb=peak / 1e9)
+                worst_err_in_steps=worst, pcie_bytes=prog.pcie_bytes, peak_device_gb=peak / 1e9,
+                own_bytes=prog.own_bytes, exchanged_bytes=prog.exchanged_bytes, d2h_bytes=d2h_bytes,
+                own_d2h_bytes=own_d2h_bytes, code_d2h_bytes=code_d2h_bytes)
 
 
 def mirror_run(state, layout, mesh, want_sum: list[int]) -> dict:
@@ -1089,6 +1110,14 @@ def mirror_run(state, layout, mesh, want_sum: list[int]) -> dict:
     fused = sum(b.words * 4 * mesh.size for b in prog.buckets)
     return dict(mirror_s=mirror_s, mirror_gbps=fused / mirror_s / 1e9, realign_s=realign_s,
                 exchanged_bytes=prog.exchanged_bytes, pcie_bytes=prog.pcie_bytes, peak_device_gb=peak / 1e9)
+
+
+def tree_nbytes(tree) -> int:
+    """Bytes of the tensors of a tree, as they lie in memory (numel x item
+    size)."""
+    from repro_torch.utils.pytree import tree_flatten
+
+    return sum(x.numel() * x.element_size() for x in tree_flatten(tree)[1])
 
 
 def free_pinned_cache() -> None:
@@ -1138,6 +1167,157 @@ def device_tier_path(state, layout, mesh) -> tuple[dict, list[dict]]:
     for name in DEVICE_TIER_KERNELS:
         check(counts[name] > 0, f"kernel {name} was launched no time on the device-tier path")
     return counts, runs
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the dry run's accounting against what phase 4 built and launched
+# ---------------------------------------------------------------------------
+
+DRYRUN_CLI = ("--arch", ARCH, "--shape", "train_4k", "--mesh", "single", "--snapshot", "--restore")
+
+
+class DryrunCli:
+    """The dry-run CLI (``DRYRUN_CLI``) in a child process on meta tensors,
+    started before phase 4 so that it runs on the host beside it (the
+    child's imports alone take seconds on the checkout's filesystem). It
+    counts on one thread, so phase 4's host work keeps the other cores.
+    ``records()`` waits for it and returns its records; ``stop()`` kills it
+    if it still runs and removes its directory."""
+
+    def __init__(self) -> None:
+        self.out = tempfile.mkdtemp(prefix="dryrun-")
+        self.t0 = time.perf_counter()
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
+        self.proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_CLI,
+                                      "--out", self.out], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     text=True, cwd=ROOT, env=env)
+
+    def records(self) -> dict:
+        try:
+            _, err = self.proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            self.stop()
+            fail("the dry-run CLI took more than 300 s")
+        check(self.proc.returncode == 0, f"the dry-run CLI exited {self.proc.returncode}: {err[-2000:]}")
+        cells = {name: json.loads(Path(self.out, name).read_text())
+                 for name in sorted(os.listdir(self.out)) if name.endswith(".json")}
+        return dict(cells=cells, cli_s=time.perf_counter() - self.t0)
+
+    def stop(self) -> None:
+        import shutil
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+        shutil.rmtree(self.out, ignore_errors=True)
+
+
+def rank_shard_bytes(leaves, specs, mesh) -> list[int]:
+    """Bytes of each rank's shard tensors of the state on the card, rank by
+    rank over the mesh: every leaf cut with ``tensor_split`` along its
+    sharded dims at the rank's coordinates (numel x item size of the piece)."""
+    import itertools
+
+    from repro_torch.sharding.mesh import axes_of, full_rank
+
+    out = []
+    for coord in itertools.product(*(range(n) for n in mesh.shape.values())):
+        at = dict(zip(mesh.shape, coord))
+        n = 0
+        for x, spec in zip(leaves, specs):
+            for d, e in enumerate(full_rank(spec, x.ndim)):
+                k, i = 1, 0
+                for a in axes_of(e):
+                    k, i = k * mesh.shape[a], i * mesh.shape[a] + at[a]
+                if k > 1:
+                    x = x.tensor_split(k, dim=d)[i]
+            n += x.numel() * x.element_size()
+        out.append(n)
+    return out
+
+
+def dryrun_path(cfg, state, layout, mesh, runs4, cli: DryrunCli) -> dict:
+    """``launch/dryrun.py``'s accounting of phase 4's own layout (``cfg`` on
+    the (8, 1) mesh) held against what phase 4's runs moved and what the
+    card holds:
+
+    * each striped run: the snapshot cell's ``own_bytes_global`` and
+      ``pcie_bytes_global`` equal the bytes of the pinned host buffers the
+      staged fetch filled (the own copy, and all of them); the restore
+      cell's ``pcie_bytes_global`` equals the held stripes uploaded to the
+      card plus the exchanged leaves the restore rebuilt there (the survivor
+      shards a host-to-card restore uploads), and ``host_decode_pcie_bytes``
+      those leaves' bytes more again;
+    * the compressed copy run: the own copy as above, and the int8 codes
+      fetched equal to the accounted payload up to each row's padding to
+      whole 256-word blocks (the block scales the accounting leaves out, as
+      the reference's does, are printed beside it);
+    * the train cell's per-device state bytes: the worst rank's shard
+      tensors of the state on the card (``rank_shard_bytes``), every rank
+      holding as much, so per-device x 8 is the state plus 7 more copies of
+      the leaves every rank holds whole.
+
+    ``exchanged_bytes_global`` counts what the reference's collectives
+    move between chips; one card moves none of it, so it is printed, not
+    held. Then the CLI's records, each printed and each accounted. It
+    measures bytes, not time."""
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding.mesh import axes_of, full_rank
+    from repro_torch.utils.pytree import tree_flatten
+
+    out: dict = {"programs": []}
+    for run in runs4:
+        if "codec" not in run:
+            continue  # the mirror run: no dry-run cell
+        codec = run["codec"]
+        if run.get("compress"):
+            acc = dryrun.snapshot_accounting(cfg, mesh, compress=True)
+            codes = acc["pcie_bytes_global"] - acc["own_bytes_global"]
+            check(acc["own_bytes_global"] == run["own_d2h_bytes"],
+                  f"compressed own bytes {acc['own_bytes_global']} != {run['own_d2h_bytes']} fetched")
+            check(0 <= run["code_d2h_bytes"] - codes < 256 * mesh.size,
+                  f"compressed codes {codes} accounted, {run['code_d2h_bytes']} fetched")
+            row = dict(own_bytes=acc["own_bytes_global"], pcie_bytes=acc["pcie_bytes_global"],
+                       d2h_bytes=run["d2h_bytes"], code_d2h_bytes=run["code_d2h_bytes"],
+                       scale_d2h_bytes=run["d2h_bytes"] - run["own_d2h_bytes"] - run["code_d2h_bytes"])
+        else:
+            acc = dryrun.snapshot_accounting(cfg, mesh, codec=codec, parity_group=run["g"], rs_parity=run["m"])
+            rest = dryrun.restore_accounting(cfg, mesh, codec=codec, parity_group=run["g"], rs_parity=run["m"])
+            got = (acc["own_bytes_global"], acc["pcie_bytes_global"], rest["pcie_bytes_global"],
+                   rest["host_decode_pcie_bytes_global"])
+            seen = (run["own_d2h_bytes"], run["d2h_bytes"], run["h2d_bytes"] + run["restored_bytes"],
+                    run["h2d_bytes"] + 2 * run["restored_bytes"])
+            check(got == seen, f"dry run's {codec} (own, pcie, restore pcie, host decode) {got} != phase 4's {seen}")
+            row = dict(own_bytes=got[0], pcie_bytes=got[1], restore_pcie_bytes=got[2], host_decode_pcie_bytes=got[3],
+                       h2d_bytes=run["h2d_bytes"], restored_bytes=run["restored_bytes"])
+        out["programs"].append(dict(codec=codec, compress=bool(run.get("compress")),
+                                    exchanged_bytes=acc["exchanged_bytes_global"], **row))
+    check(len(out["programs"]) == len(MAIN_RUNS) + 1, f"{len(out['programs'])} runs of phase 4 accounted")
+
+    rec = dryrun.run_cell(ARCH, "train_4k", mesh, fast=True)
+    per_device = rec["memory"]["argument_bytes_by_input"]["state"]
+    _, leaves = tree_flatten(state)
+    _, specs = tree_flatten(layout.pspecs)
+    ranks = rank_shard_bytes(leaves, specs, mesh)
+    allocated = sum(x.numel() * x.element_size() for x in leaves)
+    whole = sum(x.numel() * x.element_size() for x, spec in zip(leaves, specs)
+                if math.prod(mesh.shape[a] for e in full_rank(spec, x.ndim) for a in axes_of(e)) == 1)
+    check(ranks == [per_device] * mesh.size, f"per-device state bytes {per_device}, ranks hold {ranks}")
+    check(per_device * mesh.size == allocated + (mesh.size - 1) * whole,
+          f"per-device state bytes {per_device} x {mesh.size} != {allocated} + {mesh.size - 1} x {whole}")
+    out["state"] = dict(per_device_bytes=per_device, allocated_bytes=allocated, whole_leaf_bytes=whole,
+                        argument_size_in_bytes=rec["memory"]["argument_size_in_bytes"])
+
+    t0 = time.perf_counter()
+    got = cli.records()
+    out.update(cli_s=got["cli_s"], cli_wait_s=time.perf_counter() - t0)
+    for name, cell in got["cells"].items():
+        log(f"dryrun cli {name}: " + json.dumps(cell))
+        check(cell["status"] == "accounted", f"{name}: {cell['status']}")
+    check(len(got["cells"]) == 3, "the CLI wrote the train, snapshot and restore cells")
+    out["cli"] = got["cells"]
+    log("dryrun path: " + json.dumps({k: v for k, v in out.items() if k != "cli"}))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3449,9 +3629,15 @@ def main() -> int:
     state_bytes = sum(x.numel() * x.element_size() for x in tree_flatten(state)[1])
     log(f"main: {ARCH} state {n_params} params, {state_bytes / 1e9:.3f} GB on the card "
         f"({time.perf_counter() - t0:.1f} s to make)")
-    counts4, runs4 = device_tier_path(state, layout, mesh)
-    log(f"device-tier path launches: {json.dumps(counts4)}")
-    phase_done("phase 4")
+    cli = DryrunCli()  # beside phase 4, on the host
+    try:
+        counts4, runs4 = device_tier_path(state, layout, mesh)
+        log(f"device-tier path launches: {json.dumps(counts4)}")
+        phase_done("phase 4")
+        dryrun_path(cfg, state, layout, mesh, runs4, cli)
+    finally:
+        cli.stop()
+    phase_done("phase 4b (the dry run's accounting)")
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in (counts4, counts5, counts6, counts7, counts8, counts8b,
                                                           counts9, counts10, counts11, counts12, counts13))

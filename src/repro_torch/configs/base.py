@@ -4,9 +4,11 @@ fields of ``repro.configs.base.ModelConfig``, with torch dtypes).
 The port's model runs every family: dense, MoE, Mamba-2 (SSM), the hybrid
 pattern, the encoder and the VLM. The modality fields (``is_encoder``,
 ``vision_tokens``, ``frontend_stub_dim``) select the encoder's frame inputs
-and the VLM's vision stub and cross-attention slots. ``moe_mode`` and
-``fsdp_gather_per_layer`` are the reference's GSPMD knobs: inert on one
-card, carried so that ``replace()`` calls written for the reference work."""
+and the VLM's vision stub and cross-attention slots. ``moe_mode`` picks the expert weights' layout
+(``"ep"`` shards the experts' dim over ``data``), which the shard plan, every
+rank's shards and the manifests follow. ``fsdp_gather_per_layer`` is the
+reference's GSPMD knob: inert on one card, carried so that ``replace()``
+calls written for the reference work."""
 
 from __future__ import annotations
 
@@ -59,7 +61,7 @@ class ModelConfig:
     param_dtype: Any = torch.bfloat16
     compute_dtype: Any = torch.bfloat16
     sharding_preset: str = "tp"       # tp | fsdp
-    moe_mode: str = "tp"              # tp | ep: the reference's GSPMD option; inert here
+    moe_mode: str = "tp"              # tp | ep: ep shards the experts' dim over "data"
     fsdp_gather_per_layer: bool = True  # the reference's GSPMD option; inert here
     remat: str = "full"               # none | full | dots
     attn_chunk: int = 1024            # blockwise-attention query/KV chunk

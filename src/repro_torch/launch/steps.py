@@ -1,10 +1,17 @@
-"""Train-state layout and state conversion.
+"""Step functions, their inputs and the train-state layout.
 
 ``train_state_layout(cfg, mesh)`` gives the leaf paths, shapes, dtypes and
 specs of the state that ``repro.launch.steps.build_step(cfg, "train_4k",
 mesh)`` builds: ``params`` in ``cfg.param_dtype`` (f32 norms), the AdamW
 ``opt.master``/``opt.m``/``opt.v`` in f32 with ZeRO-1 specs, and an int32
-``step`` scalar. The params' declaration is ``models/lm.py``'s.
+``step`` scalar, under the model's rules (``moe_mode="ep"`` included). The
+params' declaration is ``models/lm.py``'s.
+
+``build_step(cfg, shape_name, mesh)`` is the dry run's cell: the step
+function of one input shape on the port's functions (train: loss, grads and
+AdamW; prefill; serve: one decode token), its inputs as ``TensorSpec``
+trees, their specs on the mesh, the rules and the model. ``input_specs``
+gives the inputs alone.
 
 ``state_from_numpy``/``state_to_numpy`` carry numpy trees (the JAX
 package's state) across bit for bit, and ``numpy_entity`` adapts an entity
@@ -14,18 +21,19 @@ with numpy payloads to the port's checkpoint engine.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.models.lm import abstract_params
-from repro_torch.optim.adamw import abstract_opt_state
-from repro_torch.sharding.axes import FSDP_RULES, TP_RULES, spec_to_pspec, zero1_pspec
+from repro_torch.configs import SHAPES, InputShape, ModelConfig
+from repro_torch.models.model import Model, build_model
+from repro_torch.optim.adamw import AdamWConfig, abstract_opt_state, adamw_update
+from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.sharding.axes import ShardingRules, dims_to_pspec, rules_for_shape, tree_pspecs, tree_zero1_pspecs
 from repro_torch.sharding.mesh import VirtualMesh, resolve_device
 from repro_torch.sharding.spec import ParamSpec, TensorSpec, draw_normal, init_std, specs_to_shape_dtype
-from repro_torch.utils.pytree import tree_map
+from repro_torch.utils.pytree import tree_flatten, tree_map, tree_unflatten
 
 
 @dataclass(frozen=True)
@@ -36,20 +44,160 @@ class StateLayout:
 
 
 def train_state_layout(cfg: ModelConfig, mesh: VirtualMesh) -> StateLayout:
-    """Leaf shapes, dtypes and specs of the train state; allocates nothing."""
-    rules = FSDP_RULES if cfg.sharding_preset == "fsdp" else TP_RULES
-    params = abstract_params(cfg)
+    """Leaf shapes, dtypes and specs of the train state; allocates nothing.
+    The rules are the model's for a train shape, as ``build_step`` takes
+    them."""
+    model = build_model(cfg)
+    rules = rules_for_shape(model.rules, "train", SHAPES["train_4k"].global_batch)
+    params = model.abstract_params
     opt = abstract_opt_state(params, cfg.optimizer_dtype)
-
     return StateLayout(
         sds={"params": specs_to_shape_dtype(params), "opt": specs_to_shape_dtype(opt),
              "step": TensorSpec((), torch.int32)},
         pspecs={
-            "params": tree_map(lambda s: spec_to_pspec(s, rules, mesh), params),
-            "opt": {k: tree_map(lambda s: zero1_pspec(s, rules, mesh), v) for k, v in opt.items()},
+            "params": tree_pspecs(params, rules, mesh),
+            "opt": {k: tree_zero1_pspecs(v, rules, mesh) for k, v in opt.items()},
             "step": (),
         },
         params=params,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Step functions of the dry run's cells
+# ---------------------------------------------------------------------------
+
+# logical dims of the batch inputs
+_BATCH_DIMS = {
+    "tokens": ("batch", "seq"),
+    "labels": ("batch", "seq"),
+    "mask": ("batch", "seq"),
+    "frames": ("batch", "seq", None),
+    "vision": ("batch", "vision", None),
+}
+
+
+@dataclass
+class StepBundle:
+    """One (arch x shape x mesh) cell: the step, its inputs and their specs.
+    ``args_sds`` are ``TensorSpec`` trees and ``in_pspecs``/``out_pspecs``
+    spec-tuple trees of the same structure (``None`` where the reference
+    leaves the output's sharding to the compiler); ``donate_argnums`` are
+    the arguments the step updates in place."""
+
+    name: str
+    fn: Callable
+    args_sds: tuple
+    in_pspecs: tuple
+    out_pspecs: Any
+    model: Model
+    rules: ShardingRules
+    mesh: VirtualMesh
+    donate_argnums: tuple = ()
+
+
+def _batch_sds(cfg: ModelConfig, shape: InputShape) -> dict[str, TensorSpec]:
+    B, S = shape.global_batch, shape.seq_len
+    if cfg.is_encoder:
+        return {
+            "frames": TensorSpec((B, S, cfg.frontend_stub_dim), torch.float32),
+            "labels": TensorSpec((B, S), torch.int32),
+            "mask": TensorSpec((B, S), torch.bool),
+        }
+    out = {"tokens": TensorSpec((B, S), torch.int32), "labels": TensorSpec((B, S), torch.int32)}
+    if cfg.vision_tokens:
+        out["vision"] = TensorSpec((B, cfg.vision_tokens, cfg.frontend_stub_dim), torch.float32)
+    return out
+
+
+def _batch_pspecs(batch_sds: dict, rules: ShardingRules, mesh: VirtualMesh) -> dict:
+    return {k: dims_to_pspec(_BATCH_DIMS[k], v.shape, rules, mesh) for k, v in batch_sds.items()}
+
+
+def input_specs(cfg: ModelConfig, shape_name: str) -> dict[str, Any]:
+    """``TensorSpec`` stand-ins for every input of the shape's step (nothing
+    allocated)."""
+    shape = SHAPES[shape_name]
+    model = build_model(cfg)
+    params = specs_to_shape_dtype(model.abstract_params)
+    if shape.kind == "train":
+        return {
+            "state": {
+                "params": params,
+                "opt": specs_to_shape_dtype(abstract_opt_state(model.abstract_params, cfg.optimizer_dtype)),
+                "step": TensorSpec((), torch.int32),
+            },
+            "batch": _batch_sds(cfg, shape),
+        }
+    if shape.kind == "prefill":
+        return {"params": params, "batch": _batch_sds(cfg, shape)}
+    return {
+        "params": params,
+        "cache": specs_to_shape_dtype(model.abstract_cache(shape.global_batch, shape.seq_len)),
+        "token": TensorSpec((shape.global_batch,), torch.int32),
+        "pos": TensorSpec((), torch.int32),
+    }
+
+
+def build_step(cfg: ModelConfig, shape_name: str | InputShape, mesh: VirtualMesh) -> StepBundle:
+    """The cell of ``(cfg, shape_name)`` on ``mesh``; an ``InputShape`` in
+    place of the name is taken as it is (a probe batch)."""
+    shape = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
+    model = build_model(cfg)
+    rules = rules_for_shape(model.rules, shape.kind, shape.global_batch)
+    p_specs = model.abstract_params
+    params_ps = tree_pspecs(p_specs, rules, mesh)
+
+    if shape.kind == "train":
+        layout = train_state_layout(cfg, mesh)
+        batch_sds = _batch_sds(cfg, shape)
+        hp = AdamWConfig(lr=3e-4)
+        sched = warmup_cosine(3e-4, 2000, 100_000)
+
+        def train_step(state, batch):
+            paths, live = tree_flatten(state["params"])
+            leaves = [p.detach().requires_grad_() for p in live]
+            loss, _ = model.loss(tree_unflatten(paths, leaves), batch)
+            grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+            adamw_update(tree_unflatten(paths, list(grads)), state["params"], state["opt"], state["step"], hp,
+                         lr_schedule=sched)
+            return state, {"loss": loss.detach()}
+
+        return StepBundle(
+            name="train_step", fn=train_step,
+            args_sds=(layout.sds, batch_sds),
+            in_pspecs=(layout.pspecs, _batch_pspecs(batch_sds, rules, mesh)),
+            out_pspecs=(layout.pspecs, None),
+            model=model, rules=rules, mesh=mesh, donate_argnums=(0,),
+        )
+
+    if shape.kind == "prefill":
+        batch_sds = _batch_sds(cfg, shape)
+
+        def prefill_step(params, batch):
+            return model.prefill(params, tokens=batch.get("tokens"), frames=batch.get("frames"),
+                                 vision=batch.get("vision"))
+
+        return StepBundle(
+            name="prefill_step", fn=prefill_step,
+            args_sds=(specs_to_shape_dtype(p_specs), batch_sds),
+            in_pspecs=(params_ps, _batch_pspecs(batch_sds, rules, mesh)),
+            out_pspecs=None, model=model, rules=rules, mesh=mesh,
+        )
+
+    # decode: one new token against a seq_len-deep cache
+    cache_specs = model.abstract_cache(shape.global_batch, shape.seq_len)
+    cache_ps = tree_pspecs(cache_specs, rules, mesh)
+
+    def serve_step(params, cache, token, pos):
+        return model.decode_step(params, cache, token, pos)
+
+    return StepBundle(
+        name="serve_step", fn=serve_step,
+        args_sds=(specs_to_shape_dtype(p_specs), specs_to_shape_dtype(cache_specs),
+                  TensorSpec((shape.global_batch,), torch.int32), TensorSpec((), torch.int32)),
+        in_pspecs=(params_ps, cache_ps, dims_to_pspec(("batch",), (shape.global_batch,), rules, mesh), ()),
+        out_pspecs=(None, cache_ps), model=model, rules=rules, mesh=mesh, donate_argnums=(1,),
     )
 
 

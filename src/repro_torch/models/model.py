@@ -43,7 +43,13 @@ class Model:
 
     @property
     def rules(self) -> ShardingRules:
-        return FSDP_RULES if self.cfg.sharding_preset == "fsdp" else TP_RULES
+        rules = FSDP_RULES if self.cfg.sharding_preset == "fsdp" else TP_RULES
+        if self.cfg.moe_mode == "ep" and self.cfg.num_experts:
+            # expert parallelism: the experts' dim shards over "data", so each
+            # data coordinate owns whole experts (the plan and every shard
+            # follow)
+            rules = rules.override(experts="data")
+        return rules
 
     def init(self, key: threefry.Key, device: Any = None) -> Any:
         """Params on ``device`` (``cuda`` unless the caller asks for another)

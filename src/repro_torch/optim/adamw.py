@@ -54,6 +54,16 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.stack(leaves).sum().sqrt()
 
 
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 sqrt on every device. The CPU's is MKL's
+    vector sqrt, within 1 ulp but not correctly rounded, and on a loaded
+    thread pool its result for the same input varied from call to call; the
+    float64 root rounded once is the IEEE result that CUDA's sqrt gives."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).to(x.dtype)
+    return torch.sqrt(x)
+
+
 @torch.no_grad()
 def adamw_update(
     grads: Any,
@@ -87,7 +97,7 @@ def adamw_update(
         v_new = hp.b2 * v32 + (1.0 - hp.b2) * g.square()
         mhat = m_new / (1.0 - hp.b1**t)
         vhat = v_new / (1.0 - hp.b2**t)
-        delta = mhat / (torch.sqrt(vhat) + hp.eps) + hp.weight_decay * master
+        delta = mhat / (_sqrt(vhat) + hp.eps) + hp.weight_decay * master
         master_new = master - lr * delta
         m.copy_(m_new)
         v.copy_(v_new)

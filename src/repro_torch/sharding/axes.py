@@ -118,9 +118,15 @@ def _trim(entries: list[AxisVal]) -> tuple:
     return tuple(entries)
 
 
-def spec_to_pspec(spec: ParamSpec, rules: ShardingRules, mesh: VirtualMesh) -> tuple:
-    entries = [resolve_axis(rules.get(dim), size, mesh) for size, dim in zip(spec.shape, spec.dims)]
+def dims_to_pspec(dims: tuple, shape: tuple[int, ...], rules: ShardingRules, mesh: VirtualMesh) -> tuple:
+    """The spec of a tensor with logical ``dims`` and ``shape`` (an input or
+    activation's, or a ParamSpec's)."""
+    entries = [resolve_axis(rules.get(dim), size, mesh) for size, dim in zip(shape, dims)]
     return _trim(_dedupe_entries(entries))
+
+
+def spec_to_pspec(spec: ParamSpec, rules: ShardingRules, mesh: VirtualMesh) -> tuple:
+    return dims_to_pspec(spec.dims, spec.shape, rules, mesh)
 
 
 def tree_pspecs(tree: Any, rules: ShardingRules, mesh: VirtualMesh) -> Any:
@@ -150,3 +156,8 @@ def zero1_pspec(spec: ParamSpec, rules: ShardingRules, mesh: VirtualMesh) -> tup
                 entries[i] = combo[0] if len(combo) == 1 else combo
                 return _trim(entries)
     return base
+
+
+def tree_zero1_pspecs(tree: Any, rules: ShardingRules, mesh: VirtualMesh) -> Any:
+    """:func:`zero1_pspec` of every ParamSpec of a nested dict."""
+    return tree_map(lambda s: zero1_pspec(s, rules, mesh), tree)

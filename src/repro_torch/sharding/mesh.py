@@ -64,7 +64,9 @@ def make_mesh(sizes: tuple[int, ...], names: tuple[str, ...], device: Any = None
         raise ValueError(f"mesh sizes {sizes} and names {names} do not match")
     if any(int(s) < 1 for s in sizes):
         raise ValueError(f"mesh axis sizes must be >= 1, got {sizes}")
-    return VirtualMesh(tuple((n, int(s)) for n, s in zip(names, sizes)), resolve_device(device))
+    # a mesh on the meta device is the dry run's: it places nothing
+    dev = torch.device(device) if device is not None and torch.device(device).type == "meta" else resolve_device(device)
+    return VirtualMesh(tuple((n, int(s)) for n, s in zip(names, sizes)), dev)
 
 
 def axes_of(entry) -> tuple[str, ...]:

@@ -180,11 +180,14 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844, 0
 def _erfinv(x: torch.Tensor) -> torch.Tensor:
     """erfinv of float32 ``x`` in (-1, 1) as the reference evaluates it:
     Giles' polynomial in Horner form, each step one rounded multiply-add."""
-    # log1p in float64, rounded once: the same float32 on every device and
-    # however the work is split between vectorized and scalar loops
+    # log1p and sqrt in float64, rounded once: the same float32 on every
+    # device and however the work is split between vectorized and scalar
+    # loops. (The CPU's float32 sqrt is MKL's vector sqrt, within 1 ulp but
+    # not correctly rounded, and on a loaded thread pool its result for the
+    # same input varied from call to call.)
     w = torch.log1p((-x * x).double()).neg_().float()
     small = w < 5.0
-    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(small, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
     coef = [torch.where(small, torch.tensor(a, dtype=torch.float32, device=x.device),
                         torch.tensor(b, dtype=torch.float32, device=x.device))
             for a, b in zip(_ERFINV_LT5, _ERFINV_GE5)]

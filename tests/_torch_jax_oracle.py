@@ -10,7 +10,10 @@ through two kills (``TRAINER_CASE``); ``... trainer_tiers OUT.npz`` the
 reference ``Trainer`` through a whole-system loss and a cold 4 -> 3 restart
 from its disk rung (``TRAINER_TIERS_CASE``); ``... async OUT.npz`` the create
 drain's and the pipelined restore's cases (``async_cases``); ``... psum OUT.npz`` the reference's
-``compressed_psum`` under ``shard_map`` over 4 devices (``psum_inputs``). The arrays go to the
+``compressed_psum`` under ``shard_map`` over 4 devices (``psum_inputs``); ``... dryrun OUT.npz``
+(with 512 devices) what the reference's dry run records without compiling (``run_dryrun``); ``... trainer_ep
+OUT.npz`` the reference ``Trainer``'s plan and committed stores under expert parallelism
+(``TRAINER_EP_CASE``). The arrays go to the
 ``.npz``, the metadata to ``OUT.npz.json``.
 
 The engine cases' entities (``ShardedVec``, ``Counter``, ``engine_state``),
@@ -1195,6 +1198,89 @@ def run_psum(out_path: str) -> None:
     _save(out_path, arrays, meta)
 
 
+# Expert parallelism in the Trainer: the reduced mixtral with 16 experts (4
+# do not divide the 16-way data axis of the trainer's production mesh, and
+# "ep" would change nothing) and moe_mode="ep"; one checkpoint of the
+# initial state.
+TRAINER_EP_CASE = dict(batch=2, seq=32, total_steps=1, checkpoint_period=1, n_virtual_hosts=4)
+
+
+def trainer_ep_config(get_config):
+    return get_config("mixtral-8x7b").reduced().with_(num_experts=16, moe_mode="ep")
+
+
+def run_trainer_ep(out_path: str) -> None:
+    """The reference Trainer on ``trainer_ep_config``: its shard plan, its
+    initial state, and the committed stores of one checkpoint of it."""
+    from repro.configs import get_config
+    from repro.models import build_model
+    from repro.runtime.trainer import Trainer, TrainerConfig
+
+    t = Trainer(build_model(trainer_ep_config(get_config)), TrainerConfig(**TRAINER_EP_CASE))
+    arrays = {f"init/{k}": v for k, v in _flat_np(jax.device_get(t.state)).items()}
+    assert t.engine.checkpoint({"step": 0})
+    stored, stores = dump_engine(t.engine, np.asarray)
+    arrays.update({f"store/{k}": v for k, v in stored.items()})
+    meta = {"plan": {"dims": list(t.plan.dims), "shapes": [list(x) for x in t.plan.shapes]}, **stores}
+    _save(out_path, arrays, meta)
+
+
+MOE_ARCHS = ("mixtral-8x7b", "grok-1-314b", "jamba-1.5-large-398b")
+
+
+def dryrun_cases() -> list[tuple[str, str]]:
+    """(arch, moe_mode) of the dry-run comparison: every config under "tp",
+    the MoE configs under "ep" too."""
+    from repro.configs import list_archs
+
+    return [(a, "tp") for a in list_archs()] + [(a, "ep") for a in MOE_ARCHS]
+
+
+def run_dryrun(out_path: str) -> None:
+    """What the reference's dry run records without compiling, on both
+    production meshes (run with 512 host devices): applicability, parameter
+    and token counts of every (arch, shape); each applicable cell's
+    per-device argument bytes (``in_shardings[i].shard_shape``) under every
+    case of ``dryrun_cases``; and the train state's snapshot (copy) and
+    striped restore (rs, g=4, m=2) programs' byte accounting."""
+    import math
+
+    from repro.configs import SHAPES, applicability, get_config
+    from repro.core.device_tier import cached_snapshot_program, cached_striped_restore_program
+    from repro.launch.mesh import make_production_mesh
+    from repro.launch.steps import build_step
+
+    meshes = {"single": make_production_mesh(), "multi": make_production_mesh(multi_pod=True)}
+    cells, verdicts = {}, {}
+    for arch, mode in dryrun_cases():
+        cfg = get_config(arch).with_(moe_mode=mode)
+        for sname, shape in SHAPES.items():
+            ok, reason = applicability(cfg, shape)
+            if mode == "tp":
+                verdicts[f"{arch}/{sname}"] = [ok, reason]
+            if not ok:
+                continue
+            for mname, mesh in meshes.items():
+                b = build_step(cfg, sname, mesh)
+                args = []
+                for sds, sh in zip(b.args_sds, b.in_shardings):
+                    leaves = jax.tree.leaves(sds)
+                    shs = jax.tree.leaves(sh, is_leaf=lambda x: isinstance(x, NamedSharding))
+                    args.append(sum(math.prod(s.shard_shape(x.shape)) * x.dtype.itemsize
+                                    for x, s in zip(leaves, shs)))
+                rec = {"args": args, "n_params": b.model.n_params, "n_active_params": b.model.n_active_params,
+                       "tokens": shape.tokens if shape.kind != "decode" else shape.global_batch}
+                if sname == "train_4k":
+                    pspecs = jax.tree.map(lambda s: s.spec, b.in_shardings[0])
+                    snap = cached_snapshot_program(mesh, b.args_sds[0], pspecs, redundancy_axis="data")
+                    rest = cached_striped_restore_program(mesh, b.args_sds[0], pspecs, redundancy_axis="data",
+                                                          codec="rs", parity_group=4, rs_parity=2)
+                    rec["snapshot"] = [snap.exchanged_bytes, snap.own_bytes, snap.pcie_bytes, len(snap.buckets)]
+                    rec["restore"] = [rest.pcie_bytes, rest.host_decode_pcie_bytes, len(rest.buckets)]
+                cells[f"{arch}/{mode}/{sname}/{mname}"] = rec
+    _save(out_path, {}, {"cells": cells, "applicability": verdicts})
+
+
 def _save(out_path: str, arrays: dict, meta: dict) -> None:
     # bf16 leaves travel as their 16-bit patterns (npz has no bf16)
     enc = {}
@@ -1227,4 +1313,5 @@ def load(out_path: str) -> tuple[dict, dict]:
 if __name__ == "__main__":
     {"device_tier": run_device_tier, "state": run_state, "engine": run_engine,
      "elastic": run_elastic, "trainer": run_trainer, "async": run_async,
-     "trainer_tiers": run_trainer_tiers, "psum": run_psum}[sys.argv[1]](sys.argv[2])
+     "trainer_tiers": run_trainer_tiers, "psum": run_psum, "dryrun": run_dryrun,
+     "trainer_ep": run_trainer_ep}[sys.argv[1]](sys.argv[2])

@@ -7,6 +7,7 @@ CPU, at a small config, in seconds.
     python3 tools/rehearse_chip_smoke.py --phase11  # the model zoo alone
     python3 tools/rehearse_chip_smoke.py --phase12  # the encoder and the VLM alone
     python3 tools/rehearse_chip_smoke.py --phase13  # the phase-field application alone
+    python3 tools/rehearse_chip_smoke.py --phase4b  # the device-tier path, then the dry run's accounting of it
 
 It runs a copy of ``chip_smoke.py``'s source in which the card is the CPU:
 ``"cuda"`` strings and ``.cuda()`` calls name the CPU, every entry point of
@@ -182,16 +183,33 @@ def main() -> int:
     ap.add_argument("--phase11", action="store_true", help="run the model zoo's phase alone")
     ap.add_argument("--phase12", action="store_true", help="run the encoder and VLM phase alone")
     ap.add_argument("--phase13", action="store_true", help="run the phase-field phase alone")
+    ap.add_argument("--phase4b", action="store_true",
+                    help="run the device-tier path (phase 4) and the dry run's accounting of it alone")
     args = ap.parse_args()
     torch.set_num_threads(4)
     cfg = small_config()
     mod = load_chip_smoke(cfg)
-    if not (args.phase7 or args.phase11 or args.phase12 or args.phase13):
+    if not (args.phase7 or args.phase11 or args.phase12 or args.phase13 or args.phase4b):
         try:
             return mod.main()
         finally:
             shutil.rmtree(mod.TIER_ROOT, ignore_errors=True)
     mod._HOST_START[:] = [mod.host_free_gib(), mod.host_rss_gib()]
+    if args.phase4b:
+        from repro_torch.launch.steps import init_train_state, train_state_layout
+        from repro_torch.sharding.mesh import make_mesh
+
+        mesh = make_mesh((8, 1), ("data", "model"), device="cpu")
+        layout = train_state_layout(cfg, mesh)
+        state = init_train_state(layout, mesh, torch.Generator().manual_seed(mod.SEED))
+        cli = mod.DryrunCli()
+        try:
+            counts, runs = mod.device_tier_path(state, layout, mesh)
+            out = mod.dryrun_path(cfg, state, layout, mesh, runs, cli)
+        finally:
+            cli.stop()
+        print(json.dumps({k: v for k, v in out.items() if k != "cli"}))
+        return 0
     if args.phase13:
         counts, runs = mod.phase_field_path()
         print(json.dumps(runs))
