@@ -40,7 +40,8 @@ printing no result, on any failure or without a card. Phases:
    HBM, the integer work on the ALU and FMA pipes and through dispatch, and
    f32 work), each resource's time printed; B5b and ``torch.mul`` in
    alternating rounds;
-4. device-tier path: the llama3.2-1b train state (~17.3 GB, seeded) on a
+4. device-tier path: the llama3.2-1b train state at ``PHASE4_LAYERS`` (8)
+   of its 16 layers, width kept (10.49 GB, seeded), on a
    virtual (8, 1) ("data", "model") mesh, with rs g=4 m=2, with xor g=4 and
    with lrc g=4 (2 local XOR rows over 2 Cauchy rows, ranks 0 and 1 of one
    local subgroup killed):
@@ -63,8 +64,26 @@ printing no result, on any failure or without a card. Phases:
    bytes those of each rank's shard tensors of the state on the card
    (times 8: the state plus 7 copies of the leaves every rank holds
    whole); then the records of the dry-run CLI (``DRYRUN_CLI``) on meta
-   tensors, run on one thread in a child process beside phase 4, printed
+   tensors, run on one thread in a child process beside phases 12, 13 and 4, printed
    and checked. It measures bytes, not time;
+4c. the device tier over processes: phase 4's layout cut to 1 layer
+   (``RANK_LAYERS``, 4.53 GB, width kept) as 8 processes, one per coordinate
+   of the (8, 1) mesh (``launch.mesh.RankGroup``, a ``file://`` rendezvous,
+   started before phase 4 so that their start-up runs beside it), all
+   on the one card over gloo (``RANK_BACKEND``: NCCL refuses two ranks on
+   one device, so each message is staged through host memory). Each process
+   holds only its shards (the exchanged ones copied out of the parent's
+   tensors, which it gets by CUDA IPC and keeps as the originals) and runs
+   rs g=4 m=2 killing {0,2} and xor g=4 killing {5} (create, the killed
+   processes' shards and stripes overwritten, the restore rebuilding them
+   with B4 on those processes), the compressed copy (B5a) and the mirror
+   program with its copy restore. Checked: every process's payload SHA-256
+   equals its coordinate's rows of the one-card program on the same layout
+   (run in this process beside the processes' start-up), the handshake
+   checksum is the same on every process and run, the rebuilt shards equal
+   the originals, each process sent what its program accounts, B1-B5a
+   launched on the processes. Prints each process's create and restore
+   seconds, bytes sent and card peak;
 5. engine path: a seeded llama3.2-1b train state cut to ``PATH_LAYERS``
    (1) of its 16 layers, width kept, held by a ShardedStateEntity over 4
    ranks (the ZeRO-1 data dim split four ways) plus an RngEntity, through three
@@ -261,11 +280,11 @@ with a seeded permutation of its rows; each pair in alternating order over
 ``B6_AB_ROUNDS`` rounds (medians and spreads); then the leaf's whole
 reshard in place against the stack and gather that preceded it.
 
-Phase 7 runs right after phase 3, then phases 5, 8, 8b, 6, 9, 10, 11, 12, 13, 4 and 4b: 7,
+Phase 7 runs right after phase 3, then phases 5, 8, 8b, 6, 9, 10, 11, 12, 13, 4, 4b and 4c: 7,
 5, 8, 8b and 9 need the most host RAM, and phase 4's staged fetches leave pinned
 host blocks in PyTorch's cache. The kernels' launch counts are set to 0 before each of the
-paths and read after it; every kernel a path runs must have launched in it
-(phase 7's copy codec launches none).
+paths and read after it (phase 4c's in each of its processes, then summed); every kernel a
+path runs must have launched in it (phase 7's copy codec launches none).
 
 The line before the last is the kernels' JSON; the last line is the result.
 """
@@ -306,6 +325,11 @@ DISPATCH_PER_S = 128 * 132 * 1.98e9
 # (codec, g, m, killed ranks); lrc: 2 local XOR rows over m=2 Cauchy rows,
 # ranks 0 and 1 both in its first local subgroup
 MAIN_RUNS = (("rs", 4, 2, (0, 2)), ("xor", 4, 1, (5,)), ("lrc", 4, 2, (0, 1)))
+# Phase 4's depth, width kept: 8 of llama3.2-1b's 16 layers since phase 4c
+# joined the run (the whole run took 1195.8 s with all 16 on a slow host,
+# with no room to spare under 1200 s). Phase 3 times the kernels on the
+# full-depth bucket all the same.
+PHASE4_LAYERS = 8
 B6_AB_ROUNDS = 16  # rounds of phase 3's comparisons in alternating order
 DEVICE_TIER_KERNELS = ("checksum", "xor_reduce", "gf256_matmul", "gf256_matmul_dyn", "quantize_blockwise",
                        "dequantize_blockwise")
@@ -1178,9 +1202,10 @@ DRYRUN_CLI = ("--arch", ARCH, "--shape", "train_4k", "--mesh", "single", "--snap
 
 class DryrunCli:
     """The dry-run CLI (``DRYRUN_CLI``) in a child process on meta tensors,
-    started before phase 4 so that it runs on the host beside it (the
-    child's imports alone take seconds on the checkout's filesystem). It
-    counts on one thread, so phase 4's host work keeps the other cores.
+    started before phase 12 so that it runs on the host beside phases 12, 13
+    and 4 (the child's imports alone take seconds on the checkout's
+    filesystem). It counts on one thread, so those phases' host work keeps
+    the other cores.
     ``records()`` waits for it and returns its records; ``stop()`` kills it
     if it still runs and removes its directory."""
 
@@ -1262,6 +1287,7 @@ def dryrun_path(cfg, state, layout, mesh, runs4, cli: DryrunCli) -> dict:
     held. Then the CLI's records, each printed and each accounted. It
     measures bytes, not time."""
     from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import build_step
     from repro_torch.sharding.mesh import axes_of, full_rank
     from repro_torch.utils.pytree import tree_flatten
 
@@ -1294,8 +1320,10 @@ def dryrun_path(cfg, state, layout, mesh, runs4, cli: DryrunCli) -> dict:
                                     exchanged_bytes=acc["exchanged_bytes_global"], **row))
     check(len(out["programs"]) == len(MAIN_RUNS) + 1, f"{len(out['programs'])} runs of phase 4 accounted")
 
-    rec = dryrun.run_cell(ARCH, "train_4k", mesh, fast=True)
-    per_device = rec["memory"]["argument_bytes_by_input"]["state"]
+    # the train cell's memory accounting (``run_cell(..., fast=True)``'s) of
+    # ``cfg``, the depth phase 4 ran
+    memory = dryrun.memory_accounting(build_step(cfg, "train_4k", mesh))
+    per_device = memory["argument_bytes_by_input"]["state"]
     _, leaves = tree_flatten(state)
     _, specs = tree_flatten(layout.pspecs)
     ranks = rank_shard_bytes(leaves, specs, mesh)
@@ -1306,7 +1334,7 @@ def dryrun_path(cfg, state, layout, mesh, runs4, cli: DryrunCli) -> dict:
     check(per_device * mesh.size == allocated + (mesh.size - 1) * whole,
           f"per-device state bytes {per_device} x {mesh.size} != {allocated} + {mesh.size - 1} x {whole}")
     out["state"] = dict(per_device_bytes=per_device, allocated_bytes=allocated, whole_leaf_bytes=whole,
-                        argument_size_in_bytes=rec["memory"]["argument_size_in_bytes"])
+                        argument_size_in_bytes=memory["argument_size_in_bytes"])
 
     t0 = time.perf_counter()
     got = cli.records()
@@ -1318,6 +1346,304 @@ def dryrun_path(cfg, state, layout, mesh, runs4, cli: DryrunCli) -> dict:
     out["cli"] = got["cells"]
     log("dryrun path: " + json.dumps({k: v for k, v in out.items() if k != "cli"}))
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the device tier over processes, one per coordinate of the mesh
+# ---------------------------------------------------------------------------
+
+# One card: NCCL refuses two ranks on one device, so the processes share the
+# card over gloo, which stages every message through host memory. The NCCL
+# leg (device buffers straight onto the wire) needs one card per process.
+RANK_BACKEND = "gloo"
+RANK_MESH = ((8, 1), ("data", "model"))  # phase 4's mesh, one process a coordinate
+RANK_LAYERS = 1  # phase 4's layout cut to 1 layer (4.53 GB), width kept
+RANK_RUNS = (("rs", 4, 2, (0, 2)), ("xor", 4, 1, (5,)))  # then the compressed copy and the mirror program
+RANK_KERNELS = ("checksum", "xor_reduce", "gf256_matmul", "gf256_matmul_dyn", "quantize_blockwise")
+
+
+def payload_digests(payload: dict) -> dict:
+    """SHA-256 of each bucket's payload block (all its rows, in order) and
+    the checksum's words: ``{"checksum": [..], "<key>/<tag>[/part]": hex}``.
+    A payload's arrays are contiguous blocks; stacked coordinate rows are
+    split by the caller before this."""
+    import hashlib
+
+    import torch
+
+    out = {}
+    for key, val in payload.items():
+        if key == "checksum":
+            out[key] = [c & 0xFFFFFFFF for c in val.view(torch.int32).cpu().tolist()]
+            continue
+        for tag, x in val.items():
+            for part, t in (x.items() if isinstance(x, dict) else [("", x)]):
+                h = hashlib.sha256()
+                for row in t.reshape(t.shape[0] if t.ndim > 1 else 1, -1):
+                    h.update(_int_view(row.contiguous()).cpu().numpy().tobytes())
+                out[f"{key}/{tag}" + (f"/{part}" if part else "")] = h.hexdigest()
+    return out
+
+
+def coordinate_rows(payload: dict, buckets, mesh, coord: int) -> dict:
+    """One coordinate's block of a one-card payload: the reference's per-device
+    slice (dim 0 of a partner buffer, dim 1 of a parity stack, laid out over
+    the bucket's axes; every bucket of this layout spans the whole mesh)."""
+    out = {}
+    for key, val in payload.items():
+        if key == "checksum":
+            out[key] = val
+            continue
+        out[key] = {}
+        for tag, x in val.items():
+            b = next(b for b in buckets if b.tag == tag)
+            n = math.prod(mesh.shape[a] for a in b.axes)
+            check(n == mesh.size, f"bucket {tag} spans {n} of {mesh.size} coordinates")
+            if isinstance(x, dict):
+                out[key][tag] = {p: t.view(n, -1)[coord] for p, t in x.items()}
+            elif key == "parity":
+                out[key][tag] = x.view(x.shape[0], n, -1)[:, coord]
+            else:
+                out[key][tag] = x.view(n, -1)[coord]
+    return out
+
+
+def rank_programs(mesh, layout):
+    """The programs phase 4c runs, on either mesh, in order: the striped
+    runs (snapshot and restore), the compressed copy and the mirror."""
+    from repro_torch.core.device_tier import (
+        build_mirror_program, build_snapshot_program, build_striped_restore_program,
+    )
+
+    progs = []
+    for codec, g, m, kill in RANK_RUNS:
+        progs.append((f"{codec}", build_snapshot_program(mesh, layout.sds, layout.pspecs, codec=codec, parity_group=g,
+                                                         rs_parity=m, include_own_copy=False),
+                      build_striped_restore_program(mesh, layout.sds, layout.pspecs, codec=codec, parity_group=g,
+                                                    rs_parity=m), (codec, g, m, kill)))
+    progs.append(("compress", build_snapshot_program(mesh, layout.sds, layout.pspecs, compress=True,
+                                                     include_own_copy=False), None, None))
+    progs.append(("mirror", build_mirror_program(mesh, layout.sds, layout.pspecs), None, None))
+    return progs
+
+
+def rank_body(rank: int, world: int, init_method: str, device: str, cfg, receive) -> dict:
+    """Phase 4c in one process, started before phase 4 (``start_ranks``):
+    join the (8, 1) process mesh, lay out ``cfg``'s train state (already cut
+    to RANK_LAYERS) over it and build the programs; then wait for the
+    process's own shards of the state (``receive()``), copy its exchanged
+    leaves out of the parent's tensors, which stay the originals (the leaves
+    every coordinate holds whole are read in place), and run each program of
+    ``rank_programs`` with its checks. Returns the digests, times, bytes sent
+    and launch counts."""
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.core.device_tier import overwrite_shards, striped_decode_rows
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_process_mesh
+    from repro_torch.launch.steps import train_state_layout
+    from repro_torch.sharding.mesh import make_mesh
+    from repro_torch.utils.pytree import tree_flatten, tree_unflatten
+
+    entered = time.time()
+    torch.set_num_threads(1)  # eight processes share the host's cores
+    on_card = device != "cpu"
+    mesh = init_process_mesh(*RANK_MESH, RANK_BACKEND, rank=rank, world_size=world, init_method=init_method,
+                             device=None if on_card else "cpu")
+    layout = train_state_layout(cfg, make_mesh(*RANK_MESH, device="meta"))
+    progs = rank_programs(mesh, layout)
+    exchanged = {int(i) for i in progs[0][1].exchanged_names}
+    initialised = time.time()
+    shards, = receive()
+    paths, originals = tree_flatten(shards)
+    live = tree_unflatten(paths, [x.clone() if i in exchanged else x for i, x in enumerate(originals)])
+    tp = mesh.transport
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize()
+        tdist.barrier()
+
+    def intact() -> bool:
+        _, now = tree_flatten(live)
+        return all(torch.equal(_int_view(now[i]), _int_view(originals[i])) for i in exchanged)
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    ready = time.time()
+    ops.reset_launch_counts()  # the main path's counts start here
+    runs = []
+    for name, prog, rest, spec in progs:
+        run = dict(name=name)
+        sync()
+        tp.reset_counts()
+        t0 = time.perf_counter()
+        payload = prog.snapshot_fn(live)
+        sync()
+        run.update(create_s=time.perf_counter() - t0, sent_bytes=tp.sent_bytes, recv_bytes=tp.recv_bytes,
+                   program_sent_bytes=prog.sent_bytes)
+        check(tp.sent_bytes == prog.sent_bytes, f"rank {rank} {name}: sent {tp.sent_bytes} bytes, the program "
+              f"accounts {prog.sent_bytes}")
+        if name == "mirror":
+            payload["partner"] = payload.pop("mirror")
+        run["digests"] = payload_digests(payload)
+        if name == "mirror":  # the shadow copies re-aligned by the copy codec's restore_fn
+            sync()
+            t0 = time.perf_counter()
+            restored = prog.restore_fn(payload)
+            sync()
+            run["restore_s"] = time.perf_counter() - t0
+            run["restored_equal"] = all(torch.equal(_int_view(restored[str(i)]), _int_view(originals[i]))
+                                        for i in exchanged)
+        elif rest is not None:
+            codec, g, m, kill = spec
+            overwrite_shards(mesh, live, layout.pspecs, "data", kill)  # the killed ranks' memory
+            parity = payload["parity"]
+            if rank in kill:  # and the stripes they held
+                for t in parity.values():
+                    t.view(torch.int32).fill_(0x63636363)
+            run["killed"] = rank in kill
+            rows, mask = striped_decode_rows(RANK_MESH[0][0], g, codec, m, set(kill))
+            sync()
+            tp.reset_counts()
+            t0 = time.perf_counter()
+            rest.restore_fn(live, parity, {"data": rows}, {"data": mask})
+            sync()
+            run.update(restore_s=time.perf_counter() - t0, restore_sent_bytes=tp.sent_bytes)
+            run["restored_equal"] = intact()
+        del payload
+        runs.append(run)
+    return dict(rank=rank, coords=mesh.coords, runs=runs, launches=ops.launch_counts(), entered=entered,
+                initialised=initialised, ready=ready, done=time.time(),
+                peak_device_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0)
+
+
+def rank_shards(state, layout, mesh, rank: int) -> dict:
+    """Process ``rank``'s shards of the state: a contiguous copy of each leaf
+    split over the mesh (its block at the rank's coordinate); a leaf every
+    coordinate holds whole is the state's own tensor, shared."""
+    from repro_torch.core.device_tier import local_shards
+    from repro_torch.sharding.mesh import axes_of, coords_of
+    from repro_torch.utils.pytree import tree_flatten, tree_unflatten
+
+    paths, leaves = tree_flatten(state)
+    _, specs = tree_flatten(layout.pspecs)
+    split = [i for i, s in enumerate(specs) if any(mesh.shape[a] > 1 for e in s for a in axes_of(e))]
+    cut = tree_flatten(local_shards(mesh, tree_unflatten([paths[i] for i in split], [leaves[i] for i in split]),
+                                    tree_unflatten([paths[i] for i in split], [specs[i] for i in split]),
+                                    coords=coords_of(mesh.axes, rank)))[1]
+    out = list(leaves)
+    for i, x in zip(split, cut):
+        out[i] = x
+    return tree_unflatten(paths, out)
+
+
+def start_ranks(cfg):
+    """Start phase 4c's processes (``rank_body``) before phase 4, so that
+    their start-up (the interpreter, CUDA, the group, the programs) runs
+    beside it; they then wait for their shards. The kernels are built here,
+    once: the processes load the libraries and never run nvcc."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import RankGroup
+
+    _build.build()
+    check(all(_build.lib_path(n).exists() for n in _build.KERNELS), "phase 4c: the kernels are not built")
+    group = RankGroup(rank_body, math.prod(RANK_MESH[0]), args=("cuda", replace(cfg, num_layers=RANK_LAYERS)),
+                      late=True)
+    group.started = time.time()
+    return group
+
+
+def rank_path(cfg, group) -> tuple[dict, dict]:
+    """Phase 4c: phase 4's layout cut to RANK_LAYERS layer on RANK_MESH as
+    one process per coordinate (``group``, from ``start_ranks``), sharing the
+    card over RANK_BACKEND: the rs and xor runs of RANK_RUNS (create, kill,
+    restore on the killed processes with B4), the compressed copy (B5a) and
+    the mirror program (and its copy restore). Every process's payload
+    digest equals its coordinate's rows of the one-card program on the same
+    layout (run here while the processes run theirs), the handshake checksum
+    is the same on every process, the restored shards equal the originals,
+    each process sent what its program accounts, and B1-B5a launched on the
+    processes. Returns the processes' launch counts, summed, and the runs."""
+    import torch
+
+    from repro_torch.launch.steps import init_train_state, train_state_layout
+    from repro_torch.sharding.mesh import make_mesh
+
+    world = math.prod(RANK_MESH[0])
+    cfg = replace(cfg, num_layers=RANK_LAYERS)
+    mesh = make_mesh(*RANK_MESH)
+    t0, fed = time.perf_counter(), time.time()
+    try:
+        layout = train_state_layout(cfg, mesh)
+        state = init_train_state(layout, mesh, torch.Generator(device="cuda").manual_seed(SEED))
+        shards = [rank_shards(state, layout, mesh, r) for r in range(world)]
+        torch.cuda.synchronize()
+        log(f"phase 4c: {ARCH} at {RANK_LAYERS} layer, {tree_nbytes(state) / 1e9:.3f} GB, as {world} processes on "
+            f"one card over {RANK_BACKEND} (one card: NCCL refuses two ranks on one device, so every message is "
+            f"staged through host memory)")
+        group.feed([(s,) for s in shards])
+        t1 = time.perf_counter()
+        want = {}  # the one-card program's rows, while the processes run
+        for name, prog, _, _ in rank_programs(mesh, layout):
+            payload = prog.snapshot_fn(state)
+            if name == "mirror":
+                payload["partner"] = payload.pop("mirror")
+            want[name] = [payload_digests(coordinate_rows(payload, prog.buckets, mesh, r)) for r in range(world)]
+            del payload
+        one_card_s = time.perf_counter() - t1
+        results = group.join(timeout=600)
+    finally:
+        group.stop()
+    wall_s = time.perf_counter() - t0
+    state_bytes = tree_nbytes(state)
+    del shards, state
+    torch.cuda.empty_cache()
+    counts: dict = {}
+    for res in results:
+        for k, v in res["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    checksums = {json.dumps(run["digests"]["checksum"]) for res in results for run in res["runs"]
+                 if "checksum" in run["digests"]}
+    check(len(checksums) == 1, f"phase 4c: the handshake checksum differs between processes or runs: {checksums}")
+    one_sum = {json.dumps(rows[0]["checksum"]) for name, rows in want.items() if "checksum" in rows[0]}
+    check(checksums == one_sum, f"phase 4c: checksum {checksums} != the one-card program's {one_sum}")
+    for res in results:
+        r = res["rank"]
+        check(res["coords"] == {"data": r, "model": 0}, f"phase 4c: rank {r} at {res['coords']}")
+        for run in res["runs"]:
+            check(run["digests"] == want[run["name"]][r],
+                  f"phase 4c: rank {r}'s {run['name']} payload differs from the one-card program's rows")
+            if "restored_equal" in run:
+                check(run["restored_equal"], f"phase 4c: rank {r}'s shards differ after the {run['name']} restore")
+        log(f"phase 4c rank {r}: " + ", ".join(
+            f"{run['name']} create {run['create_s']:.3f} s" + (f" restore {run['restore_s']:.3f} s"
+                                                               if "restore_s" in run else "")
+            + f" sent {run['sent_bytes']}" + (f"+{run['restore_sent_bytes']}" if "restore_sent_bytes" in run else "")
+            for run in res["runs"]) + f"; card peak {res['peak_device_gb']:.2f} GB")
+    for name in RANK_KERNELS:
+        check(counts.get(name, 0) > 0, f"phase 4c: kernel {name} was launched no time on the processes")
+    # the time split, from this phase's start: every process initialised
+    # (started before phase 4: the interpreter, CUDA, the group, the
+    # programs), every process ready (its shards received and copied), the
+    # runs done, and the rest (results, teardown)
+    out = dict(
+        wall_s=wall_s, one_card_s=one_card_s,
+        entered_s=max(res["entered"] for res in results) - group.started,
+        initialised_s=max(res["initialised"] for res in results) - fed,
+        start_up_beside_phase4_s=fed - group.started,
+        ready_s=max(res["ready"] for res in results) - fed,
+        runs_s=max(res["done"] for res in results) - max(res["ready"] for res in results),
+        after_s=fed + wall_s - max(res["done"] for res in results),
+        backend=RANK_BACKEND, world=world, layers=RANK_LAYERS, state_bytes=state_bytes,
+        runs=[dict(rank=res["rank"], peak_device_gb=res["peak_device_gb"],
+                   runs=[{k: v for k, v in run.items() if k != "digests"} for run in res["runs"]])
+              for res in results])
+    log("phase 4c: " + json.dumps(out))
+    log(f"phase 4c launches (the processes'): {json.dumps(counts)}")
+    return counts, out
 
 
 # ---------------------------------------------------------------------------
@@ -3613,34 +3939,49 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("phase 11")
-    counts12, runs12 = encoder_vlm_path()
-    log(f"encoder/vlm path launches: {json.dumps(counts12)}")
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_done("phase 12")
-    counts13, runs13 = phase_field_path()
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_done("phase 13")
-    t0 = time.perf_counter()
-    state = init_train_state(layout, mesh, torch.Generator(device="cuda").manual_seed(SEED))
-    torch.cuda.synchronize()
-    n_params = sum(x.numel() for x in tree_flatten(state["params"])[1])
-    state_bytes = sum(x.numel() * x.element_size() for x in tree_flatten(state)[1])
-    log(f"main: {ARCH} state {n_params} params, {state_bytes / 1e9:.3f} GB on the card "
-        f"({time.perf_counter() - t0:.1f} s to make)")
-    cli = DryrunCli()  # beside phase 4, on the host
+    # the dry-run CLI counts on one thread in a child process beside phases
+    # 12, 13 and 4 (its imports alone take most of a minute on the checkout's
+    # filesystem); phase 4b reads its records. Phase 4c's processes start up
+    # beside phase 4.
+    cli, ranks = DryrunCli(), None
     try:
-        counts4, runs4 = device_tier_path(state, layout, mesh)
+        counts12, runs12 = encoder_vlm_path()
+        log(f"encoder/vlm path launches: {json.dumps(counts12)}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_done("phase 12")
+        counts13, runs13 = phase_field_path()
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_done("phase 13")
+        ranks = start_ranks(cfg)
+        t0 = time.perf_counter()
+        cfg4 = replace(cfg, num_layers=PHASE4_LAYERS)
+        layout4 = train_state_layout(cfg4, mesh)
+        state = init_train_state(layout4, mesh, torch.Generator(device="cuda").manual_seed(SEED))
+        torch.cuda.synchronize()
+        n_params = sum(x.numel() for x in tree_flatten(state["params"])[1])
+        state_bytes = sum(x.numel() * x.element_size() for x in tree_flatten(state)[1])
+        log(f"main: {ARCH} state at {PHASE4_LAYERS} of {cfg.num_layers} layers (PHASE4_LAYERS), {n_params} params, "
+            f"{state_bytes / 1e9:.3f} GB on the card ({time.perf_counter() - t0:.1f} s to make)")
+        counts4, runs4 = device_tier_path(state, layout4, mesh)
         log(f"device-tier path launches: {json.dumps(counts4)}")
         phase_done("phase 4")
-        dryrun_path(cfg, state, layout, mesh, runs4, cli)
+        dryrun_path(cfg4, state, layout4, mesh, runs4, cli)
+        phase_done("phase 4b (the dry run's accounting)")
+        del state  # phase 4's
+        gc.collect()
+        torch.cuda.empty_cache()
+        free_pinned_cache()
+        counts4c, runs4c = rank_path(cfg, ranks)
     finally:
         cli.stop()
-    phase_done("phase 4b (the dry run's accounting)")
+        if ranks is not None:
+            ranks.stop()
+    phase_done("phase 4c (the device tier over processes)")
     for k in kernels:
-        k["launches"] = sum(c.get(k["name"], 0) for c in (counts4, counts5, counts6, counts7, counts8, counts8b,
-                                                          counts9, counts10, counts11, counts12, counts13))
+        k["launches"] = sum(c.get(k["name"], 0) for c in (counts4, counts4c, counts5, counts6, counts7, counts8,
+                                                          counts8b, counts9, counts10, counts11, counts12, counts13))
         k["route"] = "cuda"
         check(k["launches"] > 0, f"kernel {k['name']} was launched no time on the main paths")
     log(f"total {time.perf_counter() - t_start:.1f} s")

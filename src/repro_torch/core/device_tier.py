@@ -1,9 +1,9 @@
-"""Device-tier snapshot/restore programs on one card (port of
-``repro.core.device_tier`` for codecs ``copy``, ``xor``, ``rs`` and
-``lrc``).
+"""Device-tier snapshot/restore programs, on one card or one process per
+mesh coordinate (port of ``repro.core.device_tier`` for codecs ``copy``,
+``xor``, ``rs`` and ``lrc``).
 
 The reference runs one shard per TPU under ``shard_map`` and moves buffers
-with ``ppermute``. Here every virtual rank of a :class:`VirtualMesh` lives on
+with ``ppermute``. On a :class:`VirtualMesh` every virtual rank lives on
 one device, and a fused bucket is one ``(n_coords, words)`` uint32 tensor
 with its coordinates ordered over ``bucket.axes`` (mesh order). So:
 
@@ -43,6 +43,26 @@ coordinates (the inverse permutation) and unpacks every exchanged leaf.
 ``build_mirror_program`` is the hot-replica transport: the copy program
 along the ``mirror`` scheme (coordinate ``i`` to ``i + T``, T half the
 axis), with no own copy, its payload keyed ``mirror``.
+
+**Over processes.** Given a :class:`ProcessMesh` instead, the three
+``build_*`` functions return per-rank programs: each process runs the reference's per-device body
+on its own shards (``local_shards``: the padded leaf's block at its
+coordinate) and moves buffers with the mesh's transport
+(``core/transport.py``): the fused uint32 buffer of ``words`` words, the
+checksum fold (B1) and its ``psum``, the partner ``ppermute`` (B5a first
+with ``compress=True``), the ring of ``g - 1`` permutes that collects a
+parity group, the encode (B2, or B3 with the rs or lrc generator), the
+routing rounds to the holder group and the round-robin stripe slots, or the
+whole blobs with ``emit_full_blobs``. A rank's payload has the shape and
+the bytes of the reference's per-device payload at its coordinate. The
+striped restore runs the reference's holder-group ring, the routing home
+and the ring of the group's (mask-zeroed) data; the failed coordinates
+rebuild their buffers with B4 on their own processes, in place. Only what
+the reference's permutes move crosses the wire: one permute of a buffer
+per ring step or routing round. Layout and accounting (``FusedBucket``,
+``word_offsets``, ``exchanged_bytes``, ``pcie_bytes``) are the same code
+for both meshes; ``SnapshotProgram.sent_bytes`` is the bytes this rank's
+permutes send per snapshot.
 """
 
 from __future__ import annotations
@@ -69,7 +89,7 @@ from repro_torch.kernels import rs_encode as _rs_k
 from repro_torch.kernels import xor_parity as _xor_k
 from repro_torch.kernels.ref import u32_from_i64
 from repro_torch.obs.trace import tracer
-from repro_torch.sharding.mesh import VirtualMesh, axes_of, full_rank
+from repro_torch.sharding.mesh import ProcessMesh, VirtualMesh, axes_of, full_rank
 from repro_torch.utils.logging import get_logger
 from repro_torch.utils.pytree import tree_flatten, tree_map, tree_unflatten
 
@@ -200,6 +220,7 @@ class SnapshotProgram:
     # by ``staged_snapshot_fetch``.
     snapshot_chunk_fns: tuple = ()
     device: torch.device = torch.device("cpu")
+    sent_bytes: int | None = None  # bytes this rank's permutes send per snapshot (process mesh)
 
 
 def _block_view(x: torch.Tensor, leaf: _Leaf, mesh: VirtualMesh, bucket_axes) -> tuple[torch.Tensor, list[str]]:
@@ -310,13 +331,20 @@ def _unpack_bucket(buf: torch.Tensor, leaves: list[torch.Tensor], bucket: FusedB
             x.copy_(tgt[tuple(slice(0, s) for s in x.shape)])
 
 
-def overwrite_shards(mesh: VirtualMesh, state: Any, state_pspecs: Any, axis: str, ranks, value: float = 99) -> None:
+def overwrite_shards(mesh: VirtualMesh | ProcessMesh, state: Any, state_pspecs: Any, axis: str, ranks, value: float = 99) -> None:
     """Fault injection: overwrite, in place, every shard that coordinates
     ``ranks`` of ``axis`` own, in each leaf sharded over ``axis`` (a killed
     rank's memory). Leaves replicated over ``axis`` survive elsewhere and are
-    left alone."""
+    left alone. On a process mesh ``state`` is this process's shards, and
+    only a process whose coordinate is in ``ranks`` overwrites them."""
     _, leaves = tree_flatten(state)
     _, specs = tree_flatten(state_pspecs)
+    if isinstance(mesh, ProcessMesh):
+        if mesh.coords[axis] in set(ranks):
+            for x, ps in zip(leaves, specs):
+                if _uses_axis(ps, x.ndim, (axis,)):
+                    x.fill_(value)
+        return
     for x, ps in zip(leaves, specs):
         if not _uses_axis(ps, x.ndim, (axis,)):
             continue
@@ -330,6 +358,28 @@ def overwrite_shards(mesh: VirtualMesh, state: Any, state_pspecs: Any, axis: str
             v.select(leaf_axes.index(axis), r).fill_(value)
         if tgt is not x:
             x.copy_(tgt[tuple(slice(0, s) for s in x.shape)])
+
+
+def local_shards(mesh: Any, state: Any, state_pspecs: Any, coords: dict[str, int] | None = None) -> Any:
+    """The shards of a whole state at one mesh coordinate (a process mesh's
+    own by default): each leaf zero-padded to a multiple of its axes' sizes,
+    then its block at the coordinate, a contiguous copy of shape
+    ``padded / axes`` (the reference's per-device view under ``shard_map``;
+    a leaf on no axis whole). ``mesh`` needs only ``shape`` and
+    ``axis_names``."""
+    coords = mesh.coords if coords is None else coords
+    paths, leaves = tree_flatten(state)
+    _, specs = tree_flatten(state_pspecs)
+    out = []
+    for x, ps in zip(leaves, specs):
+        leaf = _make_leaf(x, ps, mesh)
+        if leaf.padded != leaf.shape:
+            xp = x.new_zeros(leaf.padded)
+            xp[tuple(slice(0, s) for s in x.shape)] = x
+            x = xp
+        v, leaf_axes = _block_view(x.contiguous(), leaf, mesh, mesh.axis_names)
+        out.append(v[tuple(coords[a] for a in leaf_axes)].clone(memory_format=torch.contiguous_format))
+    return tree_unflatten(paths, out)
 
 
 def _psum_u32(c: torch.Tensor) -> torch.Tensor:
@@ -352,9 +402,280 @@ def _stripe_slots(axis_size: int, g: int) -> int:
     return max(-(-g // len(grp.members)) for grp in groups)
 
 
+def _encode_rows(codec: str, gen: np.ndarray | None, rows: list[torch.Tensor], k: int,
+                 outs: list[torch.Tensor]) -> None:
+    """A parity group's blobs from its ``k`` members' rows in member order.
+    A short group's missing members are zero rows in the reference; 0·x = 0,
+    so its generator is ``coef[:, :k]``."""
+    if codec == "xor":
+        _xor_k.xor_reduce_into(rows, outs[0])
+    else:
+        _rs_k.rs_encode_into(rows, [row[:k] for row in gen.tolist()], outs)
+
+
+# ---------------------------------------------------------------------------
+# The per-device body on a process mesh: the reference's collective schedules
+# ---------------------------------------------------------------------------
+
+def _ring_pairs(size: int, g: int) -> list[tuple[int, int]]:
+    """One within-group ring hop: position p receives p+1's buffer, so after
+    t hops position p holds member (p+t) mod k of its group."""
+    pairs = []
+    for grp in dist.parity_groups(size, g):
+        k = len(grp.members)
+        pairs += [(grp.members[(q + 1) % k], m) for q, m in enumerate(grp.members)]
+    return pairs
+
+
+def _route_pairs(size: int, g: int, b: int, rnd: int) -> list[tuple[int, int]]:
+    """Round ``rnd`` of sending each origin group's blob ``b`` to its holder
+    group: holder position p = rnd·k_o + i receives from origin member i."""
+    groups = dist.parity_groups(size, g)
+    pairs = []
+    for gi, grp in enumerate(groups):
+        holder = groups[dist.blob_holder_group(len(groups), gi, b)]
+        k_o = len(grp.members)
+        pairs += [(grp.members[i], holder.members[rnd * k_o + i]) for i in range(k_o)
+                  if rnd * k_o + i < len(holder.members)]
+    return pairs
+
+
+def _home_pairs(size: int, g: int, b: int, rnd: int) -> list[tuple[int, int]]:
+    """Round ``rnd`` of routing each origin group's reassembled blob ``b``
+    home from its holder group: origin position q = rnd·k_h + i receives from
+    holder member i."""
+    groups = dist.parity_groups(size, g)
+    pairs = []
+    for gi, grp in enumerate(groups):
+        holder = groups[dist.blob_holder_group(len(groups), gi, b)]
+        k_h = len(holder.members)
+        pairs += [(holder.members[i], grp.members[rnd * k_h + i]) for i in range(k_h)
+                  if rnd * k_h + i < len(grp.members)]
+    return pairs
+
+
+def _sends(pairs: list[tuple[int, int]], me: int) -> bool:
+    """Whether coordinate ``me`` puts a message on the wire in a permute."""
+    return any(s == me and d != me for s, d in pairs)
+
+
+def _group_pos(size: int, g: int, idx: int) -> tuple[int, int, int]:
+    """(group index, position in it, its size) of coordinate ``idx``."""
+    gi = idx // g
+    return gi, idx % g, len(dist.parity_groups(size, g)[gi].members)
+
+
+def _check_local(leaves: list[torch.Tensor], meta: dict[int, _Leaf]) -> None:
+    for i in meta:
+        if tuple(leaves[i].shape) != meta[i].local:
+            raise ValueError(f"leaf {i}: a process holds its shard of shape {meta[i].local}, "
+                             f"got {tuple(leaves[i].shape)}")
+
+
+def _pack_local(leaves: list[torch.Tensor], bucket: FusedBucket, meta: dict[int, _Leaf],
+                device: torch.device) -> torch.Tensor:
+    """This coordinate's fused ``(words,)`` uint32 buffer of a bucket (the
+    reference's concatenated ``as_u32`` of the local leaves, zero-padded)."""
+    buf = kops.empty_u32(bucket.words, device)
+    end = 0
+    for i, off in zip(bucket.leaf_idx, bucket.word_offsets):
+        leaf = meta[i]
+        numel = int(np.prod(leaf.local, dtype=np.int64))
+        if leaf.words * 4 != numel * leaf.dtype.itemsize:
+            _i32(buf)[off + leaf.words - 1] = 0  # as_u32's zero tail
+        buf[off : off + leaf.words].view(leaf.dtype)[:numel].copy_(leaves[i].reshape(-1))
+        end = off + leaf.words
+    if end < bucket.words:
+        _i32(buf)[end:] = 0
+    return buf
+
+
+def _unpack_local(buf: torch.Tensor, meta: dict[int, _Leaf], i: int, off: int) -> torch.Tensor:
+    """Leaf ``i``'s local shard, a view of the fused buffer."""
+    leaf = meta[i]
+    numel = int(np.prod(leaf.local, dtype=np.int64))
+    return buf[off : off + leaf.words].view(leaf.dtype)[:numel].view(leaf.local)
+
+
+class _RankSnapshot:
+    """The snapshot program's per-device body on one process of a
+    :class:`ProcessMesh`, over its transport."""
+
+    def __init__(self, mesh: ProcessMesh, paths, meta, buckets, *, codec, g, n_parity, gen, scheme, compress,
+                 emit_full_blobs, include_own_copy, validate) -> None:
+        self.mesh, self.paths, self.meta, self.buckets = mesh, paths, meta, buckets
+        self.codec, self.g, self.n_parity, self.gen = codec, g, n_parity, gen
+        self.scheme, self.compress, self.emit_full_blobs = scheme, compress, emit_full_blobs
+        self.include_own_copy, self.validate = include_own_copy, validate
+        self.striped = codec != "copy"
+
+    # -- schedules and accounting ------------------------------------------
+    def _compress_len(self, bucket: FusedBucket) -> int:
+        n = sum(int(np.prod(self.meta[i].local, dtype=np.int64)) for i in bucket.leaf_idx)
+        return -(-n // _quantize_k.QBLOCK) * _quantize_k.QBLOCK
+
+    def sent_bytes(self) -> int:
+        """Bytes this process's permutes put on the wire per snapshot: the
+        reference's permutes from this coordinate to another."""
+        total = 0
+        for bucket in self.buckets:
+            A, me, nbytes = self.mesh.shape[bucket.axis], self.mesh.coords[bucket.axis], bucket.words * 4
+            if not self.striped:
+                if _sends(dist.perm_pairs(A, self.scheme), me):
+                    n = self._compress_len(bucket)
+                    total += n + n // _quantize_k.QBLOCK * 4 if self.compress else nbytes
+                continue
+            total += (self.g - 1) * nbytes * _sends(_ring_pairs(A, self.g), me)
+            if not self.emit_full_blobs:
+                total += nbytes * sum(_sends(_route_pairs(A, self.g, b, rnd), me)
+                                      for b in range(self.n_parity) for rnd in range(_stripe_slots(A, self.g)))
+        return total
+
+    # -- the body ------------------------------------------------------------
+    def _leaves(self, state) -> list[torch.Tensor]:
+        st_paths, leaves = tree_flatten(state)
+        if st_paths != self.paths:
+            raise ValueError("state does not match the program's structure")
+        for x in leaves:
+            if x.device != self.mesh.device:
+                raise ValueError(f"state leaf on {x.device}; the process is on {self.mesh.device}")
+        _check_local(leaves, self.meta)
+        return leaves
+
+    def _compressed(self, bucket: FusedBucket, leaves) -> dict[str, torch.Tensor]:
+        tp, dev = self.mesh.transport, self.mesh.device
+        dt = self.meta[bucket.leaf_idx[0]].dtype
+        row = torch.zeros(self._compress_len(bucket), dtype=dt if dt in _QUANT_DTYPES else torch.float32,
+                          device=dev)
+        off = 0
+        for i in bucket.leaf_idx:
+            n = leaves[i].numel()
+            row[off : off + n] = leaves[i].reshape(-1)
+            off += n
+        q = torch.empty(row.numel(), dtype=torch.int8, device=dev)
+        scale = torch.empty(row.numel() // _quantize_k.QBLOCK, dtype=torch.float32, device=dev)
+        _quantize_k.quantize_into(row, q, scale)
+        del row
+        pairs = dist.perm_pairs(self.mesh.shape[bucket.axis], self.scheme)
+        return {"q": tp.ppermute(q, pairs, bucket.axis), "scale": tp.ppermute(scale, pairs, bucket.axis)}
+
+    def _group_rows(self, buf: torch.Tensor, A: int, axis: str) -> list[torch.Tensor]:
+        """The ring of g-1 permutes: the group's k buffers in member order
+        (the reference's canonical rows; the zero rows past a short group's
+        k are left out)."""
+        _, pos, k = _group_pos(A, self.g, self.mesh.coords[axis])
+        rows: list[Any] = [None] * k
+        rows[pos] = buf
+        ring, cur = _ring_pairs(A, self.g), buf
+        for t in range(1, self.g):
+            cur = self.mesh.transport.ppermute(cur, ring, axis)
+            if t < k:
+                rows[(pos + t) % k] = cur  # slot t holds member (pos + t) mod k
+        return rows
+
+    def _parity(self, bucket: FusedBucket, buf: torch.Tensor) -> tuple[str, torch.Tensor]:
+        axis, g, m = bucket.axis, self.g, self.n_parity
+        A, me, dev = self.mesh.shape[axis], self.mesh.coords[axis], self.mesh.device
+        rows = self._group_rows(buf, A, axis)
+        blobs = kops.empty_u32((m, bucket.words), dev)
+        _encode_rows(self.codec, self.gen, rows, len(rows), list(blobs.unbind(0)))
+        del rows
+        if self.emit_full_blobs:
+            return "parity_full", blobs
+        groups = dist.parity_groups(A, g)
+        ng, n_slots, sw = len(groups), _stripe_slots(A, g), bucket.words // g
+        gi, pos, k = _group_pos(A, g, me)
+        stripes = kops.empty_u32((m, n_slots * sw), dev)
+        for b in range(m):
+            # my origin group (whose blob I hold) sets the round I keep: the
+            # inverse of blob_holder_group's shift h = o + 1 + b mod (ng-1)
+            o = (gi - 1 - b % max(ng - 1, 1)) % ng
+            keep = min(pos // max(len(groups[o].members), 1), n_slots - 1)
+            routed = None
+            for rnd in range(n_slots):
+                pr = _route_pairs(A, g, b, rnd)
+                got = self.mesh.transport.ppermute(blobs[b], pr, axis) if pr else None
+                if rnd == keep:
+                    routed = got
+            for j in range(n_slots):
+                s = pos + j * k
+                dst = _i32(stripes)[b, j * sw : (j + 1) * sw]
+                if s < g and routed is not None:
+                    dst.copy_(_i32(routed)[s * sw : (s + 1) * sw])
+                else:
+                    dst.zero_()
+        return "parity", stripes
+
+    def run(self, leaves, sub_buckets, with_checksum: bool) -> dict[str, Any]:
+        tp, out, sums = self.mesh.transport, {}, []
+        for bucket in sub_buckets:
+            if self.compress:
+                if with_checksum:
+                    buf = _pack_local(leaves, bucket, self.meta, self.mesh.device)
+                    sums.append(tp.psum_u32(_checksum_k.checksum_rows(buf.view(1, -1))[0], bucket.axes))
+                    del buf
+                out.setdefault("partner", {})[bucket.tag] = self._compressed(bucket, leaves)
+                continue
+            buf = _pack_local(leaves, bucket, self.meta, self.mesh.device)
+            if with_checksum:
+                sums.append(tp.psum_u32(_checksum_k.checksum_rows(buf.view(1, -1))[0], bucket.axes))
+            if self.striped:
+                key, val = self._parity(bucket, buf)
+            else:
+                pairs = dist.perm_pairs(self.mesh.shape[bucket.axis], self.scheme)
+                key, val = "partner", tp.ppermute(buf, pairs, bucket.axis)
+            del buf
+            out.setdefault(key, {})[bucket.tag] = val
+        if with_checksum:
+            out["checksum"] = (kops.mix_checksums(sums) if sums else
+                               torch.zeros(2, dtype=torch.int32, device=self.mesh.device).view(torch.uint32))
+        return out
+
+    def snapshot_fn(self, state) -> dict[str, Any]:
+        leaves = self._leaves(state)
+        payload: dict[str, Any] = {}
+        if self.include_own_copy:
+            payload["own"] = tree_unflatten(self.paths, [x.clone() for x in leaves])
+        payload.update(self.run(leaves, self.buckets, self.validate))
+        return payload
+
+    def chunk_fns(self) -> tuple:
+        fns: list[Callable] = []
+        if self.include_own_copy:
+            fns.append(lambda state: {"own": tree_unflatten(self.paths, self._leaves(state))})
+        fns += [functools.partial(lambda b, state: self.run(self._leaves(state), [b], False), b)
+                for b in self.buckets]
+        return tuple(fns)
+
+    def restore_fn(self, payload) -> dict[str, torch.Tensor]:
+        """The copy codec: the partner buffers moved back along the inverse
+        permutation and unpacked into this coordinate's shards."""
+        partner = payload.get("partner")
+        if partner is None or self.compress or self.striped:
+            raise ValueError("only full-copy uncompressed payloads restore through restore_fn")
+        tp, out = self.mesh.transport, {}
+        for bucket in self.buckets:
+            pairs = dist.inverse_perm(dist.perm_pairs(self.mesh.shape[bucket.axis], self.scheme))
+            buf = tp.ppermute(_as_device_u32(partner[bucket.tag], self.mesh.device), pairs, bucket.axis)
+            for i, off in zip(bucket.leaf_idx, bucket.word_offsets):
+                out[i] = _replicate(self.mesh, _unpack_local(buf, self.meta, i, off).clone(),
+                                    bucket, self.meta[i])
+        return {str(i): out[i] for b in self.buckets for i in b.leaf_idx}
+
+
+def _replicate(mesh: ProcessMesh, x: torch.Tensor, bucket: FusedBucket, leaf: _Leaf) -> torch.Tensor:
+    """A leaf that does not vary on some of the bucket's axes takes the
+    value at index 0 of each (the reference's ``all_gather(leaf, a)[0]``)."""
+    leaf_axes = {a for e in leaf.pspec for a in axes_of(e)}
+    for a in bucket.axes:
+        if a not in leaf_axes and mesh.shape[a] > 1:  # over one process the gather is the identity
+            x = mesh.transport.all_gather(x, a)[0]
+    return x
+
+
 @_traced("build_snapshot_program")
 def build_snapshot_program(
-    mesh: VirtualMesh,
+    mesh: VirtualMesh | ProcessMesh,
     state_sds: Any,            # nested dict of leaves with .shape/.dtype
     state_pspecs: Any,         # nested dict of specs (same structure)
     *,
@@ -478,13 +799,17 @@ def build_snapshot_program(
         del rows
         return {"q": _permuted(bucket, q), "scale": _permuted(bucket, scale)}
 
-    def _encode_group(rows: list[torch.Tensor], k: int, outs: list[torch.Tensor]) -> None:
-        # a short group's missing members are zero rows in the reference;
-        # 0·x = 0, so its generator is coef[:, :k]
-        if codec == "xor":
-            _xor_k.xor_reduce_into(rows, outs[0])
-        else:
-            _rs_k.rs_encode_into(rows, [row[:k] for row in gen.tolist()], outs)
+    if isinstance(mesh, ProcessMesh):
+        fns = _RankSnapshot(mesh, paths, meta, buckets, codec=codec, g=g, n_parity=n_parity, gen=gen,
+                            scheme=scheme, compress=compress, emit_full_blobs=emit_full_blobs,
+                            include_own_copy=include_own_copy, validate=validate)
+        return SnapshotProgram(
+            snapshot_fn=fns.snapshot_fn, restore_fn=fns.restore_fn,
+            exchanged_names=tuple(str(i) for i in exchanged_idx), exchanged_bytes=exchanged_bytes,
+            own_bytes=own_bytes, buckets=tuple(buckets), pcie_bytes=pcie_bytes, codec=codec,
+            parity_group=parity_group, snapshot_chunk_fns=fns.chunk_fns(), device=mesh.device,
+            sent_bytes=fns.sent_bytes(),
+        )
 
     def _full_blobs(bucket: FusedBucket, buf: torch.Tensor) -> torch.Tensor:
         """Every member keeps its group's whole blobs: ``(m, n_coords·words)``
@@ -498,7 +823,7 @@ def build_snapshot_program(
                 for grp in dist.parity_groups(A, g):
                     rows = [B[p, r, q] for r in grp.members]
                     first = grp.members[0]
-                    _encode_group(rows, len(grp.members), [out[b, p, first, q] for b in range(n_parity)])
+                    _encode_rows(codec, gen, rows, len(grp.members), [out[b, p, first, q] for b in range(n_parity)])
                     for member in grp.members[1:]:
                         _i32(out)[:, p, member, q] = _i32(out)[:, p, first, q]
         return out.view(n_parity, -1)
@@ -529,7 +854,7 @@ def build_snapshot_program(
                                 for b, h in enumerate(holders)]
                     else:
                         outs = list(blob.unbind(0))
-                    _encode_group(rows, k, outs)
+                    _encode_rows(codec, gen, rows, k, outs)
                     if direct:
                         continue
                     for b, h in enumerate(holders):
@@ -645,7 +970,7 @@ def build_snapshot_program(
 
 @_traced("build_mirror_program")
 def build_mirror_program(
-    mesh: VirtualMesh,
+    mesh: VirtualMesh | ProcessMesh,
     state_sds: Any,
     state_pspecs: Any,
     *,
@@ -832,7 +1157,7 @@ def _as_device_u32(x: Any, device: torch.device) -> torch.Tensor:
 
 @_traced("build_striped_restore_program")
 def build_striped_restore_program(
-    mesh: VirtualMesh,
+    mesh: VirtualMesh | ProcessMesh,
     state_sds: Any,
     state_pspecs: Any,
     *,
@@ -875,6 +1200,24 @@ def build_striped_restore_program(
     _, leaves_ps = tree_flatten(state_pspecs)
     meta = {i: _make_leaf(leaves_sds[i], leaves_ps[i], mesh) for b in buckets for i in b.leaf_idx}
     axes = tuple(sorted({b.axis for b in buckets}))
+    fused = sum(b.words * 4 * _axes_size(mesh, b.axes) for b in buckets)
+    stripes_bytes = sum(
+        n_parity * b.words * 4 * _axes_size(mesh, b.axes) * _stripe_slots(mesh.shape[b.axis], g) // g
+        for b in buckets
+    )
+    stripe_words = tuple(
+        (b.tag, _stripe_slots(mesh.shape[b.axis], g) * (b.words // g)) for b in buckets
+    )
+
+    def _program(restore_fn: Callable) -> StripedRestoreProgram:
+        return StripedRestoreProgram(
+            restore_fn=restore_fn, buckets=buckets, pcie_bytes=fused + stripes_bytes,
+            host_decode_pcie_bytes=2 * fused + stripes_bytes, codec=codec, parity_group=parity_group,
+            rs_parity=rs_parity, axes=axes, n_parity=n_parity, stripe_words=stripe_words,
+        )
+
+    if isinstance(mesh, ProcessMesh):
+        return _program(functools.partial(_rank_striped_restore, mesh, paths, meta, buckets, g, n_parity))
 
     def _blob(par: torch.Tensor, holder: dist.ParityGroup, p: int, q: int, b: int,
               words: int, sw: int, n_slots: int, post: int) -> torch.Tensor:
@@ -937,26 +1280,109 @@ def build_striped_restore_program(
                 result[str(i)] = leaves[i]
         return result
 
-    fused = sum(b.words * 4 * _axes_size(mesh, b.axes) for b in buckets)
-    stripes_bytes = sum(
-        n_parity * b.words * 4 * _axes_size(mesh, b.axes) * _stripe_slots(mesh.shape[b.axis], g) // g
-        for b in buckets
-    )
-    stripe_words = tuple(
-        (b.tag, _stripe_slots(mesh.shape[b.axis], g) * (b.words // g)) for b in buckets
-    )
-    return StripedRestoreProgram(
-        restore_fn=restore_fn,
-        buckets=buckets,
-        pcie_bytes=fused + stripes_bytes,
-        host_decode_pcie_bytes=2 * fused + stripes_bytes,
-        codec=codec,
-        parity_group=parity_group,
-        rs_parity=rs_parity,
-        axes=axes,
-        n_parity=n_parity,
-        stripe_words=stripe_words,
-    )
+    return _program(restore_fn)
+
+
+def _rank_striped_restore(mesh: ProcessMesh, paths, meta: dict[int, _Leaf], buckets, g: int, n_parity: int,
+                          state, parity, decode_rows, survivor_mask) -> dict[str, torch.Tensor]:
+    """The striped restore's per-device body on one process: ``state`` is
+    its shards (a failed coordinate's hold garbage), ``parity`` its payload's
+    stripes. The processes run the reference's schedule for the parity
+    groups that lost a member: for each blob of such a group, the ring of
+    g-1 permutes in its holder group, the splice and the rounds home; then
+    the ring of the group's data, zeroed where the mask is 0. A failed
+    coordinate applies its decode row with B4 (columns with a zero
+    coefficient left out) and writes its shards in place; a survivor's row
+    is its identity, so its shards stand, and the rings and routes of the
+    groups that lost no member, which feed only such rows in the reference,
+    are not run. A bucket whose axis lost no coordinate is left alone."""
+    st_paths, leaves = tree_flatten(state)
+    if st_paths != paths:
+        raise ValueError("state does not match the program's structure")
+    _check_local(leaves, meta)
+    tp, dev = mesh.transport, mesh.device
+    result: dict[str, torch.Tensor] = {}
+    for bucket in buckets:
+        axis = bucket.axis
+        A, me = mesh.shape[axis], mesh.coords[axis]
+        rows = np.asarray(decode_rows[axis]).astype(np.int64)
+        mask = np.asarray(survivor_mask[axis])
+        if mask[:A].all():
+            for i in bucket.leaf_idx:
+                result[str(i)] = leaves[i]
+            continue
+        groups = dist.parity_groups(A, g)
+        ng, n_slots, sw = len(groups), _stripe_slots(A, g), bucket.words // g
+        gi, pos, k = _group_pos(A, g, me)
+        ring = _ring_pairs(A, g)
+        par = _as_device_u32(parity[bucket.tag], dev).view(n_parity, n_slots * sw)
+        # Only a group that lost a member reads blobs and data (a survivor's
+        # row is its identity): the rings and routes run for those alone.
+        # Each decision is the same on both ends of every pair.
+        hurt = {q for q, grp in enumerate(groups) if not mask[list(grp.members)].all()}
+
+        def origin(h: int, b: int) -> int:  # whose blob b group h holds
+            return (h - 1 - b % max(ng - 1, 1)) % ng
+
+        blob_rows: list[Any] = [None] * n_parity
+        for b in range(n_parity):
+            full = None
+            if origin(gi, b) in hurt:
+                # my group's stripe buffers in member order: stripe s of the
+                # blob sits at member s mod k, slot s // k
+                held: list[Any] = [None] * k
+                held[pos] = cur = par[b]
+                for t in range(1, g):
+                    cur = tp.ppermute(cur, ring, axis)
+                    if t < k:
+                        held[(pos + t) % k] = cur
+                full = kops.empty_u32(bucket.words, dev)
+                for s in range(g):
+                    _i32(full)[s * sw : (s + 1) * sw] = _i32(held[s % k])[(s // k) * sw : (s // k + 1) * sw]
+                del held, cur
+            # route home; my blob-b holder group's size sets the round I keep
+            h = (gi + 1 + b % max(ng - 1, 1)) % ng
+            keep = min(pos // max(len(groups[h].members), 1), n_slots - 1)
+            for rnd in range(n_slots):
+                pr = [(s, d) for s, d in _home_pairs(A, g, b, rnd) if d // g in hurt]
+                if not any(me in pair for pair in pr):
+                    continue
+                got = tp.ppermute(full if full is not None else kops.empty_u32(bucket.words, dev), pr, axis)
+                if rnd == keep and gi in hurt:
+                    blob_rows[b] = got
+            del full
+        if gi in hurt:
+            buf = _pack_local(leaves, bucket, meta, dev)
+            if mask[me] == 0:
+                _i32(buf).zero_()  # the reference's mask: a failed coordinate sends zeros
+            data: list[Any] = [None] * k
+            data[pos] = cur = buf
+            for t in range(1, g):
+                cur = tp.ppermute(cur, ring, axis)
+                if t < k:
+                    data[(pos + t) % k] = cur
+            if mask[me] == 0:
+                # inputs with a zero coefficient are left out (0·x = 0): the
+                # failed members' rows, the zero rows past a short group, the
+                # blobs whose holders died
+                mine = rows[me]
+                cols = [c for c in range(g + n_parity)
+                        if mine[c] and (c < k if c < g else blob_rows[c - g] is not None)]
+                if not cols:
+                    raise ValueError(f"coordinate {me} of {axis!r}: an empty decode row")
+                inputs = [data[c] if c < g else blob_rows[c - g] for c in cols]
+                coef = torch.from_numpy(mine[cols][None].astype(np.int32)).to(dev).view(torch.uint32)
+                _rsd_k.rs_decode_into(inputs, coef, [buf])
+                for i, off in zip(bucket.leaf_idx, bucket.word_offsets):
+                    leaves[i].copy_(_unpack_local(buf, meta, i, off))
+            del data, buf, cur
+        del blob_rows
+        for i in bucket.leaf_idx:
+            result[str(i)] = _replicate(mesh, leaves[i], bucket, meta[i])
+            if result[str(i)] is not leaves[i]:
+                leaves[i].copy_(result[str(i)])
+                result[str(i)] = leaves[i]
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -970,11 +1396,13 @@ _PROGRAM_CACHE_MAX = 16
 _PROGRAM_CACHE_STATS = {"hits": 0, "misses": 0}
 
 
-def _program_cache_key(kind: str, mesh: VirtualMesh, state_sds: Any, state_pspecs: Any, kw: dict) -> tuple:
+def _program_cache_key(kind: str, mesh: VirtualMesh | ProcessMesh, state_sds: Any, state_pspecs: Any, kw: dict) -> tuple:
     paths, leaves = tree_flatten(state_sds)
     _, specs = tree_flatten(state_pspecs)
+    # a process mesh's program closes over its group: key on the process too
+    proc = (mesh.rank, mesh.backend, id(mesh.group)) if isinstance(mesh, ProcessMesh) else None
     return (
-        kind, mesh.axes, str(mesh.device), tuple(paths),
+        kind, type(mesh).__name__, proc, mesh.axes, str(mesh.device), tuple(paths),
         tuple((tuple(int(s) for s in x.shape), dtype_name(x.dtype)) for x in leaves),
         tuple(repr(s) for s in specs),
         tuple(sorted(kw.items())),
@@ -999,12 +1427,12 @@ def _cached_program(kind, builder, mesh, state_sds, state_pspecs, kw):
     return prog
 
 
-def cached_snapshot_program(mesh: VirtualMesh, state_sds: Any, state_pspecs: Any, **kw: Any) -> SnapshotProgram:
+def cached_snapshot_program(mesh: VirtualMesh | ProcessMesh, state_sds: Any, state_pspecs: Any, **kw: Any) -> SnapshotProgram:
     """``build_snapshot_program`` through the bounded program cache."""
     return _cached_program("snapshot", build_snapshot_program, mesh, state_sds, state_pspecs, kw)
 
 
-def cached_striped_restore_program(mesh: VirtualMesh, state_sds: Any, state_pspecs: Any, **kw: Any) -> StripedRestoreProgram:
+def cached_striped_restore_program(mesh: VirtualMesh | ProcessMesh, state_sds: Any, state_pspecs: Any, **kw: Any) -> StripedRestoreProgram:
     """``build_striped_restore_program`` through the bounded program cache."""
     return _cached_program("striped_restore", build_striped_restore_program, mesh, state_sds, state_pspecs, kw)
 

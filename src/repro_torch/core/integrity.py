@@ -1,6 +1,6 @@
 """The handshake checksum (Algorithm 2) on the host.
 
-``np_checksum`` and ``IntegrityError`` are copied from
+``np_checksum``, ``np_tree_checksum`` and ``IntegrityError`` are copied from
 ``repro.core.integrity`` unchanged. ``np_checksum`` does in numpy what the
 CUDA checksum kernel (``kernels/checksum.py``) does on the card, so a device
 checksum can be checked against the staged host bytes.
@@ -43,6 +43,16 @@ def np_checksum(buf: np.ndarray) -> tuple[int, int]:
         s2 = int(np.dot(u, w[:n])) & 0xFFFFFFFF
     return s1, s2
 
+
+def np_tree_checksum(leaves: list[np.ndarray]) -> tuple[int, int]:
+    """The order-sensitive mix ``acc = acc·1000003 + c_i·(i+1)`` mod 2^32 of
+    each leaf's ``np_checksum`` (``kernels.ops.tree_checksum`` on the host)."""
+    acc1, acc2 = 0, 0
+    for i, leaf in enumerate(leaves):
+        c1, c2 = np_checksum(leaf)
+        acc1 = (acc1 * 1000003 + c1 * (i + 1)) & 0xFFFFFFFF
+        acc2 = (acc2 * 1000003 + c2 * (i + 1)) & 0xFFFFFFFF
+    return acc1, acc2
 
 
 class IntegrityError(RuntimeError):

@@ -7,6 +7,9 @@ inverse. Leaves may live on the card: each one is copied exactly once,
 straight into its slice of the buffer. Bytes cross as bytes (a bf16 leaf is
 never widened), so no numpy bf16 type is needed.
 
+``serialize_tree``/``deserialize_tree`` copy a tree into host buffers and
+back (a ``SerializedSnapshot``: paths, names, CPU tensors).
+
 Leaf order and names follow ``jax.tree``'s: dict keys sorted, names the
 dotted key path. Dtype names are numpy's (``"float32"``, ``"bfloat16"``,
 ``"int8"``...), so a manifest compares equal, field by field, with the JAX
@@ -41,6 +44,31 @@ def flatten_with_names(tree: Any) -> tuple[list[Path], list[str], list[Any]]:
     ``flatten_with_names``; the root leaf of a bare tensor is named ``""``)."""
     paths, leaves = tree_flatten(tree)
     return paths, [".".join(str(k) for k in p) for p in paths], leaves
+
+
+@dataclass
+class SerializedSnapshot:
+    """A tree copied into host buffers: its key paths (the port's treedef),
+    dotted leaf names and CPU tensors."""
+
+    treedef: Any
+    names: list[str]
+    leaves: list[torch.Tensor]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(_nbytes(leaf) for leaf in self.leaves)
+
+
+def serialize_tree(tree: Any) -> SerializedSnapshot:
+    """Copy a tree of tensors (on any device) into host buffers."""
+    paths, names, leaves = flatten_with_names(tree)
+    return SerializedSnapshot(paths, names, [leaf.detach().to("cpu", copy=True) for leaf in leaves])
+
+
+def deserialize_tree(snap: SerializedSnapshot) -> Any:
+    """Rebuild the tree (CPU tensors, fresh copies; the caller moves them)."""
+    return tree_unflatten(snap.treedef, [leaf.clone() for leaf in snap.leaves])
 
 
 # ---------------------------------------------------------------------------

@@ -134,6 +134,15 @@ def tree_pspecs(tree: Any, rules: ShardingRules, mesh: VirtualMesh) -> Any:
     return tree_map(lambda s: spec_to_pspec(s, rules, mesh), tree)
 
 
+def tree_shardings(tree: Any, rules: ShardingRules, mesh: VirtualMesh) -> Any:
+    """The reference's ``tree_shardings``: a ``NamedSharding`` per leaf is
+    XLA's placement of a global array over a device mesh, which means
+    nothing to PyTorch. A leaf's sharding in the port is its spec (a
+    :class:`VirtualMesh` stacks the coordinates, a ``ProcessMesh`` process
+    holds its block), so this returns :func:`tree_pspecs`."""
+    return tree_pspecs(tree, rules, mesh)
+
+
 def zero1_pspec(spec: ParamSpec, rules: ShardingRules, mesh: VirtualMesh) -> tuple:
     """ZeRO-1 sharding for optimizer state: the param's spec with a
     still-replicated dim additionally sharded over the data axes (largest

@@ -1,17 +1,28 @@
-"""A virtual device mesh: named axes with sizes, all on one device.
+"""Device meshes: named axes with sizes, on one device or over processes.
 
 The JAX package runs one shard per device of a ``jax.sharding.Mesh`` and
-moves buffers with ``shard_map`` collectives. The port keeps every virtual
-rank's data on one card, in tensors stacked over the mesh coordinates in
-JAX's device order (first axis major), so a collective permute becomes an
-index permutation along that dimension. A ``PartitionSpec`` becomes a tuple
-with one entry per dim: ``None``, an axis name, or a tuple of axis names.
-``topology_of_mesh`` reads a failure-domain topology off a mesh's device
-order.
+moves buffers with ``shard_map`` collectives. The port has two meshes:
+
+* :class:`VirtualMesh` keeps every virtual rank's data on one card, in
+  tensors stacked over the mesh coordinates in JAX's device order (first
+  axis major), so a collective permute becomes an index permutation along
+  that dimension;
+* :class:`ProcessMesh` is one process per mesh coordinate over a
+  ``torch.distributed`` group (the counterpart of a ``Mesh`` over real
+  devices): each process holds its own shards and runs the per-device body,
+  and the collectives go over the group (``core/transport.py``).
+
+A ``PartitionSpec`` becomes a tuple with one entry per dim: ``None``, an
+axis name, or a tuple of axis names. ``topology_of_mesh`` reads a
+failure-domain topology off a mesh's device order; ``mesh_axis_size``,
+``data_axes``, ``flat_device_index`` and ``hosts_of_mesh`` are the
+reference's helpers for either mesh.
 """
 
 from __future__ import annotations
 
+import functools
+import itertools
 import math
 from dataclasses import dataclass, field
 from typing import Any
@@ -58,15 +69,170 @@ class VirtualMesh:
         return n
 
 
-def make_mesh(sizes: tuple[int, ...], names: tuple[str, ...], device: Any = None) -> VirtualMesh:
-    """``jax.make_mesh``'s counterpart: a virtual mesh on one device."""
+def _check_axes(sizes: tuple[int, ...], names: tuple[str, ...]) -> tuple[tuple[str, int], ...]:
     if len(sizes) != len(names) or len(set(names)) != len(names):
         raise ValueError(f"mesh sizes {sizes} and names {names} do not match")
     if any(int(s) < 1 for s in sizes):
         raise ValueError(f"mesh axis sizes must be >= 1, got {sizes}")
+    return tuple((n, int(s)) for n, s in zip(names, sizes))
+
+
+def make_mesh(sizes: tuple[int, ...], names: tuple[str, ...], device: Any = None) -> VirtualMesh:
+    """``jax.make_mesh``'s counterpart: a virtual mesh on one device."""
+    axes = _check_axes(sizes, names)
     # a mesh on the meta device is the dry run's: it places nothing
     dev = torch.device(device) if device is not None and torch.device(device).type == "meta" else resolve_device(device)
-    return VirtualMesh(tuple((n, int(s)) for n, s in zip(names, sizes)), dev)
+    return VirtualMesh(axes, dev)
+
+
+@dataclass(frozen=True, eq=False)
+class ProcessMesh:
+    """Named axes over processes, one per mesh coordinate: this process's
+    view. ``rank`` is its flat index in row-major axis order (JAX's device
+    order), which is also its rank in ``group``. ``subgroups`` maps each
+    proper, non-empty set of axes (a tuple in mesh order) to the group of
+    the processes that share this one's coordinates on every other axis;
+    the whole axis set is ``group`` itself. ``backend`` is the one the
+    caller named (``"gloo"`` or ``"nccl"``); the transport uses no other."""
+
+    axes: tuple[tuple[str, int], ...]
+    rank: int
+    device: torch.device
+    backend: str
+    group: Any = None
+    subgroups: dict = field(default_factory=dict)
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(self.axes)
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return tuple(a for a, _ in self.axes)
+
+    @property
+    def size(self) -> int:
+        return math.prod(s for _, s in self.axes)
+
+    @property
+    def coords(self) -> dict[str, int]:
+        """This process's coordinate on every axis."""
+        return coords_of(self.axes, self.rank)
+
+    def rank_of(self, coords: dict[str, int]) -> int:
+        """The flat rank of a coordinate (every axis named)."""
+        r = 0
+        for a, s in self.axes:
+            r = r * s + coords[a]
+        return r
+
+    def peer(self, axis: str, index: int) -> int:
+        """The rank at ``index`` along ``axis`` with this process's
+        coordinates on every other axis (a ``ppermute`` partner)."""
+        return self.rank_of({**self.coords, axis: index})
+
+    def group_of(self, axes: tuple[str, ...]) -> Any:
+        """The process group over ``axes`` (mesh order) holding this process;
+        ``None`` for every axis, which is the whole group."""
+        axes = tuple(a for a in self.axis_names if a in axes)
+        if axes == self.axis_names:
+            return self.group
+        return self.subgroups[axes]
+
+    @functools.cached_property
+    def transport(self):
+        """The collectives of the per-device body over this mesh
+        (:class:`repro_torch.core.transport.Transport`), one per mesh."""
+        from repro_torch.core.transport import Transport
+
+        return Transport(self)
+
+
+def coords_of(axes: tuple[tuple[str, int], ...], rank: int) -> dict[str, int]:
+    """The coordinate of flat index ``rank`` in row-major axis order."""
+    out = {}
+    for a, s in reversed(axes):
+        rank, out[a] = divmod(rank, s)
+    return {a: out[a] for a, _ in axes}
+
+
+def axis_groups(axes: tuple[tuple[str, int], ...], over: tuple[str, ...]) -> list[list[int]]:
+    """The partition of the flat ranks into the groups that vary only on the
+    axes ``over``: one list per coordinate of the other axes, ranks
+    ascending."""
+    names = [a for a, _ in axes]
+    others = [(a, s) for a, s in axes if a not in over]
+    groups = []
+    for fixed in itertools.product(*[range(s) for _, s in others]):
+        fix = dict(zip([a for a, _ in others], fixed))
+        members = []
+        for var in itertools.product(*[range(s) for a, s in axes if a in over]):
+            c = {**fix, **dict(zip([a for a in names if a in over], var))}
+            r = 0
+            for a, s in axes:
+                r = r * s + c[a]
+            members.append(r)
+        groups.append(sorted(members))
+    return groups
+
+
+def make_process_mesh(sizes: tuple[int, ...], names: tuple[str, ...], device: Any) -> ProcessMesh:
+    """A process mesh over the default ``torch.distributed`` group, which
+    must already be initialised (``launch/mesh.py``) with one process per
+    coordinate. Collective: every process calls it, in the same order, since
+    it makes the subgroup of every proper axis set."""
+    import torch.distributed as dist
+
+    axes = _check_axes(sizes, names)
+    n = math.prod(s for _, s in axes)
+    if not dist.is_initialized():
+        raise RuntimeError("make_process_mesh needs an initialised torch.distributed group")
+    if dist.get_world_size() != n:
+        raise ValueError(f"a mesh of {n} coordinates over {dist.get_world_size()} processes")
+    subgroups = {}
+    for k in range(1, len(axes)):
+        for over in itertools.combinations(names, k):
+            mine, _ = dist.new_subgroups_by_enumeration(axis_groups(axes, over))
+            subgroups[over] = mine
+    return ProcessMesh(axes, dist.get_rank(), torch.device(device), dist.get_backend(), dist.group.WORLD,
+                       subgroups)
+
+
+# ---------------------------------------------------------------------------
+# The reference's mesh helpers (repro/sharding/mesh.py), for either mesh. A
+# mesh here has no device objects: its devices are numbered 0..size-1 in
+# row-major axis order, which is what the reference's ids are on a mesh made
+# by ``jax.make_mesh`` over devices 0..size-1.
+# ---------------------------------------------------------------------------
+
+def mesh_axis_size(mesh: Any, axes: tuple[str, ...] | str | None) -> int:
+    """Product of the sizes of ``axes`` (absent axes count 1)."""
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    size = 1
+    for a in axes:
+        size *= mesh.shape.get(a, 1)
+    return size
+
+
+def data_axes(mesh: Any) -> tuple[str, ...]:
+    """The axes that constitute the data-parallel/failure dimension."""
+    return tuple(a for a in ("pod", "data") if a in mesh.shape)
+
+
+def flat_device_index(mesh: Any) -> np.ndarray:
+    """device id -> flat index in the mesh's row-major device order."""
+    return np.arange(math.prod(mesh.shape.values()))
+
+
+def hosts_of_mesh(mesh: Any, host_chips: int = 8) -> dict[int, list[int]]:
+    """host index -> device ids, with ids dense and hosts contiguous."""
+    out: dict[int, list[int]] = {}
+    for d in flat_device_index(mesh).tolist():
+        out.setdefault(d // host_chips, []).append(d)
+    return out
 
 
 def axes_of(entry) -> tuple[str, ...]:

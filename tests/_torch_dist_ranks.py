@@ -1,0 +1,227 @@
+"""Per-process bodies for the port's device tier over processes
+(``tests/test_torch_device_tier_dist.py`` and ``tests/test_torch_import.py``).
+
+They run in processes started by ``repro_torch.launch.mesh.spawn``, so this
+module imports ``torch``, ``numpy`` and the port only: never ``jax`` or the
+JAX package, which the parent test process loads. Results go back as plain
+data: a tensor as ``(dtype name, shape, bytes)``.
+"""
+
+from __future__ import annotations
+
+import itertools
+import sys
+
+import numpy as np
+import torch
+
+
+def raw(t: torch.Tensor) -> tuple[str, tuple[int, ...], bytes]:
+    from repro_torch.core.serialization import dtype_name
+
+    t = t.detach().to("cpu").contiguous()
+    return dtype_name(t.dtype), tuple(t.shape), t.reshape(-1).view(torch.uint8).numpy().tobytes()
+
+
+def _raw_tree(tree):
+    from repro_torch.utils.pytree import tree_map
+
+    return tree_map(raw, tree)
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return raw(a) == raw(b)
+
+
+def _u32(values) -> torch.Tensor:
+    from repro_torch.kernels.ref import u32_from_i64
+
+    return u32_from_i64(torch.tensor(values, dtype=torch.int64))
+
+
+def _bucket_info(prog) -> list:
+    return [(b.tag, b.axis, b.axes, b.words) for b in prog.buckets]
+
+
+def transport_cases(m42, m81) -> dict:
+    """ppermute with coordinates no pair reaches, a self pair, psum_u32
+    wrapping mod 2^32, all_gather in axis order, and gloo's host staging."""
+    from repro_torch.core.transport import Transport
+
+    rank, tp = m42.rank, m42.transport
+    out = {}
+    x = torch.arange(3, dtype=torch.int32) + 100 * (rank + 1)
+    out["ppermute"] = tp.ppermute(x, [(0, 1), (2, 2)], "data").tolist()
+    out["psum"] = raw(tp.psum_u32(_u32([0xFFFFFFF0 + rank, 7 * rank]), ("data", "model")))
+    out["psum_data"] = raw(tp.psum_u32(_u32([0xFFFFFFF0 + rank, 7 * rank]), ("data",)))
+    out["all_gather"] = tp.all_gather(torch.tensor([rank, -rank]), "data").tolist()
+    out["all_gather_both"] = tp.all_gather(torch.tensor([rank]), ("data", "model")).tolist()
+    staged = Transport(m81)
+    staged.staged = True  # the card's path through host memory, here on the CPU
+    staged.chunk_bytes = 16  # three chunks of a 40-byte tensor, pipelined
+    y = torch.arange(5, dtype=torch.int64) * (rank + 1)
+    ring = [(i, (i + 1) % 8) for i in range(8)]
+    a, b = staged.ppermute(y, ring, "data"), m81.transport.ppermute(y, ring, "data")
+    out["staged"] = (str(a.device), torch.equal(a, b), staged.sent_bytes, staged.recv_bytes)
+    return out
+
+
+def payload_cases(mesh, state, specs, cases, full_cases) -> dict:
+    """Each case's snapshot on this process: payload, accounting, bytes sent."""
+    from repro_torch.core import device_tier as dt
+
+    tp = mesh.transport
+    loc = dt.local_shards(mesh, state, specs)
+    out = {}
+    for name, codec, g, m in cases:
+        prog = dt.build_snapshot_program(mesh, state, specs, codec=codec, parity_group=g, rs_parity=m)
+        tp.reset_counts()
+        pay = prog.snapshot_fn(loc)
+        out[name] = dict(payload=_raw_tree(pay), sent=tp.sent_bytes, recv=tp.recv_bytes, prog_sent=prog.sent_bytes,
+                         own_bytes=prog.own_bytes, exchanged=prog.exchanged_bytes, pcie=prog.pcie_bytes,
+                         buckets=_bucket_info(prog))
+        if name == "xor2":
+            for db in (True, False):
+                staged = dt.staged_snapshot_fetch(prog, loc, double_buffer=db)
+                out[name][f"staged{int(db)}"] = _raw_tree(staged)
+    prog = dt.build_snapshot_program(mesh, state, specs, compress=True)
+    tp.reset_counts()
+    pay = prog.snapshot_fn(loc)
+    sent = tp.sent_bytes
+    staged = dt.staged_snapshot_fetch(prog, loc)
+    out["compressed"] = dict(payload=_raw_tree(pay), staged=_raw_tree(staged), sent=sent,
+                             prog_sent=prog.sent_bytes, exchanged=prog.exchanged_bytes, pcie=prog.pcie_bytes)
+    for name, codec, g, m in full_cases:
+        prog = dt.build_snapshot_program(mesh, state, specs, codec=codec, parity_group=g, rs_parity=m,
+                                         emit_full_blobs=True)
+        tp.reset_counts()
+        pay = prog.snapshot_fn(loc)
+        out[f"full/{name}"] = dict(payload=_raw_tree(pay), sent=tp.sent_bytes, prog_sent=prog.sent_bytes,
+                                   exchanged=prog.exchanged_bytes, pcie=prog.pcie_bytes)
+    return out
+
+
+def copy_cases(mesh, copy_states) -> dict:
+    """The copy codec's restore_fn on each copy case, and the mirror program
+    on the first."""
+    from repro_torch.core import device_tier as dt
+
+    tp = mesh.transport
+    out = {}
+    for name, (st, sp) in copy_states.items():
+        loc = dt.local_shards(mesh, st, sp)
+        prog = dt.build_snapshot_program(mesh, st, sp, include_own_copy=name == "roll")
+        pay = prog.snapshot_fn(loc)
+        rest = prog.restore_fn(pay)
+        _, leaves = dt.tree_flatten(loc)
+        out[name] = dict(payload=_raw_tree(pay), restored={k: _same(v, leaves[int(k)]) for k, v in rest.items()},
+                         buckets=_bucket_info(prog))
+        if name == "roll":
+            mprog = dt.build_mirror_program(mesh, st, sp)
+            tp.reset_counts()
+            mpay = mprog.snapshot_fn(loc)
+            sent = tp.sent_bytes
+            rest = mprog.restore_fn({"partner": mpay["mirror"]})
+            out["mirror"] = dict(payload=_raw_tree(mpay), sent=sent, prog_sent=mprog.sent_bytes,
+                                 exchanged=mprog.exchanged_bytes, pcie=mprog.pcie_bytes,
+                                 restored={k: _same(v, leaves[int(k)]) for k, v in rest.items()})
+    return out
+
+
+def restore_cases(mesh, state, specs, cases) -> dict:
+    """Every failure combination up to each codec's tolerance: the failed
+    coordinates' shards overwritten (and their own stripes with them), the
+    restore run on every process, the shards held against the originals."""
+    from repro_torch.core import device_tier as dt
+
+    A = mesh.shape["data"]
+    loc = dt.local_shards(mesh, state, specs)
+    _, orig = dt.tree_flatten(loc)
+    out = {}
+    for name, codec, g, m in cases:
+        prog = dt.build_snapshot_program(mesh, state, specs, codec=codec, parity_group=g, rs_parity=m,
+                                         include_own_copy=False, validate=False)
+        parity = prog.snapshot_fn(loc)["parity"]
+        rest = dt.build_striped_restore_program(mesh, state, specs, codec=codec, parity_group=g, rs_parity=m)
+        combos = []
+        for nfail in range((1 if codec == "xor" else m) + 1):
+            for failed in itertools.combinations(range(A), nfail):
+                tag = "-".join(map(str, failed)) or "none"
+                try:
+                    rows, mask = dt.striped_decode_rows(A, g, codec, m, set(failed))
+                except ValueError:
+                    combos.append((tag, False, None))
+                    continue
+                bad = dt.tree_map(lambda x: x.clone(), loc)
+                dt.overwrite_shards(mesh, bad, specs, "data", failed)
+                mine = {k: v.clone() for k, v in parity.items()}
+                if mesh.coords["data"] in failed:  # a killed process's stripes are gone too
+                    for v in mine.values():
+                        v.view(torch.int32).fill_(0x63636363)
+                got = rest.restore_fn(bad, mine, {"data": rows}, {"data": mask})
+                _, now = dt.tree_flatten(bad)
+                ok = all(_same(v, orig[int(k)]) for k, v in got.items())
+                ok = ok and all(_same(a, b) for a, b in zip(now, orig))
+                combos.append((tag, True, ok))
+        out[name] = combos
+    return out
+
+
+def device_tier_rank(rank, world, init_method, state, specs, copy_states, cases, full_cases, restore42,
+                     cases81, restore81) -> dict:
+    """Every case of the test file on one process of the (4, 2) and the
+    (8, 1) mesh over the same 8 gloo processes on the CPU."""
+    from repro_torch.launch.mesh import init_process_mesh
+    from repro_torch.sharding.mesh import make_process_mesh
+
+    torch.set_num_threads(1)
+    m42 = init_process_mesh((4, 2), ("data", "model"), "gloo", rank=rank, world_size=world,
+                            init_method=init_method, device="cpu")
+    m81 = make_process_mesh((8, 1), ("data", "model"), "cpu")
+    return {
+        "coords42": m42.coords, "coords81": m81.coords,
+        "transport": transport_cases(m42, m81),
+        "m42": payload_cases(m42, state, specs, cases, full_cases),
+        "copy": copy_cases(m42, copy_states),
+        "m81": payload_cases(m81, state, specs, cases81, ()),
+        "restore42": restore_cases(m42, state, specs, restore42),
+        "restore81": restore_cases(m81, state, specs, restore81),
+        "modules": loaded_reference_modules(),
+    }
+
+
+def loaded_reference_modules() -> list[str]:
+    return sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+
+
+def import_guard_rank(rank, world, init_method) -> list[str]:
+    """Build and run a snapshot program and a striped restore on a (2, 1)
+    mesh; return the reference modules this process then holds."""
+    from repro_torch.core import device_tier as dt
+    from repro_torch.launch.mesh import init_process_mesh
+
+    mesh = init_process_mesh((2, 1), ("data", "model"), "gloo", rank=rank, world_size=world,
+                             init_method=init_method, device="cpu")
+    state = {"w": torch.arange(8, dtype=torch.float32).reshape(4, 2)}
+    specs = {"w": ("data", None)}
+    loc = dt.local_shards(mesh, state, specs)
+    pay = dt.build_snapshot_program(mesh, state, specs, codec="xor", parity_group=2).snapshot_fn(loc)
+    rows, mask = dt.striped_decode_rows(2, 2, "xor", 1, set())
+    dt.build_striped_restore_program(mesh, state, specs, codec="xor", parity_group=2).restore_fn(
+        loc, pay["parity"], {"data": rows}, {"data": mask})
+    np.asarray(pay["checksum"].view(torch.int32))
+    return loaded_reference_modules()
+
+
+def failing_rank(rank, world, init_method) -> None:
+    """Rank 1 raises after joining; rank 0 waits on a barrier it will never
+    pass (``spawn`` must report rank 1's error and end rank 0)."""
+    import torch.distributed as tdist
+
+    from repro_torch.launch.mesh import init_process_mesh
+
+    init_process_mesh((world,), ("data",), "gloo", rank=rank, world_size=world, init_method=init_method,
+                      device="cpu")
+    if rank == 1:
+        raise ValueError("rank 1 fails on purpose")
+    tdist.barrier()

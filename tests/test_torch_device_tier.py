@@ -49,9 +49,25 @@ def run_oracle(kind: str, out: Path) -> tuple[dict, dict]:
     return oracle.load(str(out))
 
 
+def shared_oracle(kind: str, tmp_path_factory) -> tuple[dict, dict]:
+    """``run_oracle(kind)`` once per test run, shared by every module and
+    every xdist worker that asks: the first caller runs it under a file
+    lock, the others wait for the lock and load its output."""
+    import fcntl
+
+    base = tmp_path_factory.getbasetemp()
+    root = base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base  # the run's, not the worker's
+    out = root / f"shared-oracle-{kind}.npz"
+    with open(root / f"shared-oracle-{kind}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not Path(str(out) + ".json").exists():
+            return run_oracle(kind, out)
+    return oracle.load(str(out))
+
+
 @pytest.fixture(scope="module")
 def jx(tmp_path_factory):
-    return run_oracle("device_tier", tmp_path_factory.mktemp("oracle") / "device_tier.npz")
+    return shared_oracle("device_tier", tmp_path_factory)
 
 
 @pytest.fixture(scope="module")

@@ -4,7 +4,8 @@ module-level code of ``chip_smoke.py`` and the example twins
 ``jax`` nor the JAX package ``repro``, and no source of the port, of
 ``chip_smoke.py`` or of an example twin imports either. The host
 engine's path on the card needs no ``ml_dtypes`` either (the GPU machine
-has none)."""
+has none), and a process of a process mesh loads neither after running the
+device tier's programs."""
 
 from __future__ import annotations
 
@@ -78,3 +79,14 @@ def test_engine_path_loads_no_jax_repro_or_ml_dtypes():
                           env=env, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_spawned_ranks_load_no_jax_and_no_repro():
+    """A process of a process mesh (started by ``launch.mesh.spawn``, as the
+    device tier's tests and ``chip_smoke.py`` start them) holds neither
+    ``jax`` nor ``repro`` after it has built and run a snapshot program and
+    a striped restore over gloo."""
+    import _torch_dist_ranks as ranks
+    from repro_torch.launch.mesh import spawn
+
+    assert spawn(ranks.import_guard_rank, 2, timeout=120) == [[], []]

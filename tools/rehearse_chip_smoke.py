@@ -8,6 +8,7 @@ CPU, at a small config, in seconds.
     python3 tools/rehearse_chip_smoke.py --phase12  # the encoder and the VLM alone
     python3 tools/rehearse_chip_smoke.py --phase13  # the phase-field application alone
     python3 tools/rehearse_chip_smoke.py --phase4b  # the device-tier path, then the dry run's accounting of it
+    python3 tools/rehearse_chip_smoke.py --phase4c  # the device tier over 8 processes (gloo on the CPU)
 
 It runs a copy of ``chip_smoke.py``'s source in which the card is the CPU:
 ``"cuda"`` strings and ``.cuda()`` calls name the CPU, every entry point of
@@ -47,6 +48,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(1, str(ROOT))  # phase 4c's processes import chip_smoke by name
 
 import repro_torch.sharding.mesh as mesh_mod  # noqa: E402  (before the rest of the port)
 
@@ -108,6 +110,9 @@ def load_chip_smoke(cfg) -> types.ModuleType:
     mod = types.ModuleType("chip_smoke")
     mod.__file__ = str(ROOT / "chip_smoke.py")
     exec(compile(src, "chip_smoke.py (CPU rehearsal)", "exec"), mod.__dict__)
+    # phase 4c hands its processes ``chip_smoke.rank_body`` by name: they run
+    # the real module, on the device the parent names (the CPU here)
+    sys.modules["chip_smoke"] = mod
     for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
         setattr(torch.cuda, name, lambda *a, **k: None)
     torch.cuda.Event = _Event
@@ -117,6 +122,7 @@ def load_chip_smoke(cfg) -> types.ModuleType:
     torch.cuda.device_count = lambda: 1
     torch.Tensor.is_pinned = lambda self, *a: True
     _build.build = lambda *a: {}
+    _build.lib_path = lambda name: ROOT / "chip_smoke.py"  # "built": nothing is, nothing launches
     _build.call = _build.stream_of = lambda *a, **k: None
     torch.Tensor.pin_memory = lambda self, *a: self
     profile = torch.profiler.profile  # no CUDA activity to trace on the CPU
@@ -169,6 +175,9 @@ def load_chip_smoke(cfg) -> types.ModuleType:
     mod.SERVE = {**mod.SERVE, "max_seq": 128}
     mod.SERVE_PROMPT = 64
     mod.PF_SHAPE = (256, 256)  # 8 hosts of 32 rows
+    # phase 4c's processes run the kernels' plain versions, which count nothing
+    mod.RANK_KERNELS = ()
+    mod.PHASE4_LAYERS = cfg.num_layers
     if not hasattr(os, "posix_fadvise"):
         mod.drop_cached = lambda root: False
     if not os.path.exists("/proc/mounts"):
@@ -185,11 +194,12 @@ def main() -> int:
     ap.add_argument("--phase13", action="store_true", help="run the phase-field phase alone")
     ap.add_argument("--phase4b", action="store_true",
                     help="run the device-tier path (phase 4) and the dry run's accounting of it alone")
+    ap.add_argument("--phase4c", action="store_true", help="run the device tier over processes alone")
     args = ap.parse_args()
     torch.set_num_threads(4)
     cfg = small_config()
     mod = load_chip_smoke(cfg)
-    if not (args.phase7 or args.phase11 or args.phase12 or args.phase13 or args.phase4b):
+    if not (args.phase7 or args.phase11 or args.phase12 or args.phase13 or args.phase4b or args.phase4c):
         try:
             return mod.main()
         finally:
@@ -209,6 +219,10 @@ def main() -> int:
         finally:
             cli.stop()
         print(json.dumps({k: v for k, v in out.items() if k != "cli"}))
+        return 0
+    if args.phase4c:
+        counts, runs = mod.rank_path(cfg, mod.start_ranks(cfg))
+        print(json.dumps(runs))
         return 0
     if args.phase13:
         counts, runs = mod.phase_field_path()
