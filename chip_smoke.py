@@ -133,6 +133,23 @@ printing no result, on any failure or without a card. Phases:
    one, each leaf's ``np_checksum``). Its engine holds two committed
    generations at once: depth is cut, never width, if the host lacks the
    RAM, and the cut is printed;
+7c. the sharded train step: the port's ``Trainer(mesh=)`` as 4 processes
+   sharing the card on the (2, 2) ("data", "model") mesh over gloo, whose
+   DTensor groups run on the staged backend (``core/transport.py``; gloo's
+   own all-gather of a card's tensors ends the processes), each holding its
+   blocks of phase 7's state (llama3.2-1b at ``TRAIN_LAYERS``: params by the
+   tp rules, the AdamW state ZeRO-1), on phase 7's ``TRAIN`` and
+   ``TRAIN_STEPS`` through host 2's kill at step 5, rank 0's engine rs 4+2
+   over 8 virtual hosts, under deterministic algorithms. Its processes start,
+   take a warm-up step on a copy of their state and run beside phases 7 and
+   5; the script waits for them after phase 5. Prints the phase's seconds
+   (from the feed to the last process's end) and the phases it ran beside,
+   each process's step times, card peak and staged traffic, and rank 0's
+   create and restore times; fails unless every loss is finite and the same on every process,
+   there is one recovery, the replayed losses are bit-equal to the first
+   pass, each process's blocks right after the restore are byte-equal to its
+   blocks at the step-3 checkpoint, the losses before the kill are within
+   rtol 1e-4 of phase 7's sync run, and B4 launched in rank 0's restore;
 8. striped host codecs: the GF(2^8) backend probe's rates (run once, after
    phase 3, for every backend: ``table``, ``swar``, and ``torch`` on the
    card), then the seeded state of phase 5's depth over 8 ranks through two
@@ -190,7 +207,11 @@ printing no result, on any failure or without a card. Phases:
    from step 6's generation (4 -> 2) and its two steps' losses must be
    bit-equal to the first run's. Phase 9 launches B4 (the patches, the
    encodes, the decode of the within-tolerance restore) and B6 (both cold
-   restarts).
+   restarts). It runs in a process of its own, started after phase 8b, beside
+   phases 6, 10, 11, 12 and 13 (its legs wait on the tier directory's
+   filesystem and leave the card and most cores idle), and is waited for
+   before phase 4; it prints its own seconds, the phases it ran beside and
+   the wait.
 
 10. serving (paper Algorithm 3 over decode sessions): the port's ``Server``
    with llama3.2-1b at full width and all 16 layers (bf16 params from the
@@ -217,7 +238,7 @@ printing no result, on any failure or without a card. Phases:
    copies are lossy): there every other row, and every token up to the
    rollback, must be equal;
 11. the model zoo (the scheme is architecture-agnostic), at the published
-   widths with the depth cut for time (``ZOO_SSM_LAYERS`` = 4 of
+   widths with the depth cut for time (``ZOO_SSM_LAYERS`` = 2 of
    mamba2-780m's 48 layers, ``ZOO_MOE_LAYERS`` = 1 of mixtral-8x7b's 32),
    under deterministic algorithms: (a) phase 7's run on mamba2-780m (d_model
    1536, 48 SSD heads of 64, state 128) with 4 sequences of 512 tokens (4
@@ -280,11 +301,12 @@ with a seeded permutation of its rows; each pair in alternating order over
 ``B6_AB_ROUNDS`` rounds (medians and spreads); then the leaf's whole
 reshard in place against the stack and gather that preceded it.
 
-Phase 7 runs right after phase 3, then phases 5, 8, 8b, 6, 9, 10, 11, 12, 13, 4, 4b and 4c: 7,
-5, 8, 8b and 9 need the most host RAM, and phase 4's staged fetches leave pinned
-host blocks in PyTorch's cache. The kernels' launch counts are set to 0 before each of the
-paths and read after it (phase 4c's in each of its processes, then summed); every kernel a
-path runs must have launched in it (phase 7's copy codec launches none).
+Phase 7 runs right after phase 3 (beside phase 7c), then phases 5, (7c's wait), 8, 8b, 6 (beside
+phase 9), 10, 11, 12, 13, (9's wait), 4, 4b and 4c: 7, 5, 8, 8b and 9 need the most host RAM (8
+and 8b too much to run beside 9), and phase 4's staged fetches leave pinned host blocks in
+PyTorch's cache. The kernels' launch counts are set to 0 before each of the paths and read after
+it (phase 4c's, 7c's and 9's in each of their processes, then summed); every kernel a path runs
+must have launched in it (phase 7's copy codec launches none).
 
 The line before the last is the kernels' JSON; the last line is the result.
 """
@@ -347,6 +369,13 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def phases_beside(phase_ends: dict, t0: float, t1: float) -> list[str]:
+    """The phases of ``phase_ends`` (each phase's end, ``time.time()``, in
+    the order they ran) whose span overlaps [t0, t1]."""
+    names, starts = list(phase_ends), [-math.inf, *phase_ends.values()]
+    return [n for n, a, b in zip(names, starts, phase_ends.values()) if a < t1 and b > t0]
 
 
 def gpu_line() -> str:
@@ -2490,6 +2519,9 @@ TIER_COLD_HOSTS = 2
 # the resumed job flushes every 3rd commit: the checkpoint re-protecting its
 # new world is not flushed (the leg would only wait for it at close)
 TIER_RESUME_FLUSH_EVERY = 3
+# phase 9 runs in a process of its own beside the parent's phases: half the
+# host's 8 cores for its host copies
+TIER_THREADS = 4
 
 
 def dir_probe(path) -> dict:
@@ -2903,6 +2935,59 @@ def tier_path(cfg) -> tuple[dict, dict]:
     return counts, dict(engine=engine, trainer=trainer)
 
 
+def tier_body(rank: int, world: int, init_method: str, cfg) -> dict:
+    """Phase 9 in a process of its own (``start_tier``): the GF(2^8) probe
+    first, as the parent's phase 3 runs it (so that the path's counts hold
+    none of its launches), then ``tier_path``. Returns the path's launch
+    counts, its numbers, and when the process entered, began the path and
+    ended (``time.time()``)."""
+    import torch
+
+    from repro_torch.core import gf256
+
+    entered = time.time()
+    torch.set_num_threads(TIER_THREADS)
+    _HOST_START[:] = [host_free_gib(), host_rss_gib()]
+    gf256.active_backend_name()
+    began = time.time()
+    counts, runs = tier_path(cfg)
+    return dict(counts=counts, runs=runs, entered=entered, began=began, done=time.time())
+
+
+def start_tier(cfg):
+    """Start phase 9 (``tier_body``) in a process of its own, so that it
+    runs beside the phases that follow it in the script: its legs are bound
+    by the tier directory's filesystem (85 GB written and read at 0.4-1.0
+    GB/s), and leave the card and most of the host's cores idle. The
+    kernels are built by then: the process loads the libraries."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import RankGroup
+
+    check(all(_build.lib_path(n).exists() for n in _build.KERNELS), "phase 9: the kernels are not built")
+    group = RankGroup(tier_body, 1, args=(cfg,))
+    group.started = time.time()
+    return group
+
+
+def tier_wait(group, phase_ends: dict) -> tuple[dict, dict]:
+    """Wait for phase 9's process (``start_tier``) and return its launch
+    counts and numbers; logs its seconds, from its start to its end, the
+    phases of ``phase_ends`` it ran beside, and the wait here."""
+    t0 = time.perf_counter()
+    try:
+        (res,) = group.join(timeout=1200)
+    finally:
+        group.stop()
+    wait_s = time.perf_counter() - t0
+    beside = phases_beside(phase_ends, group.started, res["done"])
+    runs = res["runs"]
+    runs.update(wall_s=res["done"] - group.started, startup_s=res["began"] - group.started, wait_s=wait_s,
+                beside=beside)
+    log(f"phase 9: {runs['wall_s']:.1f} s in its own process (start-up and the GF(2^8) probe "
+        f"{runs['startup_s']:.1f} s), beside {', '.join(beside) or 'no phase'}; {wait_s:.1f} s of wait after them")
+    return res["counts"], runs
+
+
 # ---------------------------------------------------------------------------
 # phase 7: the fault-tolerant training loop (Algorithm 3) at full width
 # ---------------------------------------------------------------------------
@@ -3126,6 +3211,214 @@ def trainer_path(cfg, mode: str, engine=None, train: dict | None = None, label: 
     gc.collect()
     torch.cuda.empty_cache()
     return run, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 7c: the sharded train step, Trainer(mesh=) over a process mesh
+# ---------------------------------------------------------------------------
+
+# 4 processes share the card on the (2, 2) ("data", "model") mesh over gloo:
+# its all-gather of a card's tensors ends the processes, so the mesh's
+# DTensor groups are on the staged backend (core/transport.py). Phase 7's
+# TRAIN and TRAIN_STEPS through TRAIN_KILLS at TRAIN_LAYERS, under rank 0's
+# engine, rs 4+2 over 8 virtual hosts (its restore rebuilds host 2 with B4).
+MESH7C = ((2, 2), ("data", "model"))
+MESH7C_BACKEND = "gloo"
+MESH7C_HOSTS = 8
+MESH7C_TRAIN = {**TRAIN, "n_virtual_hosts": MESH7C_HOSTS}
+MESH7C_ENGINE = dict(codec="rs", parity_group=4, rs_parity=2, gf_backend="torch")
+MESH7C_KERNELS = ("gf256_matmul_dyn",)
+
+
+def mesh_trainer_body(rank: int, world: int, init_method: str, device: str, cfg, receive) -> dict:
+    """Phase 7c in one process, started before phase 7 (``start_mesh_trainer``):
+    join the (2, 2) process mesh, build the Trainer on it (each process draws
+    the state from the seed and keeps its blocks) and take one step of its
+    train step on a copy of the state (DTensor's sharding propagation for
+    these shapes, off the measured run); then wait for ``receive()`` and run
+    TRAIN_PERIOD steps, keep this process's blocks, and run to TRAIN_STEPS.
+    Each process checks its blocks right after the restore against the kept
+    ones. Returns the history, the check, rank 0's creates and restore, the
+    launch counts, step times, card peak and the staged backend's traffic."""
+    import torch
+
+    from repro_torch.core.checkpoint import EngineConfig
+    from repro_torch.core.transport import staged_traffic
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_process_mesh
+    from repro_torch.models import build_model
+    from repro_torch.runtime.failures import FailureInjector
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.utils.pytree import tree_flatten, tree_map
+
+    entered = time.time()
+    on_card = device != "cpu"
+    mesh = init_process_mesh(*MESH7C, MESH7C_BACKEND, rank=rank, world_size=world, init_method=init_method,
+                             device=None if on_card else "cpu")
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+
+    class CheckedTrainer(Trainer):
+        """Holds this process's blocks right after the restore's scatter
+        against ``kept``, its blocks at the step-3 checkpoint."""
+
+        kept: list | None = None
+        restored: list | None = None
+
+        def _scatter(self) -> None:
+            super()._scatter()
+            if self.kept is not None:
+                if on_card:
+                    torch.cuda.synchronize()
+                now = [x.to_local() for x in tree_flatten(self.state)[1]]
+                self.restored = [self._step_count(), sum(torch.equal(_int_view(a), _int_view(b))
+                                                          for a, b in zip(now, self.kept)), len(now)]
+
+    tcfg = TrainerConfig(total_steps=TRAIN_STEPS, engine=EngineConfig(**MESH7C_ENGINE), **MESH7C_TRAIN)
+    t0 = time.perf_counter()
+    trainer = CheckedTrainer(build_model(cfg), tcfg, injector=FailureInjector(MESH7C_HOSTS, schedule=TRAIN_KILLS),
+                             mesh=mesh)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spare = tree_map(lambda x: x.clone(), trainer.state)  # the warm-up step's copy of the state
+    trainer._train_step(spare, trainer.data.peek(0))
+    del spare
+    if on_card:
+        torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    initialised = time.time()
+    receive()
+    ready = time.time()
+    creates = []
+    if rank == 0:
+        finalize = trainer.engine.finalize_async
+
+        def finalize_and_record():
+            ok = finalize()
+            if ok:
+                creates.append(dict(step=int(trainer.engine.checkpoint_step()["step"]),
+                                    **create_line(trainer.engine.stats)))
+            return ok
+
+        trainer.engine.finalize_async = finalize_and_record
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    staged_traffic(mesh, reset=True)
+    ops.reset_launch_counts()  # the main path's counts start here
+    t0 = time.perf_counter()
+    trainer.run(TRAIN_PERIOD)
+    trainer.kept = [x.to_local().clone() for x in tree_flatten(trainer.state)[1]]
+    hist = trainer.run(TRAIN_STEPS)
+    if on_card:
+        torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    out = dict(rank=rank, coords=mesh.coords, steps=[h["step"] for h in hist], loss=[h["loss"] for h in hist],
+               step_s=[h["step_s"] for h in hist], n_recoveries=trainer.n_recoveries, restored=trainer.restored,
+               launches=ops.launch_counts(), setup_s=setup_s, warm_s=warm_s, run_s=run_s,
+               staged=staged_traffic(mesh), entered=entered,
+               initialised=initialised, ready=ready, done=time.time(),
+               peak_device_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0)
+    if rank == 0:
+        s = trainer.engine.stats
+        out.update(creates=creates, created=s.created, aborted=s.aborted, restore=restore_line(s))
+        trainer.engine.close()
+    return out
+
+
+def start_mesh_trainer(cfg):
+    """Start phase 7c's processes (``mesh_trainer_body``) before phase 7, so
+    that their start-up (the interpreter, CUDA, the groups, the state, the
+    warm-up step) and their run go beside phases 7 and 5. The kernels are
+    built here, once."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import RankGroup
+
+    _build.build()
+    check(all(_build.lib_path(n).exists() for n in _build.KERNELS), "phase 7c: the kernels are not built")
+    group = RankGroup(mesh_trainer_body, math.prod(MESH7C[0]), args=("cuda", cfg), late=True)
+    group.started = time.time()
+    return group
+
+
+def feed_mesh_trainer(group) -> None:
+    """Let phase 7c's processes run (each once its start-up is done)."""
+    group.feed([()] * group.world_size)
+    group.fed = time.time()
+
+
+def mesh_trainer_path(group, sync_loss: list, phase_ends: dict) -> tuple[dict, dict]:
+    """Phase 7c: the processes of ``start_mesh_trainer`` run the Trainer on
+    the (2, 2) mesh. Checks every loss finite, one recovery, the replayed
+    steps' losses bit-equal to their first pass, every process's blocks
+    right after the restore byte-equal to its blocks at the step-3
+    checkpoint, the same history on every process, the losses before the
+    kill within rtol 1e-4 of phase 7's sync run (``sync_loss``: the same
+    model, seed and TRAIN, on one card), and B4 launched in rank 0's engine.
+    ``phase_ends`` holds each earlier phase's end (``time.time()``), to name
+    the phases that the start-up and the run went beside. Returns the
+    processes' launch counts, summed, and the run's numbers."""
+    if not hasattr(group, "fed"):
+        feed_mesh_trainer(group)
+    t0, fed = time.perf_counter(), group.fed
+    try:
+        results = group.join(timeout=900)
+    finally:
+        group.stop()
+    wait_s = time.perf_counter() - t0  # what the script waited here: the rest ran beside earlier phases
+    counts: dict = {}
+    for res in results:
+        for k, v in res["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    r0 = results[0]
+    losses = r0["loss"]
+    check(all(math.isfinite(x) for res in results for x in res["loss"]), f"phase 7c: a loss is not finite: {losses}")
+    check(r0["steps"] == TRAIN_HISTORY, f"phase 7c: steps {r0['steps']}")
+    check(all(res["steps"] == r0["steps"] and res["loss"] == losses for res in results),
+          "phase 7c: the processes' histories differ")
+    check(all(res["n_recoveries"] == 1 for res in results),
+          f"phase 7c: recoveries {[r['n_recoveries'] for r in results]}")
+    check(losses[3:5] == losses[5:7], f"phase 7c: replayed losses {losses[5:7]} differ from {losses[3:5]}")
+    for res in results:
+        rr = res["restored"]
+        check(rr is not None and rr[0] == TRAIN_PERIOD and rr[1] == rr[2],
+              f"phase 7c: rank {res['rank']}'s blocks after the restore differ from the step-{TRAIN_PERIOD} "
+              f"checkpoint's: {rr}")
+    ref = sync_loss[:5]
+    check(all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(losses[:5], ref)),
+          f"phase 7c: losses before the kill {losses[:5]} not within rtol 1e-4 of phase 7's {ref}")
+    check([c["step"] for c in r0["creates"]] == [TRAIN_PERIOD, 2 * TRAIN_PERIOD],
+          f"phase 7c: committed creates {r0['creates']}")
+    for name in MESH7C_KERNELS:
+        check(counts.get(name, 0) > 0, f"phase 7c: kernel {name} was launched no time")
+    for res in results:
+        log(f"phase 7c rank {res['rank']} {res['coords']}: steps " + ", ".join(f"{x:.3f}" for x in res["step_s"])
+            + f" s; card peak {res['peak_device_gb']:.2f} GB; setup {res['setup_s']:.1f} s, warm-up step "
+              f"{res['warm_s']:.1f} s; staged {json.dumps(res['staged'])}")
+    log("phase 7c rank 0: creates " + ", ".join(f"step {c['step']} {c['create_s']:.3f} s (capture "
+                                               f"{c['capture_s']:.3f})" for c in r0["creates"])
+        + f"; restore {r0['restore']['restore_s']:.3f} s")
+    initialised, done = max(res["initialised"] for res in results), max(res["done"] for res in results)
+    wall_s = done - fed  # the phase's own seconds: from the feed to the last process's end
+
+    startup_beside = phases_beside(phase_ends, group.started, initialised)
+    run_beside = phases_beside(phase_ends, fed, done)
+    log(f"phase 7c: {wall_s:.1f} s from the feed to the last process's end, beside "
+        f"{', '.join(run_beside) or 'no phase'}; start-up {initialised - group.started:.1f} s beside "
+        f"{', '.join(startup_beside) or 'no phase'}; {wait_s:.1f} s of wait after them")
+    out = dict(
+        wall_s=wall_s, wait_s=wait_s, startup_beside=startup_beside, run_beside=run_beside, world=group.world_size, mesh=MESH7C, backend=MESH7C_BACKEND, hosts=MESH7C_HOSTS,
+        loss=losses, sync_loss=ref, creates=r0["creates"], restore=r0["restore"], created=r0["created"],
+        aborted=r0["aborted"],
+        entered_s=max(res["entered"] for res in results) - group.started,
+        initialised_s=initialised - group.started,
+        ready_s=max(res["ready"] for res in results) - fed,
+        runs_s=done - max(res["ready"] for res in results),
+        ranks=[dict(rank=res["rank"], step_s=res["step_s"], peak_device_gb=res["peak_device_gb"],
+                    run_s=res["run_s"], setup_s=res["setup_s"], warm_s=res["warm_s"], staged=res["staged"])
+               for res in results])
+    log("phase 7c: " + json.dumps(out))
+    log(f"phase 7c launches (the processes'): {json.dumps(counts)}")
+    return counts, out
 
 
 # ---------------------------------------------------------------------------
@@ -3408,7 +3701,7 @@ def serve_path(cfg, runs_spec=SERVE_RUNS, kernels=SERVE_KERNELS, label: str = "s
 
 # depth of the Mamba-2 runs (of 48 layers) and of the mixtral server (of
 # 32), width kept: for the run's time
-ZOO_SSM_LAYERS = 4
+ZOO_SSM_LAYERS = 2  # 4 before phase 7c joined the run
 ZOO_MOE_LAYERS = 1
 # (a) phase 7's run on mamba2-780m with 4 sequences of 512 tokens (4 SSD
 # chunks of 128: the inter-chunk recurrence runs) and rs g=4 m=2 with every
@@ -3856,12 +4149,13 @@ def main() -> int:
     kernel_tests_done = kernel_tests_phase()  # phase 2 runs in a child process beside the disassembly
     sass_phase()
     card = gpu_line()
-    last = [t_start]
+    last, phase_ends = [t_start], {}
 
     def phase_done(name: str) -> None:
         now = time.perf_counter()
         log(f"{name}: {now - last[0]:.1f} s")
         last[0] = now
+        phase_ends[name] = time.time()
 
     phase_done("phase 1 (build, SASS)")
     kernel_tests_done()
@@ -3894,57 +4188,69 @@ def main() -> int:
     phase_done("phase 3 (kernels at the main path's shapes, the probe)")
 
     # the trainer first: it needs the most host RAM (two committed
-    # generations), and runs before any staged fetch caches pinned blocks
-    counts7 = {}
-    for mode in ("sync", "async"):
-        layers = min(cfg.num_layers, TRAIN_LAYERS if mode == "sync" else TRAIN_ASYNC_LAYERS)
-        log(f"trainer ({mode}): {layers} of {cfg.num_layers} layers, width kept (TRAIN_LAYERS, "
-            f"TRAIN_ASYNC_LAYERS: for the run's time)")
-        run7, counts = trainer_path(replace(cfg, num_layers=layers), mode)
-        gc.collect()
-        log(f"trainer path ({mode}): " + json.dumps(run7))
-        log(f"trainer path ({mode}) launches: {json.dumps(counts)}")
-        counts7 = {k: counts7.get(k, 0) + v for k, v in counts.items()}
-        phase_done(f"phase 7 ({mode})")
+    # generations), and runs before any staged fetch caches pinned blocks.
+    # Phase 7c's processes start and run beside phases 7 and 5 (each of its
+    # processes ends, freeing its memory, when its run is done); its checks,
+    # against phase 7's sync losses among them, come after both
+    counts7, sync_loss = {}, []
+    mesh7c = start_mesh_trainer(replace(cfg, num_layers=TRAIN_LAYERS))
+    feed_mesh_trainer(mesh7c)
+    try:
+        for mode in ("sync", "async"):
+            layers = min(cfg.num_layers, TRAIN_LAYERS if mode == "sync" else TRAIN_ASYNC_LAYERS)
+            log(f"trainer ({mode}): {layers} of {cfg.num_layers} layers, width kept (TRAIN_LAYERS, "
+                f"TRAIN_ASYNC_LAYERS: for the run's time)")
+            run7, counts = trainer_path(replace(cfg, num_layers=layers), mode)
+            gc.collect()
+            log(f"trainer path ({mode}): " + json.dumps(run7))
+            log(f"trainer path ({mode}) launches: {json.dumps(counts)}")
+            counts7 = {k: counts7.get(k, 0) + v for k, v in counts.items()}
+            sync_loss = run7["loss"] if mode == "sync" else sync_loss
+            phase_done(f"phase 7 ({mode})")
 
-    # the engine path first: it needs the most host RAM, and the device-tier
-    # path's staged fetches leave pinned host blocks in PyTorch's cache
-    counts5, runs5 = engine_path(cfg)
-    log(f"engine path launches: {json.dumps(counts5)}")
+        # the engine path first: it needs the most host RAM, and the
+        # device-tier path's staged fetches leave pinned host blocks in
+        # PyTorch's cache
+        counts5, runs5 = engine_path(cfg)
+        log(f"engine path launches: {json.dumps(counts5)}")
+        gc.collect()
+        phase_done("phase 5")
+        counts7c, run7c = mesh_trainer_path(mesh7c, sync_loss, phase_ends)
+    finally:
+        mesh7c.stop()
     gc.collect()
-    phase_done("phase 5")
+    torch.cuda.empty_cache()
+    phase_done("phase 7c's wait (the sharded Trainer over processes, after its run beside earlier phases)")
     counts8, runs8 = striped_path(cfg)
     log(f"striped path launches: {json.dumps(counts8)}")
     phase_done("phase 8")
     counts8b, run8b = topology_path(cfg)
     log(f"topology path launches: {json.dumps(counts8b)}")
     phase_done("phase 8b")
-    counts6, runs6 = elastic_path(cfg)
-    log(f"elastic path launches: {json.dumps(counts6)}")
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_done("phase 6")
-    counts9, runs9 = tier_path(cfg)
-    log(f"tier path launches: {json.dumps(counts9)}")
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_done("phase 9")
-    counts10, runs10 = serve_path(cfg)
-    log(f"serve path launches: {json.dumps(counts10)}")
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_done("phase 10")
-    counts11, runs11 = zoo_path()
-    log(f"zoo path launches: {json.dumps(counts11)}")
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_done("phase 11")
-    # the dry-run CLI counts on one thread in a child process beside phases
-    # 12, 13 and 4 (its imports alone take most of a minute on the checkout's
-    # filesystem); phase 4b reads its records. Phase 4c's processes start up
-    # beside phase 4.
-    cli, ranks = DryrunCli(), None
+    # phase 9 runs in a process of its own beside phases 6, 10, 11, 12 and
+    # 13 (their host RAM and card memory fit beside its own; 8 and 8b's do
+    # not), and is waited for before phase 4. The dry-run CLI counts on one
+    # thread in a child process beside phases 12, 13 and 4 (its imports alone
+    # take most of a minute on the checkout's filesystem); phase 4b reads its
+    # records. Phase 4c's processes start up beside phase 4.
+    tier, cli, ranks = start_tier(cfg), None, None
     try:
+        counts6, runs6 = elastic_path(cfg)
+        log(f"elastic path launches: {json.dumps(counts6)}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_done("phase 6")
+        counts10, runs10 = serve_path(cfg)
+        log(f"serve path launches: {json.dumps(counts10)}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_done("phase 10")
+        counts11, runs11 = zoo_path()
+        log(f"zoo path launches: {json.dumps(counts11)}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_done("phase 11")
+        cli = DryrunCli()
         counts12, runs12 = encoder_vlm_path()
         log(f"encoder/vlm path launches: {json.dumps(counts12)}")
         gc.collect()
@@ -3954,6 +4260,10 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase_done("phase 13")
+        counts9, runs9 = tier_wait(tier, phase_ends)
+        log(f"tier path launches (its process's): {json.dumps(counts9)}")
+        phase_done("phase 9's wait (the storage tiers in their own process, after their run beside earlier "
+                   "phases)")
         ranks = start_ranks(cfg)
         t0 = time.perf_counter()
         cfg4 = replace(cfg, num_layers=PHASE4_LAYERS)
@@ -3975,13 +4285,16 @@ def main() -> int:
         free_pinned_cache()
         counts4c, runs4c = rank_path(cfg, ranks)
     finally:
-        cli.stop()
+        tier.stop()
+        if cli is not None:
+            cli.stop()
         if ranks is not None:
             ranks.stop()
     phase_done("phase 4c (the device tier over processes)")
     for k in kernels:
-        k["launches"] = sum(c.get(k["name"], 0) for c in (counts4, counts4c, counts5, counts6, counts7, counts8,
-                                                          counts8b, counts9, counts10, counts11, counts12, counts13))
+        k["launches"] = sum(c.get(k["name"], 0) for c in (counts4, counts4c, counts5, counts6, counts7, counts7c,
+                                                          counts8, counts8b, counts9, counts10, counts11, counts12,
+                                                          counts13))
         k["route"] = "cuda"
         check(k["launches"] > 0, f"kernel {k['name']} was launched no time on the main paths")
     log(f"total {time.perf_counter() - t_start:.1f} s")

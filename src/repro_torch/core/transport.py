@@ -152,3 +152,183 @@ class Transport:
         self.collective_bytes += wire.numel() * wire.element_size()
         out = torch.stack(parts).to(x.device)
         return out.view(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The staged backend: gloo's collectives on host copies of a card's tensors
+# ---------------------------------------------------------------------------
+
+STAGED_BACKEND = "repro_staged"
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the host (pinned when it lies on a card); ``t`` itself when it
+    is already there."""
+    if t.device.type == "cpu":
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host
+
+
+def _copy_back(dst: torch.Tensor, host: torch.Tensor) -> None:
+    if host is not dst:
+        dst.copy_(host)
+
+
+class _DoneWork(dist.Work):
+    """A finished ``Work``: the collective ran to its end before returning."""
+
+    def wait(self, timeout=None) -> bool:
+        return True
+
+    def is_completed(self) -> bool:
+        return True
+
+    def get_future(self):
+        from torch.futures import Future
+
+        fut = Future()
+        fut.set_result(None)
+        return fut
+
+
+def _done_work() -> dist.Work:
+    return _DoneWork()
+
+
+class StagedGroup(dist.ProcessGroup):
+    """A process group whose every collective runs on a gloo group of the
+    same ranks over host memory: a tensor on a card is copied to pinned host
+    memory, the collective runs there, and the result is copied back onto
+    the card before the call returns. Host tensors go to gloo as they are.
+
+    gloo's own CUDA collectives are not used: DTensor's all-gather of a
+    card's tensors ended every process with a segmentation fault in gloo
+    (``tools/gloo_dtensor_probe.py``). This is the transport's staging made a
+    backend that DTensor's collectives reach; it is the backend a caller
+    names (:data:`STAGED_BACKEND`), never one picked in its place. Each
+    method is the ``ProcessGroup`` trampoline's name for a collective (both
+    the current and the older name where they differ). ``traffic`` counts,
+    per collective, the calls and the bytes of their inputs and outputs
+    (:func:`staged_traffic` sums a mesh's groups)."""
+
+    def __init__(self, store, rank: int, size: int, timeout, name: str) -> None:
+        super().__init__(rank, size)
+        from torch.distributed.distributed_c10d import ProcessGroupGloo
+
+        self.inner = ProcessGroupGloo(store, rank, size, timeout)
+        self.name = name
+        self.traffic: dict[str, tuple[int, int]] = {}
+
+    def getBackendName(self) -> str:  # noqa: N802 - the trampoline's name
+        return STAGED_BACKEND
+
+    @property
+    def group_name(self) -> str:
+        return self.name
+
+    def _run(self, name: str, outs: list, ins: list, op, inplace: bool = False) -> Any:
+        """Collective ``name``: stage ``ins`` and ``outs`` (flat lists of
+        tensors; ``outs`` with their values when the collective works in
+        place) to the host, run ``op(host_outs, host_ins)`` on gloo and wait,
+        copy the outputs back."""
+        h_in = [_host_copy(t) for t in ins]
+        h_out = [_host_copy(t) if inplace or t.device.type == "cpu"
+                 else torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in outs]
+        calls, nbytes = self.traffic.get(name, (0, 0))
+        self.traffic[name] = (calls + 1, nbytes + sum(t.numel() * t.element_size() for t in ins + outs))
+        op(h_out, h_in).wait()
+        for dst, host in zip(outs, h_out):
+            _copy_back(dst, host)
+        return _done_work()
+
+    def _each(self, o: list, i: list, fn) -> Any:
+        for a, b in zip(o, i):
+            fn(a, b).wait()
+        return _done_work()
+
+    def allreduce(self, tensors, opts=None):
+        return self._run("allreduce", tensors, [], lambda o, i: self.inner.allreduce(o, *_opts(opts)),
+                         inplace=True)
+
+    def allreduce_coalesced(self, tensors, opts=None):
+        return self._run("allreduce_coalesced", tensors, [],
+                         lambda o, i: self.inner.allreduce_coalesced(o, *_opts(opts)), inplace=True)
+
+    def broadcast(self, tensors, opts=None):
+        return self._run("broadcast", tensors, [], lambda o, i: self.inner.broadcast(o, *_opts(opts)),
+                         inplace=True)
+
+    def allgather(self, output_tensors, input_tensors, opts=None):
+        n = len(output_tensors[0])
+        flat_out = [t for ts in output_tensors for t in ts]
+        return self._run("allgather", flat_out, input_tensors, lambda o, i: self.inner.allgather(
+            [o[k * n:(k + 1) * n] for k in range(len(output_tensors))], i))
+
+    def all_gather_single_coalesced(self, outputs, inputs, opts=None):
+        return self._run("all_gather_single_coalesced", outputs, inputs,
+                         lambda o, i: self._each(o, i, self.inner._allgather_base))
+
+    allgather_into_tensor_coalesced = all_gather_single_coalesced
+
+    def reduce_scatter(self, output_tensors, input_tensors, opts=None):
+        n = len(input_tensors[0])
+        flat_in = [t for ts in input_tensors for t in ts]
+        return self._run("reduce_scatter", output_tensors, flat_in, lambda o, i: self.inner.reduce_scatter(
+            o, [i[k * n:(k + 1) * n] for k in range(len(output_tensors))], *_opts(opts)))
+
+    def reduce_scatter_single_coalesced(self, outputs, inputs, opts=None):
+        return self._run("reduce_scatter_single_coalesced", outputs, inputs, lambda o, i: self._each(
+            o, i, lambda a, b: self.inner._reduce_scatter_base(a, b, *_opts(opts))))
+
+    reduce_scatter_tensor_coalesced = reduce_scatter_single_coalesced
+
+    def all_to_all_single(self, output, input, output_split_sizes, input_split_sizes, opts=None):
+        return self._run("all_to_all_single", [output], [input], lambda o, i: self.inner.alltoall_base(
+            o[0], i[0], output_split_sizes, input_split_sizes))
+
+    alltoall_base = all_to_all_single
+
+    def barrier(self, opts=None):
+        return self._run("barrier", [torch.zeros(1)], [], lambda o, i: self.inner.allreduce(o), inplace=True)
+
+    def send(self, tensors, dst: int, tag: int):
+        return self._run("send", [], tensors, lambda o, i: self.inner.send(i, dst, tag))
+
+    def recv(self, tensors, src: int, tag: int):
+        return self._run("recv", tensors, [], lambda o, i: self.inner.recv(o, src, tag))
+
+
+def _opts(opts) -> tuple:
+    """The options argument, where the caller gave one."""
+    return () if opts is None else (opts,)
+
+
+def _create_staged(opts, _backend_options) -> StagedGroup:
+    """The backend's creator under ``register_backend``'s extended API,
+    which hands it the group's name (``group_id``)."""
+    return StagedGroup(opts.store, opts.group_rank, opts.group_size, opts.timeout, opts.group_id)
+
+
+def register_staged_backend() -> str:
+    """Register :class:`StagedGroup` as ``torch.distributed`` backend
+    :data:`STAGED_BACKEND` for the card's tensors and the host's (once per
+    process); returns its name."""
+    if STAGED_BACKEND not in dist.Backend.backend_list:
+        dist.Backend.register_backend(STAGED_BACKEND, _create_staged, extended_api=True, devices=["cpu", "cuda"])
+    return STAGED_BACKEND
+
+
+def staged_traffic(mesh: Any, reset: bool = False) -> dict[str, list[int]]:
+    """[calls, bytes] per collective over every staged group of ``mesh`` (its
+    DeviceMesh's groups and ``staged_group``); ``reset`` zeroes them after."""
+    groups = [mesh.device_mesh.get_group(n) for n in mesh.axis_names] + [mesh.staged_group]
+    out: dict[str, list[int]] = {}
+    for g in groups:
+        for name, (calls, nbytes) in getattr(g, "traffic", {}).items():
+            c, b = out.get(name, [0, 0])
+            out[name] = [c + calls, b + nbytes]
+        if reset and hasattr(g, "traffic"):
+            g.traffic.clear()
+    return out

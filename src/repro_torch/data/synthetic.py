@@ -15,6 +15,11 @@ the same ``(seed, step)`` gives the same int32 tokens and labels and the
 same mask as ``repro.data.synthetic``, byte for byte, and normals within
 ``threefry.normal``'s few ulp. Batches are made on the host and moved to
 the pipeline's device.
+
+On a process mesh (``mesh=``, with the model's ``rules``) every process
+draws the same global batch from ``(seed, step)`` and keeps its block of
+each input as ``dims_to_pspec`` lays it out (``BATCH_DIMS``: the batch dim
+over the data axes), a DTensor.
 """
 
 from __future__ import annotations
@@ -24,10 +29,20 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.sharding.mesh import resolve_device
+from repro_torch.sharding.axes import dims_to_pspec
+from repro_torch.sharding.mesh import distribute, resolve_device
 from repro_torch.utils import threefry
 
 NOISE_P = 0.05
+
+# logical dims of the batch inputs
+BATCH_DIMS = {
+    "tokens": ("batch", "seq"),
+    "labels": ("batch", "seq"),
+    "mask": ("batch", "seq"),
+    "frames": ("batch", "seq", None),
+    "vision": ("batch", "vision", None),
+}
 
 
 def make_batch(cfg: ModelConfig, seed: int, step: int, batch: int, seq: int) -> dict[str, torch.Tensor]:
@@ -56,15 +71,21 @@ def make_batch(cfg: ModelConfig, seed: int, step: int, batch: int, seq: int) -> 
 
 class SyntheticDataPipeline:
     """Stateful iterator with Snapshottable (snapshot/restore) semantics;
-    batches land on ``device`` (``cuda`` unless the caller asks for another)."""
+    batches land on ``device`` (``cuda`` unless the caller asks for another),
+    or, on a process mesh, as each process's blocks on its device."""
 
-    def __init__(self, cfg: ModelConfig, batch: int, seq: int, seed: int = 0, device: Any = None) -> None:
+    def __init__(self, cfg: ModelConfig, batch: int, seq: int, seed: int = 0, device: Any = None, *,
+                 mesh: Any = None, rules: Any = None) -> None:
+        if mesh is not None and rules is None:
+            raise ValueError("a pipeline on a mesh needs the model's sharding rules (rules=)")
         self.cfg = cfg
         self.batch = batch
         self.seq = seq
         self.seed = seed
         self.step = 0
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.rules = rules
+        self.device = resolve_device(device if mesh is None else mesh.device)
 
     def next(self) -> dict[str, torch.Tensor]:
         b = self.peek(self.step)
@@ -73,6 +94,9 @@ class SyntheticDataPipeline:
 
     def peek(self, step: int) -> dict[str, torch.Tensor]:
         b = make_batch(self.cfg, self.seed, step, self.batch, self.seq)
+        if self.mesh is not None:
+            return {k: distribute(x, dims_to_pspec(BATCH_DIMS[k], tuple(x.shape), self.rules, self.mesh), self.mesh)
+                    for k, x in b.items()}
         return {k: x.to(self.device) for k, x in b.items()}
 
     # --- Snapshottable protocol -------------------------------------------

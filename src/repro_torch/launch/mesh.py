@@ -19,6 +19,14 @@ Each process runs on ``cuda:{LOCAL_RANK % device_count}``, or on the CPU
 when the caller asks. The backend is the caller's: ``"nccl"`` needs one card
 per process and raises where two would share one (NCCL refuses two ranks on
 one device); ``"gloo"`` stages tensors on a card through host memory.
+
+The mesh also carries a DTensor ``DeviceMesh`` over the same processes, for
+the sharded train step. Over ``"nccl"`` it runs on NCCL. Over ``"gloo"`` its
+groups are on the staged backend (``core/transport.py::StagedGroup``: gloo
+on host copies; gloo's own all-gather of a card's tensors ends the
+processes), on the CPU as on the card, and so is ``mesh.staged_group``, a
+group of every process for the state's gathers and scatters. Each spawned
+process runs torch on one thread: the processes share the host's cores.
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ import traceback
 from typing import Any, Callable, Sequence
 
 import torch
+
+from dataclasses import replace
 
 from repro_torch.sharding.mesh import ProcessMesh, VirtualMesh, make_process_mesh, resolve_device
 from repro_torch.sharding.mesh import make_mesh as _make_mesh
@@ -112,7 +122,24 @@ def init_process_mesh(
         torch.cuda.set_device(dev)
     kw = {"device_id": dev} if backend == "nccl" else {}
     dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world_size, **kw)
-    return make_process_mesh(shape, names, dev)
+    mesh = make_process_mesh(shape, names, dev)
+    return replace(mesh, **_dtensor_groups(mesh, shape, names))
+
+
+def _dtensor_groups(mesh: ProcessMesh, shape: tuple[int, ...], names: tuple[str, ...]) -> dict:
+    """The ``DeviceMesh`` over the mesh's processes (collective), and under
+    gloo the staged group of every process."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if mesh.backend == "nccl":
+        return {"device_mesh": init_device_mesh(mesh.device.type, tuple(shape), mesh_dim_names=tuple(names))}
+    from repro_torch.core.transport import register_staged_backend
+
+    staged = register_staged_backend()
+    dm = init_device_mesh(mesh.device.type, tuple(shape), mesh_dim_names=tuple(names),
+                          backend_override={n: staged for n in names})
+    return {"device_mesh": dm, "staged_group": dist.new_group(backend=staged)}
 
 
 # ---------------------------------------------------------------------------
@@ -122,6 +149,7 @@ def init_process_mesh(
 def _rank_main(fn, rank, world_size, init_method, args, results, inbox) -> None:
     import torch.distributed as dist
 
+    torch.set_num_threads(1)  # the processes share the host's cores
     try:
         extra = (inbox.get,) if inbox is not None else ()
         out = fn(rank, world_size, init_method, *args, *extra)
@@ -143,7 +171,8 @@ class RankGroup:
     arrays). With ``late=True`` each process also gets a last argument,
     ``receive()``, which waits for what :meth:`feed` sends it: only rank
     ``r`` receives ``rank_args[r]``, and tensors on a card cross by CUDA IPC,
-    so the caller keeps them alive until :meth:`join` returns."""
+    so the caller keeps them alive until :meth:`join` returns. Each process
+    runs torch on one thread."""
 
     def __init__(self, fn: Callable, world_size: int, *, args: Sequence = (), late: bool = False) -> None:
         import torch.multiprocessing as mp

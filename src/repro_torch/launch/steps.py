@@ -7,6 +7,12 @@ mesh)`` builds: ``params`` in ``cfg.param_dtype`` (f32 norms), the AdamW
 ``step`` scalar, under the model's rules (``moe_mode="ep"`` included). The
 params' declaration is ``models/lm.py``'s.
 
+``train_step`` is the one train step (loss, grads, AdamW in place): the
+``Trainer``'s and ``build_step``'s. On a ``ProcessMesh`` (a ``ShardCtx``) the
+loss runs under the context and the gradients are redistributed to the
+optimizer master's placements before AdamW, the reference's ZeRO-1 step
+(each process updates its 1/N of every leaf).
+
 ``build_step(cfg, shape_name, mesh)`` is the dry run's cell: the step
 function of one input shape on the port's functions (train: loss, grads and
 AdamW; prefill; serve: one decode token), its inputs as ``TensorSpec``
@@ -27,6 +33,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs import SHAPES, InputShape, ModelConfig
+from repro_torch.data.synthetic import BATCH_DIMS
+from repro_torch.models.common import ShardCtx
+from repro_torch.models.lm import on_mesh
 from repro_torch.models.model import Model, build_model
 from repro_torch.optim.adamw import AdamWConfig, abstract_opt_state, adamw_update
 from repro_torch.optim.schedule import warmup_cosine
@@ -34,6 +43,27 @@ from repro_torch.sharding.axes import ShardingRules, dims_to_pspec, rules_for_sh
 from repro_torch.sharding.mesh import VirtualMesh, resolve_device
 from repro_torch.sharding.spec import ParamSpec, TensorSpec, draw_normal, init_std, specs_to_shape_dtype
 from repro_torch.utils.pytree import tree_flatten, tree_map, tree_unflatten
+
+
+def train_step(model: Model, state: dict, batch: dict, hp: AdamWConfig, sched: Callable | None,
+               ctx: ShardCtx | None = None) -> tuple:
+    """One train step on the live ``state``, updated in place: the loss and
+    its gradients through ``requires_grad`` aliases of the params (zeros
+    for a leaf the loss does not read, as ``jax.grad`` gives), on a mesh
+    each gradient redistributed to its ``opt.master`` leaf's placements
+    (ZeRO-1: a reduce-scatter over the data axes), then AdamW. Returns
+    (loss, metrics, AdamW's stats), undetached."""
+    with on_mesh(ctx):
+        paths, live = tree_flatten(state["params"])
+        leaves = [p.detach().requires_grad_() for p in live]
+        loss, metrics = model.loss(tree_unflatten(paths, leaves), batch, ctx=ctx)
+        grads = list(torch.autograd.grad(loss, leaves, materialize_grads=True))
+        if ctx is not None:
+            masters = tree_flatten(state["opt"]["master"])[1]
+            grads = [g.redistribute(m.device_mesh, m.placements) for g, m in zip(grads, masters)]
+        stats = adamw_update(tree_unflatten(paths, grads), state["params"], state["opt"], state["step"], hp,
+                             lr_schedule=sched)
+    return loss, metrics, stats
 
 
 @dataclass(frozen=True)
@@ -66,16 +96,6 @@ def train_state_layout(cfg: ModelConfig, mesh: VirtualMesh) -> StateLayout:
 # ---------------------------------------------------------------------------
 # Step functions of the dry run's cells
 # ---------------------------------------------------------------------------
-
-# logical dims of the batch inputs
-_BATCH_DIMS = {
-    "tokens": ("batch", "seq"),
-    "labels": ("batch", "seq"),
-    "mask": ("batch", "seq"),
-    "frames": ("batch", "seq", None),
-    "vision": ("batch", "vision", None),
-}
-
 
 @dataclass
 class StepBundle:
@@ -111,7 +131,7 @@ def _batch_sds(cfg: ModelConfig, shape: InputShape) -> dict[str, TensorSpec]:
 
 
 def _batch_pspecs(batch_sds: dict, rules: ShardingRules, mesh: VirtualMesh) -> dict:
-    return {k: dims_to_pspec(_BATCH_DIMS[k], v.shape, rules, mesh) for k, v in batch_sds.items()}
+    return {k: dims_to_pspec(BATCH_DIMS[k], v.shape, rules, mesh) for k, v in batch_sds.items()}
 
 
 def input_specs(cfg: ModelConfig, shape_name: str) -> dict[str, Any]:
@@ -154,17 +174,12 @@ def build_step(cfg: ModelConfig, shape_name: str | InputShape, mesh: VirtualMesh
         hp = AdamWConfig(lr=3e-4)
         sched = warmup_cosine(3e-4, 2000, 100_000)
 
-        def train_step(state, batch):
-            paths, live = tree_flatten(state["params"])
-            leaves = [p.detach().requires_grad_() for p in live]
-            loss, _ = model.loss(tree_unflatten(paths, leaves), batch)
-            grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
-            adamw_update(tree_unflatten(paths, list(grads)), state["params"], state["opt"], state["step"], hp,
-                         lr_schedule=sched)
+        def step(state, batch):
+            loss, _, _ = train_step(model, state, batch, hp, sched)
             return state, {"loss": loss.detach()}
 
         return StepBundle(
-            name="train_step", fn=train_step,
+            name="train_step", fn=step,
             args_sds=(layout.sds, batch_sds),
             in_pspecs=(layout.pspecs, _batch_pspecs(batch_sds, rules, mesh)),
             out_pspecs=(layout.pspecs, None),

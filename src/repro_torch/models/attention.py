@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import apply_rope, einsum, softcap
+from repro_torch.models.common import ShardCtx, apply_rope, constrain, einsum, softcap
 from repro_torch.sharding.spec import ParamSpec
 
 NEG_INF = -2.0e38
@@ -155,6 +155,35 @@ def blockwise_attention(
     return torch.cat(outs, dim=1)[:, :Sq]
 
 
+def _per_shard(fn):
+    """``fn(q, k, v, **kw)`` on DTensors as each process's blocks: the
+    attention of a batch row and a head reads nothing of another, so where
+    q shards batch (dim 0) or heads (dim 2) over an axis, and k and v shard
+    the same dims over it (kv heads with heads), each process attends its
+    own blocks and the output keeps q's placements; any other placement on
+    an axis is gathered first. DTensor's einsum would flatten the batch and
+    head dims, both sharded, which its sharding rules refuse. Plain tensors
+    go to ``fn`` as they are."""
+
+    def run(q, k, v, **kw):
+        if not hasattr(q, "device_mesh"):  # a plain tensor
+            return fn(q, k, v, **kw)
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        mesh = q.device_mesh
+        keep = []
+        for pq, pk, pv in zip(q.placements, k.placements, v.placements):
+            local = pq == pk == pv and (pq == Replicate() or pq in (Shard(0), Shard(2)))
+            keep.append(pq if local else Replicate())
+        q, k, v = (x.redistribute(mesh, keep) for x in (q, k, v))
+        o = fn(q.to_local(), k.to_local(), v.to_local(), **kw)
+        shape = (*q.shape[:3], v.shape[3])
+        return DTensor.from_local(o, mesh, keep, run_check=False, shape=torch.Size(shape),
+                                  stride=torch.empty(shape, device="meta").stride())
+
+    return run
+
+
 # ---------------------------------------------------------------------------
 # Full-sequence (train/prefill) layer application
 # ---------------------------------------------------------------------------
@@ -168,6 +197,7 @@ def apply(
     kv_src: torch.Tensor | None = None,  # cross-attention source (B, S_kv, d_model)
     positions: torch.Tensor | None = None,
     q_offset: int = 0,
+    ctx: ShardCtx | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Returns (output, kv) where kv holds this layer's k/v for cache
     building. A cross slot takes q from ``x`` and k/v from ``kv_src``, with
@@ -184,9 +214,12 @@ def apply(
     if kind != "cross":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = constrain(q, ctx, ("batch", "seq", "heads", None))
+    k = constrain(k, ctx, ("batch", "seq", "kv_heads", None))
+    v = constrain(v, ctx, ("batch", "seq", "kv_heads", None))
     window = cfg.sliding_window if kind == "local" else None
 
-    o = blockwise_attention(
+    o = _per_shard(blockwise_attention)(
         q, k, v,
         causal=kind != "cross" and not cfg.is_encoder,
         window=window,
@@ -196,7 +229,7 @@ def apply(
         k_chunk=cfg.attn_chunk,
     )
     out = einsum("bshk,hkd->bsd", o, params["wo"]).to(x.dtype)
-    return out, {"k": k, "v": v}
+    return constrain(out, ctx, ("batch", "seq", "act_embed")), {"k": k, "v": v}
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +254,7 @@ def decode(
     cfg: ModelConfig,
     *,
     kind: str,
+    ctx: ShardCtx | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """One token through the layer. The new k/v land in ``cache`` at ``pos``
     (``index_copy_``: no host sync on ``pos``); a cross slot reads its
@@ -256,4 +290,4 @@ def decode(
     o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).to(torch.float32), v.to(torch.float32))
     o = o.reshape(B, 1, H, D).to(cfg.compute_dtype)
     out = einsum("bshk,hkd->bsd", o, params["wo"]).to(x.dtype)
-    return out, cache
+    return constrain(out, ctx, ("batch", None, "act_embed")), cache

@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, mlp, moe, ssm
-from repro_torch.models.common import rmsnorm, rmsnorm_spec
+from repro_torch.models.common import ShardCtx, rmsnorm, rmsnorm_spec
 
 
 def slot_is_moe(cfg: ModelConfig, slot: int) -> bool:
@@ -40,6 +40,7 @@ def apply_block(
     *,
     vision_kv: torch.Tensor | None = None,
     q_offset: int = 0,
+    ctx: ShardCtx | None = None,
 ) -> tuple[torch.Tensor, dict[str, Any], torch.Tensor]:
     """Full-sequence block application; a "cross" slot attends to
     ``vision_kv``. Returns (h, cache_entry, moe_aux)."""
@@ -48,18 +49,18 @@ def apply_block(
 
     hin = rmsnorm(h, params["ln1"], cfg.norm_eps)
     if kind == "mamba":
-        mixed, cache = ssm.apply(params["mixer"], hin, cfg)
+        mixed, cache = ssm.apply(params["mixer"], hin, cfg, ctx=ctx)
     else:
         mixed, cache = attention.apply(params["mixer"], hin, cfg, kind=kind,
-                                       kv_src=vision_kv if kind == "cross" else None, q_offset=q_offset)
+                                       kv_src=vision_kv if kind == "cross" else None, q_offset=q_offset, ctx=ctx)
     h = h + mixed
 
     if cfg.d_ff > 0:
         hin = rmsnorm(h, params["ln2"], cfg.norm_eps)
         if slot_is_moe(cfg, slot):
-            out, aux = moe.apply(params["ffn"], hin, cfg)
+            out, aux = moe.apply(params["ffn"], hin, cfg, ctx=ctx)
         else:
-            out = mlp.apply(params["ffn"], hin, cfg)
+            out = mlp.apply(params["ffn"], hin, cfg, ctx=ctx)
         h = h + out
     return h, cache, aux
 
@@ -71,23 +72,25 @@ def decode_block(
     pos: torch.Tensor,
     cfg: ModelConfig,
     slot: int,
+    *,
+    ctx: ShardCtx | None = None,
 ) -> tuple[torch.Tensor, dict[str, Any]]:
     """One token through the slot; the slot's cache (k/v, or the SSM's conv
     history and state) is written in place."""
     kind = cfg.layer_pattern[slot]
     hin = rmsnorm(h, params["ln1"], cfg.norm_eps)
     if kind == "mamba":
-        mixed, cache = ssm.decode(params["mixer"], hin, cache, cfg)
+        mixed, cache = ssm.decode(params["mixer"], hin, cache, cfg, ctx=ctx)
     else:
-        mixed, cache = attention.decode(params["mixer"], hin, cache, pos, cfg, kind=kind)
+        mixed, cache = attention.decode(params["mixer"], hin, cache, pos, cfg, kind=kind, ctx=ctx)
     h = h + mixed
 
     if cfg.d_ff > 0:
         hin = rmsnorm(h, params["ln2"], cfg.norm_eps)
         if slot_is_moe(cfg, slot):
-            out, _ = moe.apply(params["ffn"], hin, cfg, num_groups=1)
+            out, _ = moe.apply(params["ffn"], hin, cfg, ctx=ctx, num_groups=1)
         else:
-            out = mlp.apply(params["ffn"], hin, cfg)
+            out = mlp.apply(params["ffn"], hin, cfg, ctx=ctx)
         h = h + out
     return h, cache
 

@@ -1,19 +1,61 @@
-"""Shared model building blocks: norms, RoPE, softcap, the embedding's
-declaration, and the JAX package's dtype rule for a two-operand einsum.
+"""Shared model building blocks: activation sharding, norms, RoPE,
+softcap, the embedding's declaration, and the JAX package's dtype rule for
+a two-operand einsum.
 
-The reference threads a ``ShardCtx`` (mesh + logical rules) through the
-model and pins activation shardings with ``constrain``. On one card there
-is no mesh to constrain to, so the port has neither: every function here
-and in the model modules takes the same arguments less ``ctx``.
+As in the reference, a ``ShardCtx`` (mesh + logical rules) is threaded
+through the model, and ``constrain`` pins an activation's sharding at the
+reference's call sites. With ``ctx=None`` (one card, and the CPU tests)
+``constrain`` returns its input itself and the model computes what it
+computes without a mesh. On a :class:`ProcessMesh` the params and the batch
+are DTensors, every op runs on DTensors, and ``constrain`` redistributes
+its input to the placements of the spec the rules give
+(``sharding/mesh.py::placements``): the counterpart of
+``with_sharding_constraint``.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any
 
 import torch
 
+from repro_torch.sharding.axes import ShardingRules, dims_to_pspec
 from repro_torch.sharding.spec import ParamSpec
+
+
+@dataclass(frozen=True)
+class ShardCtx:
+    """Mesh + logical rules threaded through the model code for activation
+    sharding constraints; ``None`` in its place means no constraints."""
+
+    mesh: Any
+    rules: ShardingRules
+
+
+def constrain(x: torch.Tensor, ctx: ShardCtx | None, dims: tuple[str | None, ...]) -> torch.Tensor:
+    """``x`` itself with ``ctx=None``; else ``x`` redistributed to the
+    placements of ``dims`` under the rules on the mesh (a DTensor; a plain
+    tensor counts as replicated, as each process holds it whole). A partial
+    sum is reduced first where it is not a plain sum (the vocab-parallel
+    embedding's masked partial goes to its shard through the replicated
+    value)."""
+    if ctx is None:
+        return x
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from repro_torch.sharding.mesh import placements
+
+    mesh = ctx.mesh
+    dm = mesh.device_mesh
+    spec = dims_to_pspec(dims, tuple(x.shape), ctx.rules, mesh)
+    target = placements(spec, mesh)
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, dm, [Replicate()] * dm.ndim, run_check=False)
+    if any(p.is_partial() and type(p) is not Partial for p in x.placements):
+        x = x.redistribute(dm, [Replicate() if p.is_partial() and type(p) is not Partial else p
+                                for p in x.placements])
+    return x.redistribute(dm, target)
 
 
 def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -21,6 +63,14 @@ def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     gives f32) where ``torch.einsum`` would raise."""
     dt = torch.promote_types(a.dtype, b.dtype)
     return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+def no_sharding_rule(x: torch.Tensor, what: str) -> None:
+    """Raise ``NotImplementedError`` (ROADMAP A15) where ``x`` is a DTensor:
+    ``what`` has no DTensor sharding rule in the port, and the model never
+    falls back to a replicated run in its place."""
+    if hasattr(x, "device_mesh"):  # a DTensor
+        raise NotImplementedError(f"{what} has no DTensor sharding rule on a ProcessMesh (ROADMAP A15)")
 
 
 # ---------------------------------------------------------------------------

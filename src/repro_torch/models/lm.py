@@ -24,11 +24,20 @@ layer's new entries into it in place and returns the same tree. The MoE
 slots' load-balance losses are summed over the stack; ``loss_fn`` adds
 their mean over the layers times ``aux_weight``. A cross slot's cache holds
 the ``vision_tokens`` keys and values from prefill; decode only reads it.
+
+Every entry point takes the reference's ``ctx`` (``models/common.py``):
+with ``ctx=None`` nothing changes; on a ``ProcessMesh`` the params and
+inputs are DTensors, the activations are constrained at the reference's
+call sites, the ``fsdp`` preset gathers each period's weights over the data
+axes inside the loop (``_per_layer_gather``), and a plain tensor made inside
+(a mask, an iota) counts as replicated (DTensor's implicit replication).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from functools import partial
 from typing import Any
 
@@ -38,7 +47,7 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks, moe
-from repro_torch.models.common import einsum, embed_spec, rmsnorm, rmsnorm_spec, softcap
+from repro_torch.models.common import ShardCtx, constrain, einsum, embed_spec, rmsnorm, rmsnorm_spec, softcap
 from repro_torch.sharding.spec import ParamSpec, stack_tree, tree_count
 from repro_torch.utils.pytree import tree_flatten, tree_map, tree_unflatten
 
@@ -90,11 +99,44 @@ def active_param_count(cfg: ModelConfig) -> int:
 # Forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def _embed_tokens(params: dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    h = F.embedding(tokens, params["embed"]).to(cfg.compute_dtype)
+_MESH_SCOPE = threading.local()
+
+
+@contextlib.contextmanager
+def on_mesh(ctx: ShardCtx | None):
+    """The scope of a step on a mesh: DTensor's implicit replication of the
+    plain tensors made inside (each process makes the same one); nothing
+    without a mesh. Nested scopes keep the outermost one's (DTensor's own
+    context would switch it off at the first inner exit)."""
+    depth = getattr(_MESH_SCOPE, "depth", 0)
+    if ctx is None or depth:
+        _MESH_SCOPE.depth = depth + (ctx is not None)
+        try:
+            yield
+        finally:
+            _MESH_SCOPE.depth = depth
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    _MESH_SCOPE.depth = 1
+    try:
+        with implicit_replication():
+            yield
+    finally:
+        _MESH_SCOPE.depth = 0
+
+
+def _embed_tokens(params: dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
+                  ctx: ShardCtx | None = None) -> torch.Tensor:
+    table = params["embed"]
+    if ctx is not None and ctx.rules.get("embed") is not None:
+        # FSDP: the lookup reads the table gathered over the data axes (its
+        # vocab-parallel lookup takes a table sharded on the vocab alone)
+        table = constrain(table, ShardCtx(ctx.mesh, ctx.rules.override(embed=None)), ("vocab", "embed"))
+    h = F.embedding(tokens, table).to(cfg.compute_dtype)
     if cfg.scale_embed:
         h = h * math.sqrt(cfg.d_model)
-    return h
+    return constrain(h, ctx, ("batch", "seq", "act_embed"))
 
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
@@ -114,6 +156,25 @@ def _remat(fn, cfg: ModelConfig):
     return partial(checkpoint, fn, use_reentrant=False)
 
 
+def _per_layer_gather(cfg: ModelConfig, ctx: ShardCtx | None):
+    """FSDP: a function that constrains one period's weight slices to the
+    gathered (data-replicated) view inside the loop over the periods, so each
+    period's gather happens in its own iteration (and again in its
+    recomputation under remat). The identity for the TP presets and
+    without a mesh."""
+    if ctx is None or cfg.sharding_preset != "fsdp" or not cfg.fsdp_gather_per_layer:
+        return lambda lp: lp
+    gctx = ShardCtx(ctx.mesh, ctx.rules.override(embed=None))
+    dims = {f"slot{j}": blocks.block_specs(cfg, j) for j in range(cfg.period)}
+
+    def gather(layer_params):
+        paths, leaves = tree_flatten(layer_params)
+        _, specs = tree_flatten(dims)
+        return tree_unflatten(paths, [constrain(x, gctx, s.dims) for x, s in zip(leaves, specs)])
+
+    return gather
+
+
 def forward(
     params: dict[str, Any],
     cfg: ModelConfig,
@@ -122,6 +183,7 @@ def forward(
     frames: torch.Tensor | None = None,    # (B, S, stub) encoder inputs
     vision: torch.Tensor | None = None,    # (B, V, stub) VLM patch embeddings
     collect_cache: bool = False,
+    ctx: ShardCtx | None = None,
 ) -> tuple[torch.Tensor, Any, torch.Tensor]:
     """-> (final hidden (B, S, D), cache, moe_aux). With ``collect_cache``
     the cache holds each slot's entries stacked over the periods (k/v:
@@ -131,21 +193,26 @@ def forward(
         if frames is None:
             raise ValueError(f"{cfg.name} takes frame embeddings (frames=)")
         h = einsum("bse,ed->bsd", frames.to(cfg.compute_dtype), params["in_proj"])
+        h = constrain(h, ctx, ("batch", "seq", "act_embed"))
     else:
         if tokens is None:
             raise ValueError(f"{cfg.name} takes token ids (tokens=)")
-        h = _embed_tokens(params, tokens, cfg)
+        h = _embed_tokens(params, tokens, cfg, ctx)
 
     vision_kv = None
     if cfg.vision_tokens:
         if vision is None:
             raise ValueError(f"{cfg.name} requires vision embeddings (vision=)")
         vision_kv = einsum("bve,ed->bvd", vision.to(cfg.compute_dtype), params["vision_proj"])
+        vision_kv = constrain(vision_kv, ctx, ("batch", "vision", "act_embed"))
+    gather = _per_layer_gather(cfg, ctx)
 
     def period_body(h, aux, layer_params):
+        layer_params = gather(layer_params)
         caches = {}
         for j in range(cfg.period):
-            h, cache_j, aux_j = blocks.apply_block(layer_params[f"slot{j}"], h, cfg, j, vision_kv=vision_kv)
+            h, cache_j, aux_j = blocks.apply_block(layer_params[f"slot{j}"], h, cfg, j, vision_kv=vision_kv,
+                                                   ctx=ctx)
             aux = aux + aux_j
             if collect_cache:
                 caches[f"slot{j}"] = cache_j
@@ -174,27 +241,41 @@ def _head_weight(params: dict[str, Any], cfg: ModelConfig) -> torch.Tensor:
     return params["head"]
 
 
-def logits_fn(params: dict[str, Any], h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def logits_fn(params: dict[str, Any], h: torch.Tensor, cfg: ModelConfig,
+              ctx: ShardCtx | None = None) -> torch.Tensor:
     w = _head_weight(params, cfg)
     logits = einsum("...d,dv->...v", h, w).to(torch.float32)
     logits = softcap(logits, cfg.final_softcap)
     if cfg.padded_vocab != cfg.vocab_size:
         pad_mask = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
         logits = torch.where(pad_mask, -1e30, logits)
-    return logits
+    dims = ("batch", "seq", "vocab") if h.ndim == 3 else ("batch", "vocab")
+    return constrain(logits, ctx, dims)
 
 
 # ---------------------------------------------------------------------------
 # Loss (sequence-chunked cross-entropy)
 # ---------------------------------------------------------------------------
 
-def _ce_chunk(params, h_c, labels_c, mask_c, cfg):
-    logits = logits_fn(params, h_c, cfg)  # (B, Sc, V_pad) f32
-    lse = torch.logsumexp(logits, dim=-1)
+def _ce_chunk(params, h_c, labels_c, mask_c, cfg, ctx=None):
+    logits = logits_fn(params, h_c, cfg, ctx)  # (B, Sc, V_pad) f32
+    if ctx is None:
+        lse = torch.logsumexp(logits, dim=-1)
+    else:
+        # over a vocab-sharded dim: per-shard max and sum of exponentials,
+        # each reduced over the shards (``jax.nn.logsumexp``'s form); DTensor's
+        # own logsumexp gathers the logits
+        m = logits.detach().amax(dim=-1, keepdim=True)
+        sumexp = constrain(torch.exp(logits - m).sum(dim=-1, keepdim=True), ctx, ("batch", "seq", None))
+        lse = (m + torch.log(sumexp)).squeeze(-1)
     # The label logit as the reference takes it: a select against an iota,
     # summed (a gather's backward would scatter).
-    iota = torch.arange(logits.shape[-1], device=logits.device)
+    iota = constrain(torch.arange(logits.shape[-1], device=logits.device), ctx, ("vocab",))
     label_logit = torch.where(iota == labels_c[..., None], logits, 0.0).sum(dim=-1)
+    # per token, batch-sharded: a reduction over the vocab shards left to
+    # itself may shard the batch over "model" too, and its gradient would
+    # then be redistributed at the logits' size (the sum above likewise)
+    label_logit = constrain(label_logit, ctx, ("batch", "seq"))
     nll = (lse - label_logit) * mask_c
     return nll.sum(), mask_c.sum()
 
@@ -204,10 +285,18 @@ def loss_fn(
     batch: dict[str, torch.Tensor],
     cfg: ModelConfig,
     aux_weight: float = 0.01,
+    *,
+    ctx: ShardCtx | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Mean next-token (or, with the batch's ``mask``, masked-prediction)
     cross-entropy (+ the MoE aux loss, 0 for dense)."""
-    h, _, aux = forward(params, cfg, batch.get("tokens"), frames=batch.get("frames"), vision=batch.get("vision"))
+    with on_mesh(ctx):
+        return _loss(params, batch, cfg, aux_weight, ctx)
+
+
+def _loss(params, batch, cfg, aux_weight, ctx):
+    h, _, aux = forward(params, cfg, batch.get("tokens"), frames=batch.get("frames"), vision=batch.get("vision"),
+                        ctx=ctx)
     labels = batch["labels"]
     mask = batch.get("mask")
     if mask is None:
@@ -221,7 +310,7 @@ def loss_fn(
         chunk = S
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     denom = torch.zeros((), dtype=torch.float32, device=h.device)
-    ce = partial(_ce_chunk, cfg=cfg)
+    ce = partial(_ce_chunk, cfg=cfg, ctx=ctx)
     if cfg.remat != "none":
         ce = partial(checkpoint, ce, use_reentrant=False)
     for i in range(n):
@@ -245,13 +334,16 @@ def prefill(
     tokens: torch.Tensor | None = None,
     frames: torch.Tensor | None = None,
     vision: torch.Tensor | None = None,
+    ctx: ShardCtx | None = None,
 ) -> tuple[torch.Tensor, Any]:
     """Returns (last-position logits (B, V), cache of length S). Encoder:
     (every position's logits (B, S, V), None)."""
-    h, cache, _ = forward(params, cfg, tokens, frames=frames, vision=vision, collect_cache=not cfg.is_encoder)
-    if cfg.is_encoder:
-        return logits_fn(params, h, cfg), None
-    return logits_fn(params, h[:, -1, :], cfg), cache
+    with on_mesh(ctx):
+        h, cache, _ = forward(params, cfg, tokens, frames=frames, vision=vision, collect_cache=not cfg.is_encoder,
+                              ctx=ctx)
+        if cfg.is_encoder:
+            return logits_fn(params, h, cfg, ctx), None
+        return logits_fn(params, h[:, -1, :], cfg, ctx), cache
 
 
 def decode_step(
@@ -260,19 +352,23 @@ def decode_step(
     token: torch.Tensor,    # (B,) integers: the token at position `pos`
     pos: torch.Tensor,      # 0-d integer tensor
     cfg: ModelConfig,
+    *,
+    ctx: ShardCtx | None = None,
 ) -> tuple[torch.Tensor, Any]:
     """One decode step: returns (logits (B, V) for position pos, cache), the
     cache written in place."""
     if cfg.is_encoder:
         raise ValueError(f"{cfg.name}: encoder-only archs have no decode step")
-    h = _embed_tokens(params, token[:, None], cfg)  # (B, 1, D)
-    for i in range(cfg.num_periods):
-        layer_params = tree_map(lambda x: x[i], params["layers"])
-        for j in range(cfg.period):
-            layer_cache = tree_map(lambda x: x[i], cache[f"slot{j}"])  # views of the leaves
-            h, _ = blocks.decode_block(layer_params[f"slot{j}"], h, layer_cache, pos, cfg, j)
-    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return logits_fn(params, h[:, 0, :], cfg), cache
+    with on_mesh(ctx):
+        h = _embed_tokens(params, token[:, None], cfg, ctx)  # (B, 1, D)
+        gather = _per_layer_gather(cfg, ctx)
+        for i in range(cfg.num_periods):
+            layer_params = gather(tree_map(lambda x: x[i], params["layers"]))
+            for j in range(cfg.period):
+                layer_cache = tree_map(lambda x: x[i], cache[f"slot{j}"])  # views of the leaves
+                h, _ = blocks.decode_block(layer_params[f"slot{j}"], h, layer_cache, pos, cfg, j, ctx=ctx)
+        h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+        return logits_fn(params, h[:, 0, :], cfg, ctx), cache
 
 
 def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int) -> dict[str, Any]:

@@ -6,7 +6,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import einsum
+from repro_torch.models.common import ShardCtx, constrain, einsum
 from repro_torch.sharding.spec import ParamSpec
 
 
@@ -30,12 +30,15 @@ def _act(kind: str, x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")  # jax.nn.gelu(approximate=True)
 
 
-def apply(params: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def apply(params: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+          ctx: ShardCtx | None = None) -> torch.Tensor:
     if cfg.mlp_kind in ("swiglu", "geglu"):
         g = einsum("...d,df->...f", x, params["w_gate"])
         u = einsum("...d,df->...f", x, params["w_up"])
         h = _act(cfg.mlp_kind, g) * u
     else:
         h = _act("gelu", einsum("...d,df->...f", x, params["w_in"]))
+    h = constrain(h, ctx, ("batch", "seq", "mlp"))
     w_out = params["w_down"] if "w_down" in params else params["w_out"]
-    return einsum("...f,fd->...d", h, w_out)
+    out = einsum("...f,fd->...d", h, w_out)
+    return constrain(out, ctx, ("batch", "seq", "act_embed"))

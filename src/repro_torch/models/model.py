@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
+from repro_torch.models.common import ShardCtx
 from repro_torch.sharding.axes import FSDP_RULES, TP_RULES, ShardingRules
 from repro_torch.sharding.mesh import resolve_device
 from repro_torch.sharding.spec import init_tree, tree_count
@@ -61,15 +62,16 @@ class Model:
         for another)."""
         return init_tree(threefry.PRNGKey(0), self.abstract_cache(batch, max_seq), resolve_device(device))
 
-    def loss(self, params: Any, batch: dict[str, torch.Tensor]):
-        return lm.loss_fn(params, batch, self.cfg)
+    def loss(self, params: Any, batch: dict[str, torch.Tensor], ctx: ShardCtx | None = None):
+        return lm.loss_fn(params, batch, self.cfg, ctx=ctx)
 
     def prefill(self, params: Any, tokens: torch.Tensor | None = None, frames: torch.Tensor | None = None,
-                vision: torch.Tensor | None = None):
-        return lm.prefill(params, self.cfg, tokens=tokens, frames=frames, vision=vision)
+                vision: torch.Tensor | None = None, ctx: ShardCtx | None = None):
+        return lm.prefill(params, self.cfg, tokens=tokens, frames=frames, vision=vision, ctx=ctx)
 
-    def decode_step(self, params: Any, cache: Any, token: torch.Tensor, pos: torch.Tensor):
-        return lm.decode_step(params, cache, token, pos, self.cfg)
+    def decode_step(self, params: Any, cache: Any, token: torch.Tensor, pos: torch.Tensor,
+                    ctx: ShardCtx | None = None):
+        return lm.decode_step(params, cache, token, pos, self.cfg, ctx=ctx)
 
 
 def build_model(cfg: ModelConfig) -> Model:

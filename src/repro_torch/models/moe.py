@@ -30,7 +30,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import einsum
+from repro_torch.models.common import ShardCtx, constrain, einsum, no_sharding_rule
 from repro_torch.models.mlp import _act
 from repro_torch.sharding.spec import ParamSpec
 
@@ -106,6 +106,7 @@ def route(params: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     assert T % G == 0, (T, G)
     tg = T // G
     C = expert_capacity(tg, E, K, cfg.moe_capacity_factor)
+    no_sharding_rule(x, "MoE routing (the top-k argmax rounds and the one-hot dispatch)")
 
     xt = x.reshape(G, tg, D)
     # the router matmul in the compute dtype, the softmax in f32
@@ -128,6 +129,8 @@ def apply(
     x: torch.Tensor,  # (B, S, d_model)
     cfg: ModelConfig,
     num_groups: int | None = None,
+    *,
+    ctx: ShardCtx | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (output, aux_loss). Aux loss = load-balancing (Switch style)."""
     B, S, D = x.shape
@@ -143,6 +146,9 @@ def apply(
     combine = einsum("gtke,gtkec->gtec", r.weights.to(dt)[..., None] * onehot, pos_oh)
 
     ex_in = einsum("gtec,gtd->gecd", dispatch, xt)  # (G, E, C, D)
+    # the group dim stays batch-sharded (a replicated constraint here would
+    # compute every expert on every data shard)
+    ex_in = constrain(ex_in, ctx, ("moe_group", "experts", None, None))
     if "w_gate" in params:
         g = einsum("gecd,edf->gecf", ex_in, params["w_gate"])
         u = einsum("gecd,edf->gecf", ex_in, params["w_up"])
@@ -151,8 +157,10 @@ def apply(
     else:
         h = _act("gelu", einsum("gecd,edf->gecf", ex_in, params["w_in"]))
         ex_out = einsum("gecf,efd->gecd", h, params["w_out"])
+    ex_out = constrain(ex_out, ctx, ("moe_group", "experts", None, None))
 
     out = einsum("gtec,gecd->gtd", combine, ex_out).reshape(B, S, D)
+    out = constrain(out, ctx, ("batch", "seq", "act_embed"))
 
     # Switch-transformer load-balance loss: E * sum(frac_tokens * frac_probs)
     frac_tokens = r.onehot[..., 0, :].to(torch.float32).mean(dim=(0, 1))

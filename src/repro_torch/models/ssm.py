@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import einsum
+from repro_torch.models.common import ShardCtx, constrain, einsum, no_sharding_rule
 from repro_torch.sharding.spec import ParamSpec
 
 CHUNK = 128
@@ -105,6 +105,8 @@ def apply(
     x: torch.Tensor,  # (B, L, d_model)
     cfg: ModelConfig,
     chunk: int = CHUNK,
+    *,
+    ctx: ShardCtx | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Chunked SSD forward. Returns (out, final_cache)."""
     Bsz, L, _ = x.shape
@@ -115,6 +117,9 @@ def apply(
     f32 = torch.float32
 
     z, xBC_raw, dt = _project(params, x)
+    xBC_raw = constrain(xBC_raw, ctx, ("batch", "seq", "ssm_inner"))
+    z = constrain(z, ctx, ("batch", "seq", "ssm_inner"))
+    no_sharding_rule(xBC_raw, "the Mamba-2 SSD scan (the causal conv, the chunked decay and its recurrence)")
     xBC = _causal_conv(xBC_raw, params["conv_w"], params["conv_b"])
 
     xs = xBC[..., : cfg.d_inner].reshape(Bsz, L, H, P)
@@ -161,6 +166,7 @@ def apply(
     y = y.reshape(Bsz, L, cfg.d_inner)
     y = _gated_norm(y, z, params["norm"], cfg.norm_eps)
     out = einsum("ble,ed->bld", y, params["out_proj"]).to(x.dtype)
+    out = constrain(out, ctx, ("batch", "seq", "act_embed"))
 
     cache = {
         "conv": xBC_raw[:, -(cfg.ssm_conv - 1) :, :].to(cfg.compute_dtype),
@@ -174,6 +180,8 @@ def decode(
     x: torch.Tensor,  # (B, 1, d_model)
     cache: dict[str, torch.Tensor],
     cfg: ModelConfig,
+    *,
+    ctx: ShardCtx | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Single-token recurrent update, state' = state·exp(dt·A) + dt·B⊗x;
     the new ``conv`` and ``state`` are written into ``cache`` in place.
@@ -183,6 +191,7 @@ def decode(
     f32 = torch.float32
 
     z, xBC_raw, dt = _project(params, x[:, 0])  # (B, ·)
+    no_sharding_rule(xBC_raw, "the Mamba-2 decode step (the rolling conv history and the state update)")
 
     # causal conv at one position from the rolling history
     hist = cache["conv"]  # (B, K-1, C)
@@ -208,4 +217,4 @@ def decode(
 
     cache["conv"].copy_(full[:, 1:, :])
     cache["state"].copy_(state)
-    return out, cache
+    return constrain(out, ctx, ("batch", None, "act_embed")), cache

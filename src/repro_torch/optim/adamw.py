@@ -7,6 +7,13 @@ the global norm, bias correction with ``b**t``, decoupled weight decay on
 the master) and writes master, m, v, params and step **in place** into the
 live tensors: ``ShardedStateEntity.restore_shards`` writes into the same
 tensors, so a restore and the next step keep sharing them.
+
+On a process mesh the leaves are DTensors: grads, master, m and v in the
+ZeRO-1 placements, the params in theirs. The global norm is then the norm
+of the whole tree over every shard (DTensor reduces each leaf's partial sum
+over the processes that split it), so the clip factor is the reference's;
+each param takes its new master value cast to its dtype and redistributed
+to its own placements.
 """
 
 from __future__ import annotations
@@ -102,6 +109,8 @@ def adamw_update(
         m.copy_(m_new)
         v.copy_(v_new)
         master.copy_(master_new)
+        if hasattr(p, "placements"):  # a DTensor: the param's own placements
+            master_new = master_new.to(p.dtype).redistribute(p.device_mesh, p.placements)
         p.copy_(master_new)
     step.add_(1)
     return {"grad_norm": gnorm, "lr": lr}

@@ -10,6 +10,14 @@ data-sharded dim are replicated to every rank.
 The slicing plan derives from the state's specs (``launch/steps.py``'s
 ``train_state_layout``), so the split dims are the ZeRO-1 data dims of the
 production layout.
+
+On a :class:`ProcessMesh` the live state is DTensors, one block per process
+(``place_state``). The engine runs in mesh rank 0 alone, on the global
+state: ``gather_state`` brings every block to rank 0 (and to no other
+rank) before a checkpoint, ``scatter_state`` hands each process its blocks
+of the restored state after a restore. Both send one flat buffer per
+process over the mesh's staged group, each block once (a block replicated
+over some axes is sent by the process at coordinate 0 on them).
 """
 
 from __future__ import annotations
@@ -20,7 +28,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.core.serialization import LeafSlice
-from repro_torch.sharding.mesh import axes_of, full_rank
+from repro_torch.sharding.mesh import axes_of, block_slices, distribute, full_rank
 from repro_torch.utils.pytree import Path, tree_flatten, tree_unflatten
 
 DATA_AXES = ("pod", "data")
@@ -173,3 +181,103 @@ class RngEntity:
     def restore(self, snap):
         self.seed = int(snap["seed"])
         self.counter = int(snap["counter"])
+
+
+# ---------------------------------------------------------------------------
+# The state on a process mesh
+# ---------------------------------------------------------------------------
+
+def place_state(state: Any, mesh: Any, pspecs: Any) -> Any:
+    """The global ``state`` (every process holds the same, drawn from the
+    seed) as DTensors on ``mesh``: each process keeps its block of each leaf
+    under its spec, with no communication."""
+    paths, leaves = tree_flatten(state)
+    _, specs = tree_flatten(pspecs)
+    return tree_unflatten(paths, [distribute(x, s, mesh) for x, s in zip(leaves, specs)])
+
+
+def _owns(spec: tuple, mesh: Any, rank: int) -> bool:
+    """Whether the process at ``rank`` sends its block of a leaf with
+    ``spec``: the one at coordinate 0 on every axis the leaf is replicated
+    over."""
+    from repro_torch.sharding.mesh import coords_of
+
+    used = {a for e in spec for a in axes_of(e)}
+    coords = coords_of(mesh.axes, rank)
+    return all(coords[a] == 0 for a in mesh.axis_names if a not in used)
+
+
+def _flat_blocks(blocks: list) -> torch.Tensor:
+    """The blocks' bytes end to end, as one uint8 tensor."""
+    if not blocks:
+        return torch.empty(0, dtype=torch.uint8)
+    return torch.cat([b.contiguous().reshape(-1).view(torch.uint8) for b in blocks])
+
+
+def _unflat(flat: torch.Tensor, like: list) -> list:
+    """``flat`` cut into tensors of ``like``'s shapes and dtypes."""
+    out, off = [], 0
+    for shape, dtype in like:
+        n = torch.Size(shape).numel() * torch.empty((), dtype=dtype).element_size()
+        out.append(flat[off:off + n].view(dtype).reshape(shape))
+        off += n
+    return out
+
+
+def gather_state(state: Any, mesh: Any, pspecs: Any, out: Any | None) -> None:
+    """Bring every process's blocks of the DTensor ``state`` into ``out``,
+    the global state on mesh rank 0 (``None`` on the other ranks): each
+    process sends the blocks it owns, in one buffer, to rank 0 alone.
+    Collective over the mesh."""
+    import torch.distributed as dist
+
+    _, leaves = tree_flatten(state)
+    _, specs = tree_flatten(pspecs)
+    shapes = [tuple(x.shape) for x in leaves]
+    if mesh.rank != 0:
+        mine = [x.to_local() for x, s in zip(leaves, specs) if _owns(s, mesh, mesh.rank)]
+        dist.send(_flat_blocks(mine).to(mesh.device), 0, group=mesh.staged_group)
+        return
+    targets = tree_flatten(out)[1]
+    for r in range(mesh.size):
+        idx = [i for i, s in enumerate(specs) if _owns(s, mesh, r)]
+        if r == 0:
+            blocks = [leaves[i].to_local() for i in idx]
+        else:
+            like = [(tuple(leaves[i].to_local().shape), leaves[i].dtype) for i in idx]
+            flat = torch.empty(sum(torch.Size(s).numel() * torch.empty((), dtype=d).element_size()
+                                   for s, d in like), dtype=torch.uint8, device=mesh.device)
+            dist.recv(flat, r, group=mesh.staged_group)
+            blocks = _unflat(flat, like)
+        for i, b in zip(idx, blocks):
+            targets[i][block_slices(shapes[i], specs[i], mesh.axes, r)].copy_(b)
+
+
+def scatter_state(state: Any, mesh: Any, pspecs: Any, src: Any | None) -> None:
+    """Write each process's blocks of ``src``, the global state on mesh
+    rank 0 (``None`` elsewhere), into its DTensor ``state`` in place: rank 0
+    sends every other process its blocks in one buffer. Collective over the
+    mesh."""
+    import torch.distributed as dist
+
+    _, leaves = tree_flatten(state)
+    _, specs = tree_flatten(pspecs)
+    shapes = [tuple(x.shape) for x in leaves]
+    locals_ = [x.to_local() for x in leaves]
+    if mesh.rank != 0:
+        flat = torch.empty(sum(t.numel() * t.element_size() for t in locals_), dtype=torch.uint8,
+                           device=mesh.device)
+        dist.recv(flat, 0, group=mesh.staged_group)
+        with torch.no_grad():
+            for t, b in zip(locals_, _unflat(flat, [(tuple(t.shape), t.dtype) for t in locals_])):
+                t.copy_(b)
+        return
+    full = tree_flatten(src)[1]
+    for r in range(mesh.size):
+        blocks = [full[i][block_slices(shapes[i], specs[i], mesh.axes, r)] for i in range(len(full))]
+        if r == 0:
+            with torch.no_grad():
+                for t, b in zip(locals_, blocks):
+                    t.copy_(b)
+        else:
+            dist.send(_flat_blocks(blocks), r, group=mesh.staged_group)

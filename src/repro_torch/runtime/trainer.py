@@ -36,6 +36,27 @@ commits (0: the per-level Daly cadence of ``MultiLevelScheduler``); a
 whole-system loss restarts every rank and the engine escalates to the
 newest generation on disk, and ``cold_restart`` resumes a fresh job from
 it, repartitioned N-to-M when the job's world size differs.
+
+``Trainer(..., mesh=ProcessMesh)`` is the reference's ``Trainer(mesh=)``:
+one process per mesh coordinate (``launch/mesh.py``), each constructing the
+Trainer alike and calling ``run``. The state is DTensors laid out by the
+reference's ``_state_pspecs`` (params by ``tree_pspecs``, the AdamW state by
+``tree_zero1_pspecs``, ``step`` replicated); the loss runs under
+``ShardCtx(mesh, model.rules)`` and the gradients go to the master's
+placements before AdamW (``launch/steps.py::train_step``). The engine stays
+the reference's, one ``CheckpointEngine`` over ``n_virtual_hosts`` virtual
+failure-domain hosts: the mesh's processes never die, the virtual hosts
+do. It runs in mesh rank 0 alone, on the global state (``global_state``),
+which rank 0 gathers before each checkpoint and scatters after each
+restore (``runtime/state.py``). Rank 0 runs Algorithm 3 and, before each
+thing the other processes take part in, broadcasts one small control
+record over the group (a step with the data pipeline's ``(seed, step)``,
+the kills, the committed checkpoints and the recoveries so far; a gather;
+a scatter; the end of ``run``); they follow it, so no process decides on
+its own clock (the Daly scheduler's measured step times) and none waits in
+a collective the others skip. On a mesh the recovery policy is "spare";
+the others, and ``regrow``, ``restore_elastic`` and ``cold_restart``, raise
+(ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -49,19 +70,21 @@ from repro_torch.core import storage as storage_mod
 from repro_torch.core.checkpoint import CheckpointEngine, EngineConfig
 from repro_torch.core.interval import CheckpointScheduler, MultiLevelScheduler, system_mtbf
 from repro_torch.data.synthetic import SyntheticDataPipeline
-from repro_torch.launch.steps import train_state_layout
+from repro_torch.launch.steps import train_state_layout, train_step
+from repro_torch.models.common import ShardCtx
 from repro_torch.models.model import Model
 from repro_torch.obs.trace import tracer
-from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
+from repro_torch.optim.adamw import AdamWConfig, abstract_opt_state, init_opt_state
 from repro_torch.optim.schedule import warmup_cosine
 from repro_torch.runtime.cluster import VirtualCluster
 from repro_torch.runtime.failures import FailureInjector, ProcessFaultException
-from repro_torch.runtime.state import PROD_MESH, ShardPlan, ShardedStateEntity
+from repro_torch.runtime.state import (PROD_MESH, ShardPlan, ShardedStateEntity, gather_state, place_state,
+                                       scatter_state)
 from repro_torch.runtime.straggler import StragglerDetector
+from repro_torch.sharding.axes import tree_pspecs, tree_zero1_pspecs
 from repro_torch.sharding.mesh import make_mesh, resolve_device
 from repro_torch.utils.logging import get_logger
 from repro_torch.utils import threefry
-from repro_torch.utils.pytree import tree_flatten, tree_unflatten
 from repro_torch.utils.timing import TimerRegistry
 
 log = get_logger("runtime.trainer")
@@ -111,17 +134,25 @@ class Trainer:
         tcfg: TrainerConfig,
         injector: FailureInjector | None = None,
         device: Any = None,
+        *,
+        mesh: Any = None,
     ) -> None:
         if tcfg.checkpoint_mode not in ("sync", "async"):
             raise ValueError(f"checkpoint_mode {tcfg.checkpoint_mode!r}")
         self.model = model
         self.cfg = model.cfg
         self.tcfg = tcfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None and device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device} differs from the mesh's {mesh.device}")
+        if mesh is not None and tcfg.recovery_policy != "spare":
+            raise NotImplementedError(f"recovery_policy={tcfg.recovery_policy!r} on a ProcessMesh (ROADMAP A15)")
+        self.device = resolve_device(device) if mesh is None else mesh.device
         self.timers = TimerRegistry()
 
         # -- data pipeline (its (seed, step) state is a checkpoint entity) ---
-        self.data = SyntheticDataPipeline(self.cfg, tcfg.batch, tcfg.seq, tcfg.seed, device=self.device)
+        self.data = SyntheticDataPipeline(self.cfg, tcfg.batch, tcfg.seq, tcfg.seed, device=self.device,
+                                          mesh=mesh, rules=None if mesh is None else model.rules)
 
         # -- live state -------------------------------------------------------
         params = model.init(threefry.PRNGKey(tcfg.seed), self.device)
@@ -130,11 +161,29 @@ class Trainer:
             "opt": init_opt_state(params, tcfg.moment_dtype),
             "step": torch.zeros((), dtype=torch.int32, device=self.device),
         }
+        # on a mesh: each process's blocks; rank 0 keeps the global tensors,
+        # which the engine reads at a checkpoint and restores into
+        self.global_state: dict[str, Any] | None = None
+        self._ctx = None
+        if mesh is not None:
+            self._ctx = ShardCtx(mesh, model.rules)
+            self.pspecs = self.state_pspecs(mesh)
+            self.global_state = self.state if mesh.rank == 0 else None
+            self.state = place_state(self.state, mesh, self.pspecs)
+        del params
 
         # -- sharding plan against the PRODUCTION mesh ------------------------
         layout = train_state_layout(replace(self.cfg, optimizer_dtype=tcfg.moment_dtype),
                                     make_mesh(*PROD_MESH, device=self.device))
         self.plan = ShardPlan.from_pspecs(layout.sds, layout.pspecs)
+
+        self._train_step = self._build_train_step()
+        self.history: list[dict[str, float]] = []
+        self.n_recoveries = 0
+        self._in_step = False
+        if mesh is not None and mesh.rank != 0:  # a follower: rank 0 runs the engine
+            self.engine = self.cluster = self.scheduler = self.mlsched = self.injector = self.straggler = None
+            return
 
         # -- cluster + engine + scheduler -------------------------------------
         self._engine_cfg = self._resolve_engine_cfg(tcfg)
@@ -142,7 +191,8 @@ class Trainer:
         self.engine = CheckpointEngine(tcfg.n_virtual_hosts, self._engine_cfg, device=self.device)
         self.cluster.attach_engine(self.engine)
         self.timers.attach_metrics(self.engine.registry)
-        self.engine.register("train_state", ShardedStateEntity(lambda: self.state, self.plan))
+        self.engine.register("train_state", ShardedStateEntity(
+            (lambda: self.state) if mesh is None else (lambda: self.global_state), self.plan))
         self.engine.register("data_pipeline", self.data)
         self.engine.register("timers", self.timers)
 
@@ -156,9 +206,6 @@ class Trainer:
         self.injector = injector or FailureInjector(tcfg.n_virtual_hosts)
         self.straggler = StragglerDetector(tcfg.n_virtual_hosts)
 
-        self._train_step = self._build_train_step()
-        self.history: list[dict[str, float]] = []
-        self.n_recoveries = 0
         self._last_ckpt_step = -(10**9)
         self._pending_ckpt_step = -(10**9)  # step of an overlapped checkpoint not yet committed
         self._seen_flushes = 0
@@ -197,25 +244,109 @@ class Trainer:
         for tier in self.engine.persistent_tiers:
             tier.every = self.mlsched.flush_every(1)
 
+    def state_pspecs(self, mesh: Any) -> dict[str, Any]:
+        """The reference's ``_state_pspecs``: params by ``tree_pspecs``, the
+        AdamW state by ``tree_zero1_pspecs``, ``step`` replicated."""
+        rules = self.model.rules
+        p_specs = self.model.abstract_params
+        opt_specs = abstract_opt_state(p_specs, self.tcfg.moment_dtype)
+        return {
+            "params": tree_pspecs(p_specs, rules, mesh),
+            "opt": {k: tree_zero1_pspecs(opt_specs[k], rules, mesh) for k in ("master", "m", "v")},
+            "step": (),
+        }
+
     # ------------------------------------------------------------------ #
     def _build_train_step(self):
-        model, tcfg = self.model, self.tcfg
+        model, tcfg, ctx = self.model, self.tcfg, self._ctx
         hp = AdamWConfig(lr=tcfg.lr)
         sched = warmup_cosine(tcfg.lr, tcfg.warmup_steps, tcfg.total_steps)
 
         def step_fn(state, batch):
             # grads through aliases of the live params (same storage); the
             # update then writes the live tensors in place
-            paths, live = tree_flatten(state["params"])
-            leaves = [p.detach().requires_grad_() for p in live]
-            loss, metrics = model.loss(tree_unflatten(paths, leaves), batch)
-            # zeros for a leaf the loss does not read (the encoder's embedding)
-            grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
-            stats = adamw_update(tree_unflatten(paths, list(grads)), state["params"], state["opt"],
-                                 state["step"], hp, lr_schedule=sched)
+            loss, metrics, stats = train_step(model, state, batch, hp, sched, ctx)
             return {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}, **stats}
 
         return step_fn
+
+    # -- the process mesh: rank 0's records, gathers and scatters ----------
+    def _step_count(self) -> int:
+        step = self.state["step"]
+        return int(step.to_local() if self.mesh is not None else step)
+
+    def _scalar(self, x: torch.Tensor) -> float:
+        """A step's scalar as a float (on a mesh a collective: every process
+        reads it in the same order)."""
+        return float(x.full_tensor() if self.mesh is not None else x)
+
+    def _tell(self, op: str, **fields: Any) -> None:
+        """Rank 0: broadcast one control record over the mesh's group."""
+        import torch.distributed as dist
+
+        rec = {"op": op, "created": self.engine.stats.created, "recoveries": self.n_recoveries, **fields}
+        dist.broadcast_object_list([rec], src=0, group=self.mesh.group)
+
+    def _hear(self) -> dict:
+        """A follower: the next record from rank 0."""
+        import torch.distributed as dist
+
+        box = [None]
+        dist.broadcast_object_list(box, src=0, group=self.mesh.group)
+        return box[0]
+
+    def _gather(self) -> None:
+        """Every block of the live state into rank 0's ``global_state``."""
+        if self.mesh is None:
+            return
+        if self.mesh.rank == 0:
+            self._tell("gather")
+        gather_state(self.state, self.mesh, self.pspecs, self.global_state)
+
+    def _scatter(self) -> None:
+        """Rank 0's restored ``global_state`` into every process's blocks,
+        and the data pipeline's ``(seed, step)`` with it."""
+        if self.mesh is None:
+            return
+        if self.mesh.rank == 0:
+            self._tell("scatter", data=[self.data.seed, self.data.step])
+        scatter_state(self.state, self.mesh, self.pspecs, self.global_state)
+
+    def _one_step(self, step: int) -> float:
+        """One train step (timed, synchronised); returns its loss and
+        appends it to the history."""
+        self._in_step = True
+        with self.timers("train_step"), _TR.span("train_step", step=step):
+            batch = self.data.next()
+            metrics = self._train_step(self.state, batch)
+            self._sync()
+        step_s = self.timers("train_step").last
+        loss = self._scalar(metrics["loss"])
+        self._in_step = False
+        self.history.append({"step": step, "loss": loss, "step_s": step_s})
+        if self.cfg.has_moe:  # the MoE load-balance loss, mean over the layers
+            self.history[-1]["moe_aux"] = self._scalar(metrics["moe_aux"])
+        return loss
+
+    def _follow(self) -> list[dict[str, float]]:
+        """A follower's ``run``: rank 0's records, until the end of its run."""
+        while True:
+            rec = self._hear()
+            self.n_recoveries = rec["recoveries"]
+            if rec["op"] == "step":
+                self.data.seed, self.data.step = rec["data"]
+                self._one_step(rec["step"])
+            elif rec["op"] == "gather":
+                self._gather()
+            elif rec["op"] == "scatter":
+                self._scatter()
+                self.data.seed, self.data.step = rec["data"]
+            elif rec["op"] == "end":
+                if rec.get("error"):
+                    raise RuntimeError(f"mesh rank 0 stopped the run: {rec['error']}")
+                return self.history
+            else:
+                raise ValueError(f"unknown control record {rec}")
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -225,8 +356,22 @@ class Trainer:
     # Algorithm 3
     # ------------------------------------------------------------------ #
     def run(self, num_steps: int) -> list[dict[str, float]]:
+        if self.mesh is None:
+            return self._run(num_steps)
+        if self.mesh.rank != 0:
+            return self._follow()
+        try:
+            hist = self._run(num_steps)
+        except BaseException as exc:
+            if not self._in_step:  # inside a step every process raised alike
+                self._tell("end", error=f"{type(exc).__name__}: {exc}")
+            raise
+        self._tell("end")
+        return hist
+
+    def _run(self, num_steps: int) -> list[dict[str, float]]:
         ckpt_count = 0
-        while int(self.state["step"]) < num_steps:
+        while self._step_count() < num_steps:
             try:
                 self.cluster.barrier("step")
 
@@ -244,21 +389,17 @@ class Trainer:
 
                 # Fault injection models hosts dying *during* the step; the
                 # fault surfaces at the next barrier (step granularity).
-                step = int(self.state["step"])
-                for r in self.injector.kills_at_step(step):
+                step = self._step_count()
+                kills = self.injector.kills_at_step(step)
+                for r in kills:
                     self.cluster.kill(r)
                 self.cluster.barrier("step")
 
-                with self.timers("train_step"), _TR.span("train_step", step=step):
-                    batch = self.data.next()
-                    metrics = self._train_step(self.state, batch)
-                    self._sync()
-                step_s = self.timers("train_step").last
+                if self.mesh is not None:
+                    self._tell("step", step=step, data=[self.data.seed, self.data.step], kills=list(kills))
+                loss = self._one_step(step)
+                step_s = self.history[-1]["step_s"]
                 self.scheduler.record_step_time(self.timers("train_step").mean)
-                loss = float(metrics["loss"])
-                self.history.append({"step": step, "loss": loss, "step_s": step_s})
-                if self.cfg.has_moe:  # the MoE load-balance loss, mean over the layers
-                    self.history[-1]["moe_aux"] = float(metrics["moe_aux"])
                 log.debug(
                     "step", extra={"fields": {
                         "component": "trainer", "step": step, "loss": loss,
@@ -267,7 +408,8 @@ class Trainer:
                     }},
                 )
 
-                if self._checkpoint_due(int(self.state["step"])):
+                if self._checkpoint_due(self._step_count()):
+                    self._gather()
                     kills = self.injector.kills_at_checkpoint(ckpt_count)
                     hook_fired = {"done": False}
 
@@ -282,17 +424,17 @@ class Trainer:
                     if self.tcfg.checkpoint_mode == "async" or self.tcfg.async_checkpoint:
                         # capture now; the drain overlaps the next step
                         with self.timers("checkpoint"):
-                            created = self.engine.checkpoint_async({"step": int(self.state["step"])})
-                        self._pending_ckpt_step = int(self.state["step"])
+                            created = self.engine.checkpoint_async({"step": self._step_count()})
+                        self._pending_ckpt_step = self._step_count()
                         if not created:
                             raise ProcessFaultException(sorted(self.cluster.failed), "checkpoint")
                         continue
                     with self.timers("checkpoint"):
-                        ok = self.engine.checkpoint({"step": int(self.state["step"])})
+                        ok = self.engine.checkpoint({"step": self._step_count()})
                     self.engine._fault_hook = lambda phase: None
                     if not ok:
                         raise ProcessFaultException(sorted(self.cluster.failed), "checkpoint")
-                    self._last_ckpt_step = int(self.state["step"])
+                    self._last_ckpt_step = self._step_count()
                     self.scheduler.record_checkpoint_duration(self.timers("checkpoint").mean)
                     # a due disk rung flushes in the background, after the
                     # pointer swap; here only the kick and the cadence retune
@@ -325,6 +467,7 @@ class Trainer:
                 self.cluster.restart_all()
                 meta = self.engine.restore()
                 self.n_recoveries += 1
+                self._scatter()
                 log.info("recovered from the tier ladder to step %s", meta.get("step"))
                 return
             raise RuntimeError(
@@ -340,6 +483,7 @@ class Trainer:
         # Restored entities include the data pipeline + timers + train state;
         # the loop continues from the checkpointed step.
         self.n_recoveries += 1
+        self._scatter()
         log.info(
             "recovered to step %s (policy=%s, codec=%s, load_factor=%.2f, restore %.3fs)",
             meta.get("step"), report.policy, self.engine.codec.name,
@@ -370,20 +514,25 @@ class Trainer:
         re-protect again until a checkpoint commits."""
         meta = self.engine.restore_elastic(n_new)
         self.cluster.resize(n_new)
-        while not self.engine.checkpoint({"step": int(self.state["step"])}):
+        while not self.engine.checkpoint({"step": self._step_count()}):
             survivors = len(self.cluster.alive())
             if survivors < 1:
                 raise RuntimeError("all ranks died while re-protecting the elastic world")
             log.warning("re-protect checkpoint failed; shrinking to %d survivors", survivors)
             self._swap_engine(survivors)
             self.cluster.resize(survivors)  # clears the revoked flag too
-        self._last_ckpt_step = int(self.state["step"])
+        self._last_ckpt_step = self._step_count()
         return meta
+
+    def _no_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(f"Trainer.{what} outside run() on a ProcessMesh (ROADMAP A15)")
 
     def restore_elastic(self, n_new: int) -> dict[str, Any]:
         """Elastic transition to ``n_new`` ranks from the last checkpoint —
         shrink (fewer hosts, no spares needed) or grow (scale-up). The merged
         global state is bit-identical; only the shard topology changes."""
+        self._no_mesh("restore_elastic")
         return self._elastic_recover(n_new)
 
     def cold_restart(self) -> dict[str, Any]:
@@ -393,6 +542,7 @@ class Trainer:
         bitwise, the data pipeline's state included. When the stored world
         size N differs from this job's ``n_virtual_hosts`` M, the checkpoint
         is repartitioned N to M through ``restore_elastic``."""
+        self._no_mesh("cold_restart")
         eng = self.engine
         if not eng.has_tier_data():
             raise RuntimeError("cold restart requested but no tier holds data")
@@ -436,10 +586,11 @@ class Trainer:
         """Elastic scale-up (paper §5.2.4): expand the failure-domain world to
         ``n_new`` ranks and immediately checkpoint so the new ranks hold their
         re-balanced shards + backups."""
+        self._no_mesh("regrow")
         if n_new < self.engine.n_ranks:
             raise ValueError(f"regrow to {n_new} < {self.engine.n_ranks} ranks")
         self._swap_engine(n_new)
-        ok = self.engine.checkpoint({"step": int(self.state["step"])})
+        ok = self.engine.checkpoint({"step": self._step_count()})
         if ok:
-            self._last_ckpt_step = int(self.state["step"])
+            self._last_ckpt_step = self._step_count()
         log.info("regrown to %d ranks (checkpoint %s)", n_new, "ok" if ok else "failed")

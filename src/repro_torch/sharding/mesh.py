@@ -10,7 +10,10 @@ moves buffers with ``shard_map`` collectives. The port has two meshes:
 * :class:`ProcessMesh` is one process per mesh coordinate over a
   ``torch.distributed`` group (the counterpart of a ``Mesh`` over real
   devices): each process holds its own shards and runs the per-device body,
-  and the collectives go over the group (``core/transport.py``).
+  and the collectives go over the group (``core/transport.py``). Its
+  ``device_mesh`` is a DTensor ``DeviceMesh`` over the same processes in the
+  same axis order, on which a spec becomes DTensor placements
+  (:func:`placements`): the sharded train step's layout.
 
 A ``PartitionSpec`` becomes a tuple with one entry per dim: ``None``, an
 axis name, or a tuple of axis names. ``topology_of_mesh`` reads a
@@ -93,7 +96,11 @@ class ProcessMesh:
     proper, non-empty set of axes (a tuple in mesh order) to the group of
     the processes that share this one's coordinates on every other axis;
     the whole axis set is ``group`` itself. ``backend`` is the one the
-    caller named (``"gloo"`` or ``"nccl"``); the transport uses no other."""
+    caller named (``"gloo"`` or ``"nccl"``); the transport uses no other.
+    ``device_mesh`` is the DTensor ``DeviceMesh`` over the same ranks (row
+    major, the same axis names) and ``staged_group`` a group of every rank
+    on the staged backend (``core/transport.py``) when the backend is gloo;
+    ``launch/mesh.py::init_process_mesh`` builds both."""
 
     axes: tuple[tuple[str, int], ...]
     rank: int
@@ -101,6 +108,8 @@ class ProcessMesh:
     backend: str
     group: Any = None
     subgroups: dict = field(default_factory=dict)
+    device_mesh: Any = None
+    staged_group: Any = None
 
     @property
     def shape(self) -> dict[str, int]:
@@ -146,6 +155,63 @@ class ProcessMesh:
         from repro_torch.core.transport import Transport
 
         return Transport(self)
+
+
+def placements(spec: Spec, mesh: Any) -> tuple:
+    """A spec as DTensor placements on ``mesh``'s axes (one per axis, mesh
+    order): ``Shard(dim)`` on each axis a dim is sharded over, ``Replicate``
+    elsewhere. A dim over several axes is split over them in mesh order,
+    the first major, which is JAX's order for a spec entry that names its
+    axes in mesh order (as the rules' entries do); another order raises."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = mesh.axis_names
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        idx = [names.index(a) for a in axes_of(entry)]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry!r} names its axes out of the mesh's order {names}")
+        for i in idx:
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+def block_slices(shape: tuple[int, ...], spec: Spec, axes: tuple[tuple[str, int], ...], rank: int) -> tuple:
+    """The slices of a global array of ``shape`` that the process at flat
+    ``rank`` of a mesh with ``axes`` holds under ``spec`` (what
+    ``NamedSharding.devices_indices_map`` gives a device of a mesh over
+    devices in row-major order). Every sharded dim must divide evenly."""
+    names = [a for a, _ in axes]
+    sizes = dict(axes)
+    coords = coords_of(axes, rank)
+    out = []
+    for dim, n in enumerate(shape):
+        entry = spec[dim] if dim < len(spec) else None
+        lo, hi = 0, n
+        for a in sorted(axes_of(entry), key=names.index):
+            if (hi - lo) % sizes[a]:
+                raise ValueError(f"dim {dim} of {shape} does not divide over {a!r}")
+            step = (hi - lo) // sizes[a]
+            lo, hi = lo + coords[a] * step, lo + (coords[a] + 1) * step
+        out.append(slice(lo, hi))
+    return tuple(out)
+
+
+def local_block(x: torch.Tensor, spec: Spec, mesh: Any) -> torch.Tensor:
+    """This process's block of the global tensor ``x`` under ``spec`` (a
+    view)."""
+    return x[block_slices(tuple(x.shape), spec, mesh.axes, mesh.rank)]
+
+
+def distribute(x: torch.Tensor, spec: Spec, mesh: Any) -> Any:
+    """A DTensor over ``mesh.device_mesh`` from the global tensor ``x``,
+    which every process holds alike: each keeps its own block (a copy on
+    the mesh's device), with no communication."""
+    from torch.distributed.tensor import DTensor
+
+    local = local_block(x, spec, mesh).to(mesh.device, copy=True).contiguous()
+    return DTensor.from_local(local, mesh.device_mesh, placements(spec, mesh), run_check=False,
+                              shape=x.shape, stride=torch.empty(x.shape, device="meta").stride())
 
 
 def coords_of(axes: tuple[tuple[str, int], ...], rank: int) -> dict[str, int]:

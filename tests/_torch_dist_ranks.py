@@ -10,6 +10,7 @@ data: a tensor as ``(dtype name, shape, bytes)``.
 from __future__ import annotations
 
 import itertools
+import math
 import sys
 
 import numpy as np
@@ -225,3 +226,113 @@ def failing_rank(rank, world, init_method) -> None:
     if rank == 1:
         raise ValueError("rank 1 fails on purpose")
     tdist.barrier()
+
+
+# ---------------------------------------------------------------------------
+# the sharded Trainer (tests/test_torch_trainer_mesh.py)
+# ---------------------------------------------------------------------------
+
+def _gathered(t, mesh):
+    """The trainer's live state gathered to rank 0, as numpy (None
+    elsewhere)."""
+    from repro_torch.launch.steps import state_to_numpy
+    from repro_torch.runtime.state import gather_state
+
+    gather_state(t.state, mesh, t.pspecs, t.global_state)
+    return state_to_numpy(t.global_state) if mesh.rank == 0 else None
+
+
+def _man_json(man) -> dict:
+    """``_torch_jax_oracle.man_json`` (that module imports jax)."""
+    if isinstance(man, tuple):
+        return {"tag": man[0], **_man_json(man[1])}
+    coords = None if man.coords is None else [[list(c.global_shape), c.axis, c.start, c.stop] for c in man.coords]
+    return {"names": list(man.names), "shapes": [list(x) for x in man.shapes], "dtypes": list(man.dtypes),
+            "offsets": list(man.offsets), "total": int(man.total), "coords": coords}
+
+
+def committed_manifests(eng) -> dict:
+    """Each committed store's own and replicated manifests and step, as
+    ``_torch_jax_oracle.dump_engine`` gives them."""
+    out = {}
+    for r, st in sorted(eng.stores.items()):
+        ro = st.buffer.read_only
+        if ro is None:
+            continue
+        out[str(r)] = {"own": {name: _man_json(man) for name, (_, man) in sorted(ro.own.items())},
+                       "manifests": sorted([o, n, _man_json(m)] for (o, n), m in ro.meta["manifests"].items()),
+                       "step": ro.meta.get("step")}
+    return out
+
+
+def _mesh_trainer_run(mesh, cfg, case: dict, steps: int, kills: dict | None) -> dict:
+    from repro_torch.models import build_model
+    from repro_torch.runtime.failures import FailureInjector
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    inj = FailureInjector(4, schedule=kills) if kills else None
+    t = Trainer(build_model(cfg), TrainerConfig(**case), injector=inj, mesh=mesh)
+    hist = t.run(steps)
+    out = {"history": [[h["step"], h["loss"]] for h in hist], "n_recoveries": t.n_recoveries,
+           "final": _gathered(t, mesh)}
+    if mesh.rank == 0:
+        out.update(created=t.engine.stats.created, aborted=t.engine.stats.aborted,
+                   manifests=committed_manifests(t.engine))
+    return out
+
+
+def _placement_blocks(mesh, placement_cases) -> list:
+    """Each placement case on this mesh's shape: this process's block of an
+    arange laid out by ``distribute``, its placements and ``placements``'."""
+    from repro_torch.sharding.mesh import distribute, placements
+
+    out = []
+    for sizes, names, shape, spec in placement_cases:
+        if tuple(sizes) != tuple(s for _, s in mesh.axes) or tuple(names) != mesh.axis_names:
+            continue
+        x = distribute(torch.arange(math.prod(shape), dtype=torch.float32).reshape(shape), spec, mesh)
+        out.append((x.to_local().numpy(), [str(p) for p in x.placements], [str(p) for p in placements(spec, mesh)]))
+    return out
+
+
+def _raises_a15(mesh, cfg, case: dict) -> str:
+    """A Trainer(mesh=) step of ``cfg``: the NotImplementedError's words,
+    or "ran"."""
+    try:
+        _mesh_trainer_run(mesh, cfg, case, 1, None)
+    except NotImplementedError as exc:
+        return str(exc)
+    return "ran"
+
+
+def trainer_mesh_rank(rank, world, init_method, rdv_dir, c) -> dict:
+    """Every case of the sharded Trainer's tests on one process of the mesh
+    ``c["mesh"]``, each case over its own rendezvous under ``rdv_dir``;
+    ``c`` holds the oracle's constants (this process imports no jax)."""
+    import os
+
+    import torch.distributed as tdist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_process_mesh
+
+    llama = get_config("llama3.2-1b").reduced()
+    case, steps, kills = c["case"], c["steps"], c["kills"]
+    cases = {
+        "placements": lambda m: _placement_blocks(m, c["placement_cases"]),
+        "faulty": lambda m: _mesh_trainer_run(m, llama, case, steps, kills),
+        "clean": lambda m: _mesh_trainer_run(m, llama, case, steps, None),
+        "fsdp": lambda m: _mesh_trainer_run(m, llama.with_(sharding_preset="fsdp"), case, c["fsdp_steps"], None),
+        "mixtral": lambda m: _raises_a15(m, get_config("mixtral-8x7b").reduced(), case),
+        "mamba2": lambda m: _raises_a15(m, get_config("mamba2-780m").reduced(), case),
+    }
+    out = {}
+    for name, run in cases.items():
+        mesh = init_process_mesh(*c["mesh"], "gloo", rank=rank, world_size=world, device="cpu",
+                                 init_method="file://" + os.path.join(rdv_dir, name))
+        try:
+            out[name] = run(mesh)
+        finally:
+            tdist.destroy_process_group()
+    out["modules"] = loaded_reference_modules()
+    return out

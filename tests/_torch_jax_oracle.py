@@ -13,7 +13,9 @@ drain's and the pipelined restore's cases (``async_cases``); ``... psum OUT.npz`
 ``compressed_psum`` under ``shard_map`` over 4 devices (``psum_inputs``); ``... dryrun OUT.npz``
 (with 512 devices) what the reference's dry run records without compiling (``run_dryrun``); ``... trainer_ep
 OUT.npz`` the reference ``Trainer``'s plan and committed stores under expert parallelism
-(``TRAINER_EP_CASE``). The arrays go to the
+(``TRAINER_EP_CASE``); ``... trainer_mesh OUT.npz`` the reference ``Trainer(mesh=)`` on a
+(2, 2) mesh with Auto axes through ``TRAINER_KILLS``, the ``fsdp`` preset's first steps on it,
+and ``NamedSharding`` device maps (``MESH_PLACEMENT_CASES``). The arrays go to the
 ``.npz``, the metadata to ``OUT.npz.json``.
 
 The engine cases' entities (``ShardedVec``, ``Counter``, ``engine_state``),
@@ -1225,6 +1227,68 @@ def run_trainer_ep(out_path: str) -> None:
     _save(out_path, arrays, meta)
 
 
+# The sharded Trainer: the reference's Trainer(mesh=) on (2, 2) ("data",
+# "model"), a jax.sharding.Mesh over devices 0-3 row-major. jax.make_mesh gives
+# Explicit axes in jax 0.9, under which the reference's constrain raises, so
+# the mesh is built over the devices (Auto axes). The fsdp preset takes
+# TRAINER_MESH_FSDP_STEPS steps of TRAINER_CASE with no kill.
+MESH_SHAPE = ((2, 2), ("data", "model"))
+TRAINER_MESH_FSDP_STEPS = 4
+# (mesh sizes, axis names, array shape, spec): the specs the sharded step
+# lays out, multi-axis entries and an uneven mix
+MESH_PLACEMENT_CASES = (
+    ((2, 2), ("data", "model"), (256, 64), (None, "model")),
+    ((2, 2), ("data", "model"), (64, 4, 16), ("data", "model")),
+    ((2, 2), ("data", "model"), (8, 32), ("data",)),
+    ((2, 2), ("data", "model"), (128, 12), (("data", "model"),)),
+    ((2, 2), ("data", "model"), (6, 8, 4), (None, ("data", "model"), None)),
+    ((2, 2), ("data", "model"), (), ()),
+    ((2, 2, 2), ("pod", "data", "model"), (16, 8), (("pod", "data"), "model")),
+    ((2, 2, 2), ("pod", "data", "model"), (8, 24), ("model", ("pod", "data"))),
+    ((2, 2, 2), ("pod", "data", "model"), (32,), (("pod", "data", "model"),)),
+)
+
+
+def reference_mesh(sizes, names):
+    """A ``jax.sharding.Mesh`` over the first devices in row-major order (Auto
+    axes)."""
+    n = int(np.prod(sizes))
+    return jax.sharding.Mesh(np.array(jax.devices()[:n]).reshape(sizes), names)
+
+
+def run_trainer_mesh(out_path: str) -> None:
+    """The reference Trainer(mesh=) through ``TRAINER_KILLS`` (history,
+    recoveries, created/aborted, committed manifests, final state); the
+    fsdp preset's first steps on the same mesh; each placement case's
+    device -> index map."""
+    from repro.configs import get_config
+    from repro.models import build_model
+    from repro.runtime.failures import FailureInjector
+    from repro.runtime.trainer import Trainer, TrainerConfig
+
+    mesh = reference_mesh(*MESH_SHAPE)
+    cfg = get_config("llama3.2-1b").reduced()
+    t = Trainer(build_model(cfg), TrainerConfig(**TRAINER_CASE), mesh=mesh,
+                injector=FailureInjector(4, schedule=TRAINER_KILLS))
+    hist = t.run(TRAINER_STEPS)
+    arrays = {f"final/{k}": v for k, v in _flat_np(jax.device_get(t.state)).items()}
+    _, stores = dump_engine(t.engine, np.asarray)
+    meta = {"history": [[h["step"], h["loss"]] for h in hist], "n_recoveries": t.n_recoveries,
+            "created": t.engine.stats.created, "aborted": t.engine.stats.aborted,
+            "manifests": {r: {"own": d["own"], "manifests": d["manifests"], "step": d["step"]}
+                          for r, d in stores["stores"].items()}}
+    tf = Trainer(build_model(cfg.with_(sharding_preset="fsdp")), TrainerConfig(**TRAINER_CASE), mesh=mesh)
+    meta["fsdp_history"] = [[h["step"], h["loss"]] for h in tf.run(TRAINER_MESH_FSDP_STEPS)]
+    arrays.update({f"fsdp/{k}": v for k, v in _flat_np(jax.device_get(tf.state)).items()})
+    maps = []
+    for sizes, names, shape, spec in MESH_PLACEMENT_CASES:
+        m = reference_mesh(sizes, names)
+        idx = NamedSharding(m, P(*spec)).devices_indices_map(shape)
+        maps.append([[list(sl.indices(n)[:2]) for sl, n in zip(idx[d], shape)] for d in m.devices.reshape(-1)])
+    meta["placements"] = maps
+    _save(out_path, arrays, meta)
+
+
 MOE_ARCHS = ("mixtral-8x7b", "grok-1-314b", "jamba-1.5-large-398b")
 
 
@@ -1314,4 +1378,4 @@ if __name__ == "__main__":
     {"device_tier": run_device_tier, "state": run_state, "engine": run_engine,
      "elastic": run_elastic, "trainer": run_trainer, "async": run_async,
      "trainer_tiers": run_trainer_tiers, "psum": run_psum, "dryrun": run_dryrun,
-     "trainer_ep": run_trainer_ep}[sys.argv[1]](sys.argv[2])
+     "trainer_ep": run_trainer_ep, "trainer_mesh": run_trainer_mesh}[sys.argv[1]](sys.argv[2])

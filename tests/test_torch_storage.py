@@ -355,7 +355,10 @@ def test_flush_commit_protocol_crash_leaves_previous_generation(tmp_path):
         eng._join_flush()
         tier = eng.persistent_tiers[0]
         assert tier.generations() == [1]
-        wreck = os.path.join(tier.path, "gen-0000000099.tmp-12345")
+        # a writer that cannot be alive: Linux pids stay below pid_max, at
+        # most 2**22 (a low pid such as 12345 is reused where pid_max is
+        # 32768, and a live process holding it keeps its wreck, by design)
+        wreck = os.path.join(tier.path, f"gen-0000000099.tmp-{2**22}")
         os.makedirs(wreck)
         with open(os.path.join(wreck, "rank00000.tier"), "wb") as f:
             f.write(b"partial garbage")

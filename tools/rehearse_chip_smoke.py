@@ -9,6 +9,7 @@ CPU, at a small config, in seconds.
     python3 tools/rehearse_chip_smoke.py --phase13  # the phase-field application alone
     python3 tools/rehearse_chip_smoke.py --phase4b  # the device-tier path, then the dry run's accounting of it
     python3 tools/rehearse_chip_smoke.py --phase4c  # the device tier over 8 processes (gloo on the CPU)
+    python3 tools/rehearse_chip_smoke.py --phase7c  # phase 7's sync run, then the sharded Trainer on 4 processes
 
 It runs a copy of ``chip_smoke.py``'s source in which the card is the CPU:
 ``"cuda"`` strings and ``.cuda()`` calls name the CPU, every entry point of
@@ -23,7 +24,8 @@ and every host tensor reports itself pinned (the engine on the CPU leases
 pageable arenas); the profiler traces the CPU only. Phase
 9's tier directories go under a temporary directory, removed at the end;
 where the machine lacks ``os.posix_fadvise`` or ``/proc/mounts``, the page
-cache drop and the filesystem probe are stubbed. Phase 10 serves prompts of
+cache drop and the filesystem probe are stubbed; its process runs this same
+CPU copy. Phase 10 serves prompts of
 64 tokens in a 128-token cache (the runs, kills and checks unchanged), and
 so does phase 11, whose Mamba-2 and mixtral configs shrink to 2 and 1
 layers of d_model 256 (``small_zoo``), and phase 12, whose hubert and VLM
@@ -42,6 +44,7 @@ import os
 import shutil
 import sys
 import tempfile
+import time
 import types
 from dataclasses import replace
 from pathlib import Path
@@ -102,6 +105,15 @@ def small_encoder_vlm():
                   head_dim=64, d_ff=512, vocab_size=1000, vision_tokens=100, frontend_stub_dim=64,
                   attn_chunk=64)
     return enc, vlm
+
+
+def rehearse_tier_body(rank: int, world: int, init_method: str, cfg, tier_root: str) -> dict:
+    """Phase 9's process in the rehearsal: the same CPU copy of
+    ``chip_smoke.py``, its tier directories under the parent's."""
+    mod = load_chip_smoke(cfg)
+    shutil.rmtree(mod.TIER_ROOT, ignore_errors=True)
+    mod.TIER_ROOT = Path(tier_root)
+    return mod.tier_body(rank, world, init_method, cfg)
 
 
 def load_chip_smoke(cfg) -> types.ModuleType:
@@ -165,6 +177,15 @@ def load_chip_smoke(cfg) -> types.ModuleType:
     mod.encoder_vlm_configs = small_encoder_vlm
     mod.PSUM_BACKEND = "gloo"
     mod.TIER_ROOT = Path(tempfile.mkdtemp(prefix="rehearse-tiers-"))
+
+    def start_tier(cfg):  # phase 9's process runs this copy too, not the real module
+        from repro_torch.launch.mesh import RankGroup
+
+        group = RankGroup(rehearse_tier_body, 1, args=(cfg, str(mod.TIER_ROOT)))
+        group.started = time.time()
+        return group
+
+    mod.start_tier = start_tier
     # at this width a rank's exchange bytes span two chunks of the default
     # 1 MiB dirty map: both layers and a 4 KiB grid keep phase 9's rewrite
     # of layer 0 under the crossover, so its creates take the patch path
@@ -175,8 +196,10 @@ def load_chip_smoke(cfg) -> types.ModuleType:
     mod.SERVE = {**mod.SERVE, "max_seq": 128}
     mod.SERVE_PROMPT = 64
     mod.PF_SHAPE = (256, 256)  # 8 hosts of 32 rows
-    # phase 4c's processes run the kernels' plain versions, which count nothing
+    # phase 4c's and 7c's processes run the kernels' plain versions, which
+    # count nothing
     mod.RANK_KERNELS = ()
+    mod.MESH7C_KERNELS = ()
     mod.PHASE4_LAYERS = cfg.num_layers
     if not hasattr(os, "posix_fadvise"):
         mod.drop_cached = lambda root: False
@@ -195,11 +218,14 @@ def main() -> int:
     ap.add_argument("--phase4b", action="store_true",
                     help="run the device-tier path (phase 4) and the dry run's accounting of it alone")
     ap.add_argument("--phase4c", action="store_true", help="run the device tier over processes alone")
+    ap.add_argument("--phase7c", action="store_true",
+                    help="run phase 7's sync run and the sharded Trainer over processes alone")
     args = ap.parse_args()
     torch.set_num_threads(4)
     cfg = small_config()
     mod = load_chip_smoke(cfg)
-    if not (args.phase7 or args.phase11 or args.phase12 or args.phase13 or args.phase4b or args.phase4c):
+    if not (args.phase7 or args.phase11 or args.phase12 or args.phase13 or args.phase4b or args.phase4c
+            or args.phase7c):
         try:
             return mod.main()
         finally:
@@ -222,6 +248,17 @@ def main() -> int:
         return 0
     if args.phase4c:
         counts, runs = mod.rank_path(cfg, mod.start_ranks(cfg))
+        print(json.dumps(runs))
+        return 0
+    if args.phase7c:
+        one = replace(cfg, num_layers=mod.TRAIN_LAYERS)
+        group = mod.start_mesh_trainer(one)
+        try:
+            mod.feed_mesh_trainer(group)
+            run, _ = mod.trainer_path(one, "sync")
+            counts, runs = mod.mesh_trainer_path(group, run["loss"], {"phase 7 (sync)": time.time()})
+        finally:
+            group.stop()
         print(json.dumps(runs))
         return 0
     if args.phase13:
