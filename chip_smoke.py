@@ -142,14 +142,25 @@ printing no result, on any failure or without a card. Phases:
    ``TRAIN_STEPS`` through host 2's kill at step 5, rank 0's engine rs 4+2
    over 8 virtual hosts, under deterministic algorithms. Its processes start,
    take a warm-up step on a copy of their state and run beside phases 7 and
-   5; the script waits for them after phase 5. Prints the phase's seconds
-   (from the feed to the last process's end) and the phases it ran beside,
-   each process's step times, card peak and staged traffic, and rank 0's
-   create and restore times; fails unless every loss is finite and the same on every process,
-   there is one recovery, the replayed losses are bit-equal to the first
-   pass, each process's blocks right after the restore are byte-equal to its
-   blocks at the step-3 checkpoint, the losses before the kill are within
-   rtol 1e-4 of phase 7's sync run, and B4 launched in rank 0's restore;
+   5. After phase 5 the same processes get two more runs, beside phases 8
+   and 8b, and the script waits for them after phase 8b: (a) phase 11's
+   Mamba-2 trainer traffic (mamba2-780m at ``ZOO_SSM_LAYERS``, batch 4 x
+   512) on the mesh under ``EngineConfig()`` over 4 hosts with no spare and
+   ``recovery_policy="elastic"``, host 2 killed at step 5: rank 0's
+   ``restore_elastic(3)`` on B6, then the re-protect create; (b) two train
+   steps (``launch/steps.py::train_step``) of phase 11's mixtral layer
+   (3.43 GB of bf16 params, computed in f32) on the mesh under the tp
+   rules, batch 8 x 128, then the same two steps on one process. Prints
+   each run's seconds (from the feed to the last process's end) and the
+   phases it ran beside, each process's step times, card peak and staged
+   traffic, and rank 0's create and restore times; fails unless every loss is finite and the same on
+   every process, each killed run has one recovery, its replayed losses are
+   bit-equal to the first pass and each process's blocks right after the
+   restore are byte-equal to its blocks at the step-3 checkpoint, the
+   llama run's losses before the kill are within rtol 1e-4 of phase 7's
+   sync run and (a)'s of phase 11's one-card run (checked after phase 11),
+   B4 launched in the llama run's restore and B6 in (a)'s, (a)'s engine
+   ends on 3 ranks, and (b)'s losses are within rtol 1e-4 of one process's;
 8. striped host codecs: the GF(2^8) backend probe's rates (run once, after
    phase 3, for every backend: ``table``, ``swar``, and ``torch`` on the
    card), then the seeded state of phase 5's depth over 8 ranks through two
@@ -301,7 +312,7 @@ with a seeded permutation of its rows; each pair in alternating order over
 ``B6_AB_ROUNDS`` rounds (medians and spreads); then the leaf's whole
 reshard in place against the stack and gather that preceded it.
 
-Phase 7 runs right after phase 3 (beside phase 7c), then phases 5, (7c's wait), 8, 8b, 6 (beside
+Phase 7 runs right after phase 3 (beside phase 7c), then phases 5, 8, 8b, (7c's wait), 6 (beside
 phase 9), 10, 11, 12, 13, (9's wait), 4, 4b and 4c: 7, 5, 8, 8b and 9 need the most host RAM (8
 and 8b too much to run beside 9), and phase 4's staged fetches leave pinned host blocks in
 PyTorch's cache. The kernels' launch counts are set to 0 before each of the paths and read after
@@ -3228,6 +3239,64 @@ MESH7C_HOSTS = 8
 MESH7C_TRAIN = {**TRAIN, "n_virtual_hosts": MESH7C_HOSTS}
 MESH7C_ENGINE = dict(codec="rs", parity_group=4, rs_parity=2, gf_backend="torch")
 MESH7C_KERNELS = ("gf256_matmul_dyn",)
+# then, on the same processes (a second feed, after phase 5): (a) phase 11's
+# Mamba-2 trainer traffic (batch 4 x 512) on the mesh under the default
+# engine over 4 hosts with no spare, so the kill at step 5 is an elastic
+# 4 -> 3 recovery (B6 in rank 0's restore_elastic, then the re-protect
+# create); (b) MESH7C_MOE_STEPS train steps of phase 11's mixtral layer
+# (3.43 GB of bf16 params, about 24 GB of train state; f32 compute) on the
+# mesh under the tp rules, then the same steps on one process (rank 0), one
+# after the other
+MESH7C_SSM_HOSTS = dict(n_virtual_hosts=ENGINE_RANKS, n_spares=0, recovery_policy="elastic")  # over ZOO_TRAIN
+MESH7C_SSM_KERNELS = ("gather_rows",)
+MESH7C_MOE_BATCH, MESH7C_MOE_SEQ, MESH7C_MOE_STEPS = 8, 128, 2
+
+
+def checked_trainer(on_card: bool):
+    """The Trainer class of phase 7c's runs: it holds this process's blocks
+    right after each restore's scatter against ``kept``, its blocks at the
+    step-3 checkpoint (``restored``: the step, the equal leaves, the
+    leaves), and records rank 0's committed creates (``creates``)."""
+    import torch
+
+    from repro_torch.runtime.trainer import Trainer
+    from repro_torch.utils.pytree import tree_flatten
+
+    class CheckedTrainer(Trainer):
+        kept: list | None = None
+        restored: list | None = None
+
+        def _scatter(self, policy: str | None = None) -> None:
+            super()._scatter(policy)
+            if self.kept is not None:
+                if on_card:
+                    torch.cuda.synchronize()
+                now = [x.to_local() for x in tree_flatten(self.state)[1]]
+                self.restored = [self._step_count(), sum(torch.equal(_int_view(a), _int_view(b))
+                                                          for a, b in zip(now, self.kept)), len(now)]
+
+        def record_creates(self) -> list:
+            creates = []
+            finalize = self.engine.finalize_async
+
+            def finalize_and_record():
+                ok = finalize()
+                if ok:
+                    creates.append(dict(step=int(self.engine.checkpoint_step()["step"]),
+                                        **create_line(self.engine.stats)))
+                return ok
+
+            self.engine.finalize_async = finalize_and_record
+            return creates
+
+        def checked_run(self) -> list:
+            """TRAIN_PERIOD steps, this process's blocks kept, then to
+            TRAIN_STEPS."""
+            self.run(TRAIN_PERIOD)
+            self.kept = [x.to_local().clone() for x in tree_flatten(self.state)[1]]
+            return self.run(TRAIN_STEPS)
+
+    return CheckedTrainer
 
 
 def mesh_trainer_body(rank: int, world: int, init_method: str, device: str, cfg, receive) -> dict:
@@ -3239,7 +3308,11 @@ def mesh_trainer_body(rank: int, world: int, init_method: str, device: str, cfg,
     TRAIN_PERIOD steps, keep this process's blocks, and run to TRAIN_STEPS.
     Each process checks its blocks right after the restore against the kept
     ones. Returns the history, the check, rank 0's creates and restore, the
-    launch counts, step times, card peak and the staged backend's traffic."""
+    launch counts, step times, card peak and the staged backend's traffic;
+    with the second feed's configs, (a) under "ssm" (``mesh_ssm_run``) and
+    (b) under "moe" (``mesh_moe_steps``)."""
+    import gc
+
     import torch
 
     from repro_torch.core.checkpoint import EngineConfig
@@ -3248,8 +3321,8 @@ def mesh_trainer_body(rank: int, world: int, init_method: str, device: str, cfg,
     from repro_torch.launch.mesh import init_process_mesh
     from repro_torch.models import build_model
     from repro_torch.runtime.failures import FailureInjector
-    from repro_torch.runtime.trainer import Trainer, TrainerConfig
-    from repro_torch.utils.pytree import tree_flatten, tree_map
+    from repro_torch.runtime.trainer import TrainerConfig
+    from repro_torch.utils.pytree import tree_map
 
     entered = time.time()
     on_card = device != "cpu"
@@ -3258,26 +3331,10 @@ def mesh_trainer_body(rank: int, world: int, init_method: str, device: str, cfg,
     torch.use_deterministic_algorithms(True)
     torch.utils.deterministic.fill_uninitialized_memory = False
 
-    class CheckedTrainer(Trainer):
-        """Holds this process's blocks right after the restore's scatter
-        against ``kept``, its blocks at the step-3 checkpoint."""
-
-        kept: list | None = None
-        restored: list | None = None
-
-        def _scatter(self) -> None:
-            super()._scatter()
-            if self.kept is not None:
-                if on_card:
-                    torch.cuda.synchronize()
-                now = [x.to_local() for x in tree_flatten(self.state)[1]]
-                self.restored = [self._step_count(), sum(torch.equal(_int_view(a), _int_view(b))
-                                                          for a, b in zip(now, self.kept)), len(now)]
-
     tcfg = TrainerConfig(total_steps=TRAIN_STEPS, engine=EngineConfig(**MESH7C_ENGINE), **MESH7C_TRAIN)
     t0 = time.perf_counter()
-    trainer = CheckedTrainer(build_model(cfg), tcfg, injector=FailureInjector(MESH7C_HOSTS, schedule=TRAIN_KILLS),
-                             mesh=mesh)
+    trainer = checked_trainer(on_card)(build_model(cfg), tcfg,
+                                       injector=FailureInjector(MESH7C_HOSTS, schedule=TRAIN_KILLS), mesh=mesh)
     setup_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     spare = tree_map(lambda x: x.clone(), trainer.state)  # the warm-up step's copy of the state
@@ -3289,26 +3346,13 @@ def mesh_trainer_body(rank: int, world: int, init_method: str, device: str, cfg,
     initialised = time.time()
     receive()
     ready = time.time()
-    creates = []
-    if rank == 0:
-        finalize = trainer.engine.finalize_async
-
-        def finalize_and_record():
-            ok = finalize()
-            if ok:
-                creates.append(dict(step=int(trainer.engine.checkpoint_step()["step"]),
-                                    **create_line(trainer.engine.stats)))
-            return ok
-
-        trainer.engine.finalize_async = finalize_and_record
+    creates = trainer.record_creates() if rank == 0 else []
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     staged_traffic(mesh, reset=True)
     ops.reset_launch_counts()  # the main path's counts start here
     t0 = time.perf_counter()
-    trainer.run(TRAIN_PERIOD)
-    trainer.kept = [x.to_local().clone() for x in tree_flatten(trainer.state)[1]]
-    hist = trainer.run(TRAIN_STEPS)
+    hist = trainer.checked_run()
     if on_card:
         torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
@@ -3322,6 +3366,146 @@ def mesh_trainer_body(rank: int, world: int, init_method: str, device: str, cfg,
         s = trainer.engine.stats
         out.update(creates=creates, created=s.created, aborted=s.aborted, restore=restore_line(s))
         trainer.engine.close()
+    del trainer
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    ssm_cfg, moe_cfg = receive()
+    out["ssm"] = mesh_ssm_run(mesh, ssm_cfg, on_card)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    out["moe"] = mesh_moe_steps(mesh, moe_cfg, on_card)
+    return out
+
+
+def mesh_ssm_run(mesh, cfg, on_card: bool) -> dict:
+    """(a): the Trainer on the Mamba-2 config on the mesh, on phase 11's
+    ZOO_TRAIN over MESH7C_SSM_HOSTS, through an elastic recovery; the same history, checks and
+    numbers as the first run's, and rank 0's engine's rank count at the
+    end."""
+    import torch
+
+    from repro_torch.core.checkpoint import EngineConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.runtime.failures import FailureInjector
+    from repro_torch.runtime.trainer import TrainerConfig
+
+    started = time.time()
+    tcfg = TrainerConfig(total_steps=TRAIN_STEPS, engine=EngineConfig(), **{**ZOO_TRAIN, **MESH7C_SSM_HOSTS})
+    t0 = time.perf_counter()
+    trainer = checked_trainer(on_card)(build_model(cfg), tcfg,
+                                       injector=FailureInjector(ENGINE_RANKS, schedule=TRAIN_KILLS), mesh=mesh)
+    setup_s = time.perf_counter() - t0
+    creates = trainer.record_creates() if mesh.rank == 0 else []
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()  # (a)'s counts start here
+    t0 = time.perf_counter()
+    hist = trainer.checked_run()
+    if on_card:
+        torch.cuda.synchronize()
+    out = dict(steps=[h["step"] for h in hist], loss=[h["loss"] for h in hist], step_s=[h["step_s"] for h in hist],
+               n_recoveries=trainer.n_recoveries, restored=trainer.restored, launches=ops.launch_counts(),
+               setup_s=setup_s, run_s=time.perf_counter() - t0, started=started, done=time.time(),
+               peak_device_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0)
+    if mesh.rank == 0:
+        s = trainer.engine.stats
+        out.update(creates=creates, n_ranks=trainer.engine.n_ranks, restore=restore_line(s))
+        trainer.engine.close()
+    return out
+
+
+def mesh_moe_steps(mesh, cfg, on_card: bool, compute: str = "float32") -> dict:
+    """(b): MESH7C_MOE_STEPS of ``launch/steps.py::train_step`` on the mixtral
+    config (its bf16 params, f32 compute) on the mesh (each process makes its
+    blocks leaf by leaf from the seed: the whole state would be 24 GB a
+    process), then, the mesh's state
+    freed, the same steps on rank 0 alone from the same seed and batches.
+    Returns the losses and step times of both (rank 0's one-process run
+    under "one") and each process's card peak."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.synthetic import SyntheticDataPipeline
+    from repro_torch.launch.steps import train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.common import ShardCtx
+    from repro_torch.optim.adamw import AdamWConfig, abstract_opt_state, init_opt_state
+    from repro_torch.optim.schedule import warmup_cosine
+    from repro_torch.sharding.axes import tree_pspecs, tree_zero1_pspecs
+    from repro_torch.sharding.mesh import distribute
+    from repro_torch.utils import threefry
+    from repro_torch.utils.pytree import tree_flatten, tree_unflatten
+
+    started = time.time()
+    # bf16 params, f32 compute: in bf16 two right step-0 gradients of this
+    # layer, sharded and not, part by a few percent and in some signs, and
+    # AdamW's first update, nearly a sign step, then parts the second loss
+    # by more than 1e-4 (tools/moe_mesh_probe.py; PERF.md, PR 30)
+    cfg = replace(cfg, compute_dtype=getattr(torch, compute))
+    model = build_model(cfg)
+    hp, sched = AdamWConfig(lr=TRAIN["lr"]), warmup_cosine(TRAIN["lr"], TRAIN["warmup_steps"], TRAIN_STEPS)
+
+    def steps(state, pipe, ctx) -> tuple[list, list]:
+        losses, times = [], []
+        for _ in range(MESH7C_MOE_STEPS):
+            t0 = time.perf_counter()
+            loss = train_step(model, state, pipe.next(), hp, sched, ctx)[0].detach()
+            losses.append(float(loss.full_tensor() if ctx is not None else loss))
+            if on_card:
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return losses, times
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(threefry.PRNGKey(SEED), mesh.device)
+    paths, leaves = tree_flatten(params)
+    del params
+    p_specs = model.abstract_params
+    ps = tree_flatten(tree_pspecs(p_specs, model.rules, mesh))[1]
+    zs = tree_flatten(tree_zero1_pspecs(abstract_opt_state(p_specs)["master"], model.rules, mesh))[1]
+    blocks, master = [], []
+    for i in range(len(leaves)):  # leaf by leaf, each whole leaf freed once its blocks are made
+        x, leaves[i] = leaves[i], None
+        blocks.append(distribute(x, ps[i], mesh))
+        master.append(distribute(x.to(torch.float32), zs[i], mesh))
+        del x
+    state = {"params": tree_unflatten(paths, blocks),
+             "opt": {"master": tree_unflatten(paths, master),
+                     "m": tree_unflatten(paths, [torch.zeros_like(x) for x in master]),
+                     "v": tree_unflatten(paths, [torch.zeros_like(x) for x in master])},
+             "step": distribute(torch.zeros((), dtype=torch.int32, device=mesh.device), (), mesh)}
+    del blocks, master
+    setup_s = time.perf_counter() - t0
+    pipe = SyntheticDataPipeline(cfg, MESH7C_MOE_BATCH, MESH7C_MOE_SEQ, SEED, mesh=mesh, rules=model.rules)
+    loss, step_s = steps(state, pipe, ShardCtx(mesh, model.rules))
+    out = dict(loss=loss, step_s=step_s, setup_s=setup_s, started=started,
+               peak_device_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0)
+    del state
+    if on_card:
+        torch.cuda.empty_cache()
+    dist.barrier(group=mesh.group)  # every process's share freed before the one-process run
+    out["mesh_done"] = time.time()
+    if mesh.rank == 0:
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        params = model.init(threefry.PRNGKey(SEED), mesh.device)
+        state = {"params": params, "opt": init_opt_state(params),
+                 "step": torch.zeros((), dtype=torch.int32, device=mesh.device)}
+        del params
+        loss, step_s = steps(state, SyntheticDataPipeline(cfg, MESH7C_MOE_BATCH, MESH7C_MOE_SEQ, SEED,
+                                                          device=mesh.device), None)
+        out["one"] = dict(loss=loss, step_s=step_s,
+                          peak_device_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0)
+        del state
+        if on_card:
+            torch.cuda.empty_cache()
+    dist.barrier(group=mesh.group)
+    out["done"] = time.time()
     return out
 
 
@@ -3346,6 +3530,13 @@ def feed_mesh_trainer(group) -> None:
     group.fed = time.time()
 
 
+def feed_mesh_zoo(group, ssm_cfg, moe_cfg) -> None:
+    """Let phase 7c's processes run (a) and (b) once their first run is
+    done."""
+    group.feed([(ssm_cfg, moe_cfg)] * group.world_size)
+    group.fed_zoo = time.time()
+
+
 def mesh_trainer_path(group, sync_loss: list, phase_ends: dict) -> tuple[dict, dict]:
     """Phase 7c: the processes of ``start_mesh_trainer`` run the Trainer on
     the (2, 2) mesh. Checks every loss finite, one recovery, the replayed
@@ -3353,10 +3544,15 @@ def mesh_trainer_path(group, sync_loss: list, phase_ends: dict) -> tuple[dict, d
     right after the restore byte-equal to its blocks at the step-3
     checkpoint, the same history on every process, the losses before the
     kill within rtol 1e-4 of phase 7's sync run (``sync_loss``: the same
-    model, seed and TRAIN, on one card), and B4 launched in rank 0's engine.
+    model, seed and TRAIN, on one card), and B4 launched in rank 0's engine;
+    then (a) and (b) (``feed_mesh_zoo``): (a) the same checks but the last
+    (its losses against phase 11's one-card run: ``check_mesh_ssm_losses``),
+    rank 0's engine on 3 ranks after the elastic recovery and B6 launched;
+    (b) finite losses on the mesh within rtol 1e-4 of the one-process run's.
     ``phase_ends`` holds each earlier phase's end (``time.time()``), to name
-    the phases that the start-up and the run went beside. Returns the
-    processes' launch counts, summed, and the run's numbers."""
+    the phases that the start-up and the runs went beside. Returns the
+    processes' launch counts, summed over the three runs, and the runs'
+    numbers."""
     if not hasattr(group, "fed"):
         feed_mesh_trainer(group)
     t0, fed = time.perf_counter(), group.fed
@@ -3367,8 +3563,9 @@ def mesh_trainer_path(group, sync_loss: list, phase_ends: dict) -> tuple[dict, d
     wait_s = time.perf_counter() - t0  # what the script waited here: the rest ran beside earlier phases
     counts: dict = {}
     for res in results:
-        for k, v in res["launches"].items():
-            counts[k] = counts.get(k, 0) + v
+        for c in (res["launches"], res["ssm"]["launches"]):
+            for k, v in c.items():
+                counts[k] = counts.get(k, 0) + v
     r0 = results[0]
     losses = r0["loss"]
     check(all(math.isfinite(x) for res in results for x in res["loss"]), f"phase 7c: a loss is not finite: {losses}")
@@ -3389,7 +3586,8 @@ def mesh_trainer_path(group, sync_loss: list, phase_ends: dict) -> tuple[dict, d
     check([c["step"] for c in r0["creates"]] == [TRAIN_PERIOD, 2 * TRAIN_PERIOD],
           f"phase 7c: committed creates {r0['creates']}")
     for name in MESH7C_KERNELS:
-        check(counts.get(name, 0) > 0, f"phase 7c: kernel {name} was launched no time")
+        check(sum(res["launches"].get(name, 0) for res in results) > 0,
+              f"phase 7c: kernel {name} was launched no time")
     for res in results:
         log(f"phase 7c rank {res['rank']} {res['coords']}: steps " + ", ".join(f"{x:.3f}" for x in res["step_s"])
             + f" s; card peak {res['peak_device_gb']:.2f} GB; setup {res['setup_s']:.1f} s, warm-up step "
@@ -3398,13 +3596,15 @@ def mesh_trainer_path(group, sync_loss: list, phase_ends: dict) -> tuple[dict, d
                                                f"{c['capture_s']:.3f})" for c in r0["creates"])
         + f"; restore {r0['restore']['restore_s']:.3f} s")
     initialised, done = max(res["initialised"] for res in results), max(res["done"] for res in results)
-    wall_s = done - fed  # the phase's own seconds: from the feed to the last process's end
+    wall_s = done - fed  # the first run's own seconds: from the feed to the last process's end
 
     startup_beside = phases_beside(phase_ends, group.started, initialised)
     run_beside = phases_beside(phase_ends, fed, done)
     log(f"phase 7c: {wall_s:.1f} s from the feed to the last process's end, beside "
         f"{', '.join(run_beside) or 'no phase'}; start-up {initialised - group.started:.1f} s beside "
-        f"{', '.join(startup_beside) or 'no phase'}; {wait_s:.1f} s of wait after them")
+        f"{', '.join(startup_beside) or 'no phase'}")
+    ssm, moe = mesh_ssm_checks(results, phase_ends, group), mesh_moe_checks(results, phase_ends)
+    log(f"phase 7c: {wait_s:.1f} s of wait after the phases beside")
     out = dict(
         wall_s=wall_s, wait_s=wait_s, startup_beside=startup_beside, run_beside=run_beside, world=group.world_size, mesh=MESH7C, backend=MESH7C_BACKEND, hosts=MESH7C_HOSTS,
         loss=losses, sync_loss=ref, creates=r0["creates"], restore=r0["restore"], created=r0["created"],
@@ -3415,10 +3615,83 @@ def mesh_trainer_path(group, sync_loss: list, phase_ends: dict) -> tuple[dict, d
         runs_s=done - max(res["ready"] for res in results),
         ranks=[dict(rank=res["rank"], step_s=res["step_s"], peak_device_gb=res["peak_device_gb"],
                     run_s=res["run_s"], setup_s=res["setup_s"], warm_s=res["warm_s"], staged=res["staged"])
-               for res in results])
+               for res in results],
+        ssm=ssm, moe=moe)
     log("phase 7c: " + json.dumps(out))
     log(f"phase 7c launches (the processes'): {json.dumps(counts)}")
     return counts, out
+
+
+def mesh_ssm_checks(results: list, phase_ends: dict, group) -> dict:
+    """Phase 7c's (a) on every process: the first run's checks (the losses
+    against a one-card run aside), 3 engine ranks and B6 launched."""
+    runs = [res["ssm"] for res in results]
+    r0 = runs[0]
+    losses = r0["loss"]
+    check(all(math.isfinite(x) for r in runs for x in r["loss"]), f"phase 7c (a): a loss is not finite: {losses}")
+    check(r0["steps"] == TRAIN_HISTORY, f"phase 7c (a): steps {r0['steps']}")
+    check(all(r["steps"] == r0["steps"] and r["loss"] == losses for r in runs),
+          "phase 7c (a): the processes' histories differ")
+    check(all(r["n_recoveries"] == 1 for r in runs), f"phase 7c (a): recoveries {[r['n_recoveries'] for r in runs]}")
+    check(losses[3:5] == losses[5:7], f"phase 7c (a): replayed losses {losses[5:7]} differ from {losses[3:5]}")
+    for res, r in zip(results, runs):
+        rr = r["restored"]
+        check(rr is not None and rr[0] == TRAIN_PERIOD and rr[1] == rr[2],
+              f"phase 7c (a): rank {res['rank']}'s blocks after the restore differ from the step-{TRAIN_PERIOD} "
+              f"checkpoint's: {rr}")
+    check(r0["n_ranks"] == ENGINE_RANKS - 1, f"phase 7c (a): the engine ends on {r0['n_ranks']} ranks")
+    check([c["step"] for c in r0["creates"]] == [TRAIN_PERIOD, TRAIN_PERIOD, 2 * TRAIN_PERIOD],
+          f"phase 7c (a): committed creates {r0['creates']}")
+    for name in MESH7C_SSM_KERNELS:
+        check(sum(r["launches"].get(name, 0) for r in runs) > 0, f"phase 7c (a): kernel {name} was launched no time")
+    started, done = min(r["started"] for r in runs), max(r["done"] for r in runs)
+    beside = phases_beside(phase_ends, started, done)
+    for res, r in zip(results, runs):
+        log(f"phase 7c (a) rank {res['rank']}: steps " + ", ".join(f"{x:.3f}" for x in r["step_s"])
+            + f" s; card peak {r['peak_device_gb']:.2f} GB; setup {r['setup_s']:.1f} s")
+    log("phase 7c (a) rank 0: creates " + ", ".join(f"step {c['step']} {c['create_s']:.3f} s" for c in r0["creates"])
+        + f"; restore_elastic {r0['restore']['restore_s']:.3f} s; engine on {r0['n_ranks']} ranks")
+    log(f"phase 7c (a): {done - group.fed_zoo:.1f} s from the feed to the last process's end ({done - started:.1f} "
+        f"s of its own), beside {', '.join(beside) or 'no phase'}")
+    return dict(loss=losses, steps=r0["steps"], creates=r0["creates"], restore=r0["restore"], n_ranks=r0["n_ranks"],
+                wall_s=done - started, fed_to_end_s=done - group.fed_zoo, beside=beside,
+                ranks=[dict(step_s=r["step_s"], peak_device_gb=r["peak_device_gb"], setup_s=r["setup_s"],
+                            run_s=r["run_s"]) for r in runs])
+
+
+def mesh_moe_checks(results: list, phase_ends: dict) -> dict:
+    """Phase 7c's (b): the same finite losses on every process, within rtol
+    1e-4 of rank 0's one-process run of the same steps."""
+    runs = [res["moe"] for res in results]
+    loss, one = runs[0]["loss"], runs[0]["one"]["loss"]
+    check(all(math.isfinite(x) for x in loss + one), f"phase 7c (b): a loss is not finite: {loss}, {one}")
+    check(all(r["loss"] == loss for r in runs), "phase 7c (b): the processes' losses differ")
+    check(all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(loss, one)) and len(loss) == len(one) == MESH7C_MOE_STEPS,
+          f"phase 7c (b): the mesh's losses {loss} not within rtol 1e-4 of one process's {one}")
+    started, done = min(r["started"] for r in runs), max(r["done"] for r in runs)
+    mesh_done = max(r["mesh_done"] for r in runs)
+    beside = phases_beside(phase_ends, started, done)
+    log(f"phase 7c (b): losses {loss} on the mesh, {one} on one process; mesh steps "
+        + "; ".join(", ".join(f"{x:.3f}" for x in r["step_s"]) for r in runs)
+        + f" s (setup {max(r['setup_s'] for r in runs):.1f} s); one-process steps "
+        + ", ".join(f"{x:.3f}" for x in runs[0]["one"]["step_s"]) + " s; card peak per process "
+        + ", ".join(f"{r['peak_device_gb']:.2f}" for r in runs) + f" GB on the mesh, "
+        f"{runs[0]['one']['peak_device_gb']:.2f} GB on one process")
+    log(f"phase 7c (b): {done - started:.1f} s ({mesh_done - started:.1f} s on the mesh), beside "
+        f"{', '.join(beside) or 'no phase'}")
+    return dict(loss=loss, one=runs[0]["one"], wall_s=done - started, mesh_s=mesh_done - started, beside=beside,
+                ranks=[dict(step_s=r["step_s"], peak_device_gb=r["peak_device_gb"], setup_s=r["setup_s"])
+                       for r in runs])
+
+
+def check_mesh_ssm_losses(ssm: dict, one_card: list) -> None:
+    """Phase 7c's (a) against phase 11's one-card Trainer on the same model,
+    seed and batches: the losses before the kill within rtol 1e-4."""
+    got, ref = ssm["loss"][:5], one_card[:5]
+    check(len(ref) == 5 and all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(got, ref)),
+          f"phase 7c (a): losses before the kill {got} not within rtol 1e-4 of phase 11's one-card run {ref}")
+    log(f"phase 7c (a): losses before the kill within {max(abs(a - b) / abs(b) for a, b in zip(got, ref)):.2e} "
+        f"relative of phase 11's one-card run")
 
 
 # ---------------------------------------------------------------------------
@@ -4215,18 +4488,20 @@ def main() -> int:
         log(f"engine path launches: {json.dumps(counts5)}")
         gc.collect()
         phase_done("phase 5")
+        # phase 7c's (a) and (b) on the same processes, beside phases 8 and 8b
+        feed_mesh_zoo(mesh7c, *zoo_configs())
+        counts8, runs8 = striped_path(cfg)
+        log(f"striped path launches: {json.dumps(counts8)}")
+        phase_done("phase 8")
+        counts8b, run8b = topology_path(cfg)
+        log(f"topology path launches: {json.dumps(counts8b)}")
+        phase_done("phase 8b")
         counts7c, run7c = mesh_trainer_path(mesh7c, sync_loss, phase_ends)
     finally:
         mesh7c.stop()
     gc.collect()
     torch.cuda.empty_cache()
-    phase_done("phase 7c's wait (the sharded Trainer over processes, after its run beside earlier phases)")
-    counts8, runs8 = striped_path(cfg)
-    log(f"striped path launches: {json.dumps(counts8)}")
-    phase_done("phase 8")
-    counts8b, run8b = topology_path(cfg)
-    log(f"topology path launches: {json.dumps(counts8b)}")
-    phase_done("phase 8b")
+    phase_done("phase 7c's wait (the sharded Trainer over processes, after its runs beside earlier phases)")
     # phase 9 runs in a process of its own beside phases 6, 10, 11, 12 and
     # 13 (their host RAM and card memory fit beside its own; 8 and 8b's do
     # not), and is waited for before phase 4. The dry-run CLI counts on one
@@ -4247,6 +4522,7 @@ def main() -> int:
         phase_done("phase 10")
         counts11, runs11 = zoo_path()
         log(f"zoo path launches: {json.dumps(counts11)}")
+        check_mesh_ssm_losses(run7c["ssm"], runs11["trainer"]["loss"])
         gc.collect()
         torch.cuda.empty_cache()
         phase_done("phase 11")

@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, mlp, moe, ssm
-from repro_torch.models.common import ShardCtx, rmsnorm, rmsnorm_spec
+from repro_torch.models.common import ShardCtx, no_sharding_rule, rmsnorm, rmsnorm_spec
 
 
 def slot_is_moe(cfg: ModelConfig, slot: int) -> bool:
@@ -77,6 +77,8 @@ def decode_block(
 ) -> tuple[torch.Tensor, dict[str, Any]]:
     """One token through the slot; the slot's cache (k/v, or the SSM's conv
     history and state) is written in place."""
+    if slot_is_moe(cfg, slot):
+        no_sharding_rule(h, "MoE in decode (one routing group over the batch)")
     kind = cfg.layer_pattern[slot]
     hin = rmsnorm(h, params["ln1"], cfg.norm_eps)
     if kind == "mamba":

@@ -66,11 +66,36 @@ def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def no_sharding_rule(x: torch.Tensor, what: str) -> None:
-    """Raise ``NotImplementedError`` (ROADMAP A15) where ``x`` is a DTensor:
-    ``what`` has no DTensor sharding rule in the port, and the model never
-    falls back to a replicated run in its place."""
+    """Raise ``NotImplementedError`` where ``x`` is a DTensor: ``what`` has
+    no DTensor sharding rule in the port, since no runtime path of the JAX
+    package runs it on a mesh (its dry run compiles it, which the port
+    accounts for on meta tensors), and the model never falls back to a
+    replicated run in its place."""
     if hasattr(x, "device_mesh"):  # a DTensor
-        raise NotImplementedError(f"{what} has no DTensor sharding rule on a ProcessMesh (ROADMAP A15)")
+        raise NotImplementedError(f"{what} has no DTensor sharding rule on a ProcessMesh: no runtime path "
+                                  f"runs it on a mesh (the dry run accounts for it on meta tensors)")
+
+
+def local_blocks(*xs: Any) -> list[torch.Tensor]:
+    """Each DTensor's block on this process, for a per-shard body that
+    reads them all. The body's work is split on every mesh dim that shards
+    one of them, so there each replicated input's gradient is a partial sum
+    (``to_local``'s ``grad_placements``); on a dim that shards none every
+    process does the same work and the gradient stays replicated."""
+    from torch.distributed.tensor import Partial
+
+    split = [any(not x.placements[i].is_replicate() for x in xs) for i in range(xs[0].device_mesh.ndim)]
+    return [x.to_local(grad_placements=[Partial() if s and p.is_replicate() else p
+                                        for p, s in zip(x.placements, split)]) for x in xs]
+
+
+def from_block(block: torch.Tensor, like: Any, placements: Any, shape: tuple[int, ...]) -> Any:
+    """A DTensor of global ``shape`` on ``like``'s mesh from this process's
+    ``block`` under ``placements`` (no communication)."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(block, like.device_mesh, placements, run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 # ---------------------------------------------------------------------------

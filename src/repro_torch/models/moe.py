@@ -19,8 +19,16 @@ Routing is the reference's, token for token:
   (token, slot) order, token-major, so the same tokens drop once an
   expert's C slots are full (decode's single group of 16 tokens has C = 5).
 
-The reference's two sharding modes (``tp``, ``ep``) are GSPMD layouts; on
-one card there is one.
+The reference's two sharding modes (``tp``, ``ep``) are GSPMD layouts. On
+a ``ProcessMesh`` the routing and the dispatch run as DTensor ops on the
+batch-sharded groups (each data shard routes its own groups; the router's
+contraction over the model-sharded embedding is reduced before the
+softmax), and the expert FFN runs per shard (``_experts_per_shard``): under
+``tp`` each process multiplies its groups by its slice of every expert's
+``mlp`` dim and the down projection's partial sums are reduced over
+"model"; under ``ep`` (``experts`` on "data") the groups first go to the
+shards that hold their experts, an all-to-all over "data" (DTensor's
+``Shard(0)`` to ``Shard(1)``), and come back the same way.
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import ShardCtx, constrain, einsum, no_sharding_rule
+from repro_torch.models.common import ShardCtx, constrain, einsum, from_block, local_blocks
 from repro_torch.models.mlp import _act
 from repro_torch.sharding.spec import ParamSpec
 
@@ -106,7 +114,6 @@ def route(params: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     assert T % G == 0, (T, G)
     tg = T // G
     C = expert_capacity(tg, E, K, cfg.moe_capacity_factor)
-    no_sharding_rule(x, "MoE routing (the top-k argmax rounds and the one-hot dispatch)")
 
     xt = x.reshape(G, tg, D)
     # the router matmul in the compute dtype, the softmax in f32
@@ -124,6 +131,59 @@ def route(params: dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     return Routing(G, tg, C, probs, weights, sel, onehot, pos_in_expert, within_cap)
 
 
+def _experts(params: dict[str, torch.Tensor], ex_in: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The expert FFN, (G, E, C, D) -> (G, E, C, D)."""
+    if "w_gate" in params:
+        g = einsum("gecd,edf->gecf", ex_in, params["w_gate"])
+        u = einsum("gecd,edf->gecf", ex_in, params["w_up"])
+        h = _act(cfg.mlp_kind, g) * u
+        return einsum("gecf,efd->gecd", h, params["w_down"])
+    h = _act("gelu", einsum("gecd,edf->gecf", ex_in, params["w_in"]))
+    return einsum("gecf,efd->gecd", h, params["w_out"])
+
+
+def _experts_sharded(params: dict[str, torch.Tensor]) -> bool:
+    """Whether the expert weights are DTensors sharded on the experts dim
+    (``moe_mode="ep"`` where the experts divide over "data")."""
+    from torch.distributed.tensor import Shard
+
+    return any(p == Shard(0) for p in getattr(params["w_in" if "w_in" in params else "w_up"], "placements", ()))
+
+
+def _experts_per_shard(params: dict[str, torch.Tensor], ex_in: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``_experts`` on each process's blocks. On every mesh dim the layout
+    is one of: the groups sharded and the weights replicated (each shard
+    runs its groups: ``Shard(0)``); the experts sharded in both (each shard
+    runs its experts: ``Shard(1)``); or the weights' ``mlp`` dim sharded and
+    the groups replicated (each shard's down projection is a partial sum:
+    ``Partial``). Any other layout raises. Plain tensors go as they are."""
+    if not hasattr(ex_in, "device_mesh"):
+        return _experts(params, ex_in, cfg)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    w = {k: v for k, v in params.items() if k != "router"}
+
+    def logical(k: str, pl) -> str:  # a leaf's placement as the dim it shards
+        if not isinstance(pl, Shard):
+            return "R" if pl.is_replicate() else str(pl)
+        return ("e", "d", "f")[pl.dim] if k in ("w_gate", "w_up", "w_in") else ("e", "f", "d")[pl.dim]
+
+    out = []
+    for i, p in enumerate(ex_in.placements):
+        dims = {logical(k, x.placements[i]) for k, x in w.items()}
+        if p == Shard(1) and dims == {"e"}:
+            out.append(Shard(1))
+        elif p == Shard(0) and dims == {"R"}:
+            out.append(Shard(0))
+        elif p == Replicate() and dims in ({"f"}, {"R"}):
+            out.append(Partial() if dims == {"f"} else Replicate())
+        else:
+            raise ValueError(f"expert layout on mesh dim {i}: groups {p}, weights {sorted(dims)}")
+    blocks = local_blocks(ex_in, *w.values())
+    local = _experts(dict(zip(w, blocks[1:])), blocks[0], cfg)
+    return from_block(local, ex_in, out, tuple(ex_in.shape))
+
+
 def apply(
     params: dict[str, torch.Tensor],
     x: torch.Tensor,  # (B, S, d_model)
@@ -135,6 +195,9 @@ def apply(
     """Returns (output, aux_loss). Aux loss = load-balancing (Switch style)."""
     B, S, D = x.shape
     E = cfg.num_experts
+    # the router and the dispatch read whole token rows: the model-sharded
+    # embedding is gathered once here (smaller than the dispatched copies)
+    x = constrain(x, ctx, ("batch", "seq", None))
     r = route(params, x, cfg, num_groups)
     xt = x.reshape(r.G, r.tg, D)
     dt = x.dtype
@@ -149,14 +212,9 @@ def apply(
     # the group dim stays batch-sharded (a replicated constraint here would
     # compute every expert on every data shard)
     ex_in = constrain(ex_in, ctx, ("moe_group", "experts", None, None))
-    if "w_gate" in params:
-        g = einsum("gecd,edf->gecf", ex_in, params["w_gate"])
-        u = einsum("gecd,edf->gecf", ex_in, params["w_up"])
-        h = _act(cfg.mlp_kind, g) * u
-        ex_out = einsum("gecf,efd->gecd", h, params["w_down"])
-    else:
-        h = _act("gelu", einsum("gecd,edf->gecf", ex_in, params["w_in"]))
-        ex_out = einsum("gecf,efd->gecd", h, params["w_out"])
+    if _experts_sharded(params):  # every group's tokens to the shards that hold their experts
+        ex_in = constrain(ex_in, ctx, (None, "experts", None, None))
+    ex_out = _experts_per_shard(params, ex_in, cfg)
     ex_out = constrain(ex_out, ctx, ("moe_group", "experts", None, None))
 
     out = einsum("gtec,gecd->gtd", combine, ex_out).reshape(B, S, D)

@@ -21,6 +21,12 @@ deterministic form on the card, and the bitwise replays need one.
 Decode writes the new ``conv`` history and ``state`` into the cache **in
 place** (``copy_``) and returns the same tree, as attention's decode does
 with k/v: ``lm.decode_step`` hands each layer views of the stacked leaves.
+
+On a ``ProcessMesh`` the forward runs per shard where DTensor's own rules
+would gather: the causal conv on each process's channels
+(``_conv_per_shard``), then the SSD on each process's batch rows and heads
+(``_ssd_per_shard``); the projections and the gated norm stay DTensor ops.
+Decode on a DTensor raises: no runtime path runs it on a mesh.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import ShardCtx, constrain, einsum, no_sharding_rule
+from repro_torch.models.common import ShardCtx, constrain, einsum, from_block, local_blocks, no_sharding_rule
 from repro_torch.sharding.spec import ParamSpec
 
 CHUNK = 128
@@ -100,34 +106,19 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, eps: floa
     return (y * torch.rsqrt(var + eps) * (1.0 + scale)).to(z.dtype)
 
 
-def apply(
-    params: dict[str, torch.Tensor],
-    x: torch.Tensor,  # (B, L, d_model)
-    cfg: ModelConfig,
-    chunk: int = CHUNK,
-    *,
-    ctx: ShardCtx | None = None,
-) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """Chunked SSD forward. Returns (out, final_cache)."""
-    Bsz, L, _ = x.shape
-    H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
-    Q = min(chunk, L)
-    assert L % Q == 0, (L, Q)
+def _ssd(xs: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, dt: torch.Tensor, dt_bias: torch.Tensor,
+         A_log: torch.Tensor, Dp: torch.Tensor, Q: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD over the heads of ``xs`` (B, L, H, P), with the
+    single group's ``Bm``/``Cm`` (B, L, N) and the raw ``dt`` (B, L, H).
+    Returns (y (B, L, H·P) f32 with the skip term, the final state
+    (B, H, P, N))."""
+    Bsz, L, H, P = xs.shape
+    N = Bm.shape[-1]
     nc = L // Q
     f32 = torch.float32
 
-    z, xBC_raw, dt = _project(params, x)
-    xBC_raw = constrain(xBC_raw, ctx, ("batch", "seq", "ssm_inner"))
-    z = constrain(z, ctx, ("batch", "seq", "ssm_inner"))
-    no_sharding_rule(xBC_raw, "the Mamba-2 SSD scan (the causal conv, the chunked decay and its recurrence)")
-    xBC = _causal_conv(xBC_raw, params["conv_w"], params["conv_b"])
-
-    xs = xBC[..., : cfg.d_inner].reshape(Bsz, L, H, P)
-    Bm = xBC[..., cfg.d_inner : cfg.d_inner + N]  # (B, L, N) single group
-    Cm = xBC[..., cfg.d_inner + N :]
-
-    dt = F.softplus(dt.to(f32) + params["dt_bias"])  # (B, L, H)
-    A = -torch.exp(params["A_log"])  # (H,) negative
+    dt = F.softplus(dt.to(f32) + dt_bias)  # (B, L, H)
+    A = -torch.exp(A_log)  # (H,) negative
     dA = dt * A  # (B, L, H), <= 0
 
     # chunked views
@@ -135,7 +126,7 @@ def apply(
     Bc = Bm.reshape(Bsz, nc, Q, N).to(f32)
     Cc = Cm.reshape(Bsz, nc, Q, N).to(f32)
     dtc = dt.reshape(Bsz, nc, Q, H)
-    tril = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    tril = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xs.device))
     # inclusive cumsum within each chunk, as a product with the triangle
     dAcs = torch.einsum("ij,bcjh->bcih", tril.to(f32), dA.reshape(Bsz, nc, Q, H))
 
@@ -151,7 +142,7 @@ def apply(
     states = torch.einsum("bcsn,bcshp->bchpn", Bc, (decay_states * dtc)[..., None] * xc)
     chunk_decay = torch.exp(dAcs[:, :, -1, :])  # (B,nc,H)
 
-    carry = torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device)
+    carry = torch.zeros((Bsz, H, P, N), dtype=f32, device=xs.device)
     prev = []
     for c in range(nc):  # the reference's lax.scan: emit the state entering chunk c
         prev.append(carry)
@@ -162,15 +153,88 @@ def apply(
     y_off = torch.einsum("bcln,bchpn->bclhp", Cc, prev_states) * state_decay_out[..., None]
 
     y = (y_diag + y_off).reshape(Bsz, L, H, P)
-    y = y + params["D"][None, None, :, None] * xs.to(f32)
-    y = y.reshape(Bsz, L, cfg.d_inner)
+    y = y + Dp[None, None, :, None] * xs.to(f32)
+    return y.reshape(Bsz, L, H * P), carry
+
+
+def _conv_per_shard(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``_causal_conv`` on each process's channels: the conv is per
+    channel, so where ``xBC``'s channels are sharded and the conv's weights
+    alike each process convolves its own, and where the batch is sharded
+    its own rows."""
+    if not hasattr(xBC, "device_mesh"):
+        return _causal_conv(xBC, w, b)
+    from torch.distributed.tensor import Replicate, Shard
+
+    for i, p in enumerate(xBC.placements):
+        want = Shard(0) if p == Shard(2) else Replicate()
+        if p not in (Shard(0), Shard(2), Replicate()) or w.placements[i] != want or b.placements[i] != want:
+            raise ValueError(f"conv layout on mesh dim {i}: xBC {p}, weights {w.placements[i]}, {b.placements[i]}")
+    return from_block(_causal_conv(*local_blocks(xBC, w, b)), xBC, xBC.placements, tuple(xBC.shape))
+
+
+def _ssd_per_shard(xBC: torch.Tensor, dt: torch.Tensor, params: dict[str, torch.Tensor], cfg: ModelConfig,
+                   Q: int, ctx: ShardCtx | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_ssd`` on the conv output ``xBC`` (B, L, conv_dim): on a mesh, each
+    process runs its batch rows and its heads (``dt`` constrained to
+    ``ssm_heads``). ``xBC``'s channels are x (heads-major), then B and C, so
+    its shards do not fall on the heads: the channels are gathered, and
+    each process reads its heads' columns of x and the whole of B and C."""
+    H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    d = cfg.d_inner
+    hp = [params["dt_bias"], params["A_log"], params["D"]]
+    if not hasattr(xBC, "device_mesh"):
+        Bsz, L, _ = xBC.shape
+        return _ssd(xBC[..., :d].reshape(Bsz, L, H, P), xBC[..., d : d + N], xBC[..., d + N :], dt, *hp, Q)
+    from torch.distributed.tensor import Replicate, Shard
+
+    dt = constrain(dt, ctx, ("batch", "seq", "ssm_heads"))
+    mesh = xBC.device_mesh
+    xBC = xBC.redistribute(mesh, [Shard(0) if p == Shard(0) else Replicate() for p in xBC.placements])
+    heads = [i for i, p in enumerate(dt.placements) if p == Shard(2)]
+    for i, p in enumerate(dt.placements):
+        want = Shard(0) if i in heads else Replicate()
+        if (i not in heads and p != xBC.placements[i]) or any(x.placements[i] != want for x in hp):
+            raise ValueError(f"SSD layout on mesh dim {i}: dt {p}, xBC {xBC.placements[i]}, "
+                             f"heads' params {[x.placements[i] for x in hp]}")
+    if len(heads) > 1:
+        raise ValueError(f"the SSD's heads sharded over {len(heads)} mesh dims")
+    x_l, dt_l, *hp_l = local_blocks(xBC, dt, *hp)
+    Bsz, L, _ = x_l.shape
+    Hl = dt_l.shape[-1]
+    h0 = mesh.get_local_rank(heads[0]) * Hl if heads else 0
+    xs = x_l[..., h0 * P : (h0 + Hl) * P].reshape(Bsz, L, Hl, P)
+    y, state = _ssd(xs, x_l[..., d : d + N], x_l[..., d + N :], dt_l, *hp_l, Q)
+    state_pl = [Shard(1) if p == Shard(2) else p for p in dt.placements]
+    return (from_block(y, xBC, dt.placements, (*dt.shape[:2], d)),
+            from_block(state, xBC, state_pl, (dt.shape[0], H, P, N)))
+
+
+def apply(
+    params: dict[str, torch.Tensor],
+    x: torch.Tensor,  # (B, L, d_model)
+    cfg: ModelConfig,
+    chunk: int = CHUNK,
+    *,
+    ctx: ShardCtx | None = None,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Chunked SSD forward. Returns (out, final_cache)."""
+    L = x.shape[1]
+    Q = min(chunk, L)
+    assert L % Q == 0, (L, Q)
+
+    z, xBC_raw, dt = _project(params, x)
+    xBC_raw = constrain(xBC_raw, ctx, ("batch", "seq", "ssm_inner"))
+    z = constrain(z, ctx, ("batch", "seq", "ssm_inner"))
+    xBC = _conv_per_shard(xBC_raw, params["conv_w"], params["conv_b"])
+    y, state = _ssd_per_shard(xBC, dt, params, cfg, Q, ctx)
     y = _gated_norm(y, z, params["norm"], cfg.norm_eps)
     out = einsum("ble,ed->bld", y, params["out_proj"]).to(x.dtype)
     out = constrain(out, ctx, ("batch", "seq", "act_embed"))
 
     cache = {
         "conv": xBC_raw[:, -(cfg.ssm_conv - 1) :, :].to(cfg.compute_dtype),
-        "state": carry,
+        "state": state,
     }
     return out, cache
 

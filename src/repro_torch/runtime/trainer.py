@@ -54,9 +54,12 @@ record over the group (a step with the data pipeline's ``(seed, step)``,
 the kills, the committed checkpoints and the recoveries so far; a gather;
 a scatter; the end of ``run``); they follow it, so no process decides on
 its own clock (the Daly scheduler's measured step times) and none waits in
-a collective the others skip. On a mesh the recovery policy is "spare";
-the others, and ``regrow``, ``restore_elastic`` and ``cold_restart``, raise
-(ROADMAP A15).
+a collective the others skip. Every recovery policy runs on a mesh: rank
+0's engine restores (and, under "shrink" and "elastic", resizes) as on one
+card, and each recovery's scatter record names the policy and the engine's
+new rank count. ``regrow``, ``restore_elastic`` and ``cold_restart`` are
+called on every process alike, as ``run`` is: rank 0 runs the engine and
+tells, the others take part in the gather or the scatter it names.
 """
 
 from __future__ import annotations
@@ -145,8 +148,6 @@ class Trainer:
         self.mesh = mesh
         if mesh is not None and device is not None and resolve_device(device) != mesh.device:
             raise ValueError(f"device {device} differs from the mesh's {mesh.device}")
-        if mesh is not None and tcfg.recovery_policy != "spare":
-            raise NotImplementedError(f"recovery_policy={tcfg.recovery_policy!r} on a ProcessMesh (ROADMAP A15)")
         self.device = resolve_device(device) if mesh is None else mesh.device
         self.timers = TimerRegistry()
 
@@ -303,14 +304,20 @@ class Trainer:
             self._tell("gather")
         gather_state(self.state, self.mesh, self.pspecs, self.global_state)
 
-    def _scatter(self) -> None:
+    def _scatter(self, policy: str | None = None) -> None:
         """Rank 0's restored ``global_state`` into every process's blocks,
-        and the data pipeline's ``(seed, step)`` with it."""
+        and the data pipeline's ``(seed, step)`` with it; the record names
+        the recovery's ``policy`` and the engine's rank count."""
         if self.mesh is None:
             return
         if self.mesh.rank == 0:
-            self._tell("scatter", data=[self.data.seed, self.data.step])
+            self._tell("scatter", data=[self.data.seed, self.data.step], policy=policy, n_ranks=self.engine.n_ranks)
         scatter_state(self.state, self.mesh, self.pspecs, self.global_state)
+
+    def _state_step(self) -> int:
+        """The step of the state the engine reads: on a mesh rank 0's
+        ``global_state``, which a restore writes before the scatter."""
+        return self._step_count() if self.mesh is None else int(self.global_state["step"])
 
     def _one_step(self, step: int) -> float:
         """One train step (timed, synchronised); returns its loss and
@@ -328,8 +335,27 @@ class Trainer:
             self.history[-1]["moe_aux"] = self._scalar(metrics["moe_aux"])
         return loss
 
-    def _follow(self) -> list[dict[str, float]]:
-        """A follower's ``run``: rank 0's records, until the end of its run."""
+    def _lead(self, fn, share: bool = True):
+        """``fn()`` on every process of a mesh (without one, ``fn()``): rank
+        0 runs it and ends with an "end" record, the others follow its
+        records until then. With ``share`` the record carries ``fn``'s
+        result and every process returns it; else (``run``) each returns
+        its own history."""
+        if self.mesh is None:
+            return fn()
+        if self.mesh.rank != 0:
+            return self._follow()
+        try:
+            out = fn()
+        except BaseException as exc:
+            if not self._in_step:  # inside a step every process raised alike
+                self._tell("end", error=f"{type(exc).__name__}: {exc}")
+            raise
+        self._tell("end", **({"result": out} if share else {}))
+        return out
+
+    def _follow(self) -> Any:
+        """A follower's side of ``_lead``: rank 0's records, until the end."""
         while True:
             rec = self._hear()
             self.n_recoveries = rec["recoveries"]
@@ -344,7 +370,7 @@ class Trainer:
             elif rec["op"] == "end":
                 if rec.get("error"):
                     raise RuntimeError(f"mesh rank 0 stopped the run: {rec['error']}")
-                return self.history
+                return rec["result"] if "result" in rec else self.history
             else:
                 raise ValueError(f"unknown control record {rec}")
 
@@ -356,18 +382,7 @@ class Trainer:
     # Algorithm 3
     # ------------------------------------------------------------------ #
     def run(self, num_steps: int) -> list[dict[str, float]]:
-        if self.mesh is None:
-            return self._run(num_steps)
-        if self.mesh.rank != 0:
-            return self._follow()
-        try:
-            hist = self._run(num_steps)
-        except BaseException as exc:
-            if not self._in_step:  # inside a step every process raised alike
-                self._tell("end", error=f"{type(exc).__name__}: {exc}")
-            raise
-        self._tell("end")
-        return hist
+        return self._lead(lambda: self._run(num_steps), share=False)
 
     def _run(self, num_steps: int) -> list[dict[str, float]]:
         ckpt_count = 0
@@ -467,7 +482,7 @@ class Trainer:
                 self.cluster.restart_all()
                 meta = self.engine.restore()
                 self.n_recoveries += 1
-                self._scatter()
+                self._scatter("tiers")
                 log.info("recovered from the tier ladder to step %s", meta.get("step"))
                 return
             raise RuntimeError(
@@ -483,7 +498,7 @@ class Trainer:
         # Restored entities include the data pipeline + timers + train state;
         # the loop continues from the checkpointed step.
         self.n_recoveries += 1
-        self._scatter()
+        self._scatter(report.policy)
         log.info(
             "recovered to step %s (policy=%s, codec=%s, load_factor=%.2f, restore %.3fs)",
             meta.get("step"), report.policy, self.engine.codec.name,
@@ -514,26 +529,26 @@ class Trainer:
         re-protect again until a checkpoint commits."""
         meta = self.engine.restore_elastic(n_new)
         self.cluster.resize(n_new)
-        while not self.engine.checkpoint({"step": self._step_count()}):
+        while not self.engine.checkpoint({"step": self._state_step()}):
             survivors = len(self.cluster.alive())
             if survivors < 1:
                 raise RuntimeError("all ranks died while re-protecting the elastic world")
             log.warning("re-protect checkpoint failed; shrinking to %d survivors", survivors)
             self._swap_engine(survivors)
             self.cluster.resize(survivors)  # clears the revoked flag too
-        self._last_ckpt_step = self._step_count()
+        self._last_ckpt_step = self._state_step()
         return meta
-
-    def _no_mesh(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(f"Trainer.{what} outside run() on a ProcessMesh (ROADMAP A15)")
 
     def restore_elastic(self, n_new: int) -> dict[str, Any]:
         """Elastic transition to ``n_new`` ranks from the last checkpoint —
         shrink (fewer hosts, no spares needed) or grow (scale-up). The merged
         global state is bit-identical; only the shard topology changes."""
-        self._no_mesh("restore_elastic")
-        return self._elastic_recover(n_new)
+        def elastic() -> dict[str, Any]:
+            meta = self._elastic_recover(n_new)
+            self._scatter("elastic")
+            return meta
+
+        return self._lead(elastic)
 
     def cold_restart(self) -> dict[str, Any]:
         """Restart a fresh job from the persistent tier ladder: nothing in
@@ -541,8 +556,11 @@ class Trainer:
         disk rehydrates the stores, and training resumes from its step,
         bitwise, the data pipeline's state included. When the stored world
         size N differs from this job's ``n_virtual_hosts`` M, the checkpoint
-        is repartitioned N to M through ``restore_elastic``."""
-        self._no_mesh("cold_restart")
+        is repartitioned N to M through ``restore_elastic``. On a mesh the
+        loaded state is scattered to every process."""
+        return self._lead(self._cold_restart)
+
+    def _cold_restart(self) -> dict[str, Any]:
         eng = self.engine
         if not eng.has_tier_data():
             raise RuntimeError("cold restart requested but no tier holds data")
@@ -557,6 +575,7 @@ class Trainer:
             meta = eng.restore()
             self._last_ckpt_step = int(meta.get("step", 0))
         self.n_recoveries += 1
+        self._scatter("cold")
         log.info("cold restart complete: resuming from step %s", meta.get("step"))
         return meta
 
@@ -585,10 +604,14 @@ class Trainer:
     def regrow(self, n_new: int) -> None:
         """Elastic scale-up (paper §5.2.4): expand the failure-domain world to
         ``n_new`` ranks and immediately checkpoint so the new ranks hold their
-        re-balanced shards + backups."""
-        self._no_mesh("regrow")
+        re-balanced shards + backups. On a mesh the live state is gathered
+        to rank 0 first."""
+        self._lead(lambda: self._regrow(n_new))
+
+    def _regrow(self, n_new: int) -> None:
         if n_new < self.engine.n_ranks:
             raise ValueError(f"regrow to {n_new} < {self.engine.n_ranks} ranks")
+        self._gather()
         self._swap_engine(n_new)
         ok = self.engine.checkpoint({"step": self._step_count()})
         if ok:

@@ -1,5 +1,6 @@
-"""Per-process bodies for the port's device tier over processes
-(``tests/test_torch_device_tier_dist.py`` and ``tests/test_torch_import.py``).
+"""Per-process bodies for the port's tests over processes: the device tier
+(``tests/test_torch_device_tier_dist.py``, ``tests/test_torch_import.py``)
+and the sharded ``Trainer`` (``tests/test_torch_trainer_mesh*.py``).
 
 They run in processes started by ``repro_torch.launch.mesh.spawn``, so this
 module imports ``torch``, ``numpy`` and the port only: never ``jax`` or the
@@ -295,14 +296,35 @@ def _placement_blocks(mesh, placement_cases) -> list:
     return out
 
 
-def _raises_a15(mesh, cfg, case: dict) -> str:
-    """A Trainer(mesh=) step of ``cfg``: the NotImplementedError's words,
-    or "ran"."""
-    try:
-        _mesh_trainer_run(mesh, cfg, case, 1, None)
-    except NotImplementedError as exc:
-        return str(exc)
-    return "ran"
+def _decode_raises(mesh) -> dict:
+    """``ssm.decode`` and an MoE slot's ``decode_block`` on a DTensor: each
+    one's ``NotImplementedError`` words, or "ran"."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks, build_model, ssm
+    from repro_torch.models.common import ShardCtx
+    from repro_torch.models.lm import on_mesh
+    from repro_torch.sharding.mesh import distribute
+    from repro_torch.utils import threefry
+    from repro_torch.utils.pytree import tree_map
+
+    out = {}
+    for name, arch in (("ssm", "mamba2-780m"), ("moe", "mixtral-8x7b")):
+        model = build_model(get_config(arch).reduced())
+        cfg, ctx = model.cfg, ShardCtx(mesh, model.rules)
+        layer = tree_map(lambda x: x[0], model.init(threefry.PRNGKey(0), "cpu")["layers"]["slot0"])
+        h = distribute(torch.zeros((4, 1, cfg.d_model), dtype=cfg.compute_dtype), ("data",), mesh)
+        cache = {k: torch.zeros(s.shape, dtype=s.dtype)
+                 for k, s in blocks.block_cache_spec(cfg, 0, 4, 8).items()}
+        try:
+            with on_mesh(ctx):
+                if name == "ssm":
+                    ssm.decode(layer["mixer"], h, cache, cfg, ctx=ctx)
+                else:
+                    blocks.decode_block(layer, h, cache, torch.tensor(0), cfg, 0, ctx=ctx)
+            out[name] = "ran"
+        except NotImplementedError as exc:
+            out[name] = str(exc)
+    return out
 
 
 def trainer_mesh_rank(rank, world, init_method, rdv_dir, c) -> dict:
@@ -323,8 +345,163 @@ def trainer_mesh_rank(rank, world, init_method, rdv_dir, c) -> dict:
         "faulty": lambda m: _mesh_trainer_run(m, llama, case, steps, kills),
         "clean": lambda m: _mesh_trainer_run(m, llama, case, steps, None),
         "fsdp": lambda m: _mesh_trainer_run(m, llama.with_(sharding_preset="fsdp"), case, c["fsdp_steps"], None),
-        "mixtral": lambda m: _raises_a15(m, get_config("mixtral-8x7b").reduced(), case),
-        "mamba2": lambda m: _raises_a15(m, get_config("mamba2-780m").reduced(), case),
+        "decode": _decode_raises,
+    }
+    out = {}
+    for name, run in cases.items():
+        mesh = init_process_mesh(*c["mesh"], "gloo", rank=rank, world_size=world, device="cpu",
+                                 init_method="file://" + os.path.join(rdv_dir, name))
+        try:
+            out[name] = run(mesh)
+        finally:
+            tdist.destroy_process_group()
+    out["modules"] = loaded_reference_modules()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# every model family on the mesh (tests/test_torch_trainer_mesh_zoo.py)
+# ---------------------------------------------------------------------------
+
+def _mesh_grads(mesh, cfg, case: dict) -> dict | None:
+    """The loss's gradients at the first step of ``case`` (the params from
+    its seed, its first batch) on the mesh, whole, as numpy on rank 0
+    (None elsewhere): AdamW's update is blind to a gradient's scale, so the
+    losses alone would not show one off by a factor."""
+    from repro_torch.data.synthetic import SyntheticDataPipeline
+    from repro_torch.models import build_model
+    from repro_torch.models.common import ShardCtx
+    from repro_torch.models.lm import on_mesh
+    from repro_torch.runtime.state import place_state
+    from repro_torch.sharding.axes import tree_pspecs
+    from repro_torch.utils import threefry
+    from repro_torch.utils.pytree import tree_flatten, tree_unflatten
+
+    model = build_model(cfg)
+    params = model.init(threefry.PRNGKey(case["seed"]), "cpu")
+    paths, live = tree_flatten(place_state(params, mesh, tree_pspecs(model.abstract_params, model.rules, mesh)))
+    batch = SyntheticDataPipeline(cfg, case["batch"], case["seq"], case["seed"], mesh=mesh, rules=model.rules).next()
+    ctx = ShardCtx(mesh, model.rules)
+    with on_mesh(ctx):
+        leaves = [p.detach().requires_grad_() for p in live]
+        loss, _ = model.loss(tree_unflatten(paths, leaves), batch, ctx=ctx)
+        grads = [g.full_tensor() for g in torch.autograd.grad(loss, leaves, materialize_grads=True)]
+    return dict(zip(["/".join(p) for p in paths], [g.numpy() for g in grads])) if mesh.rank == 0 else None
+
+
+def trainer_mesh_zoo_rank(rank, world, init_method, rdv_dir, c) -> dict:
+    """Each run of the oracle's ``ZOO_RUNS`` (``c["runs"]``) on one process
+    of the mesh, the killed ones through ``c["kills"]`` and again clean,
+    each over its own rendezvous under ``rdv_dir``; then the first step's
+    gradients of each of ``c["grads"]``'s runs."""
+    import os
+
+    import torch.distributed as tdist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_process_mesh
+
+    out = {}
+    for name, arch, over, steps, killed in c["runs"]:
+        cfg = get_config(arch).reduced().with_(**over)
+        for tag, kills in (("faulty", c["kills"]), ("clean", None)) if killed else (("clean", None),):
+            mesh = init_process_mesh(*c["mesh"], "gloo", rank=rank, world_size=world, device="cpu",
+                                     init_method="file://" + os.path.join(rdv_dir, f"{name}-{tag}"))
+            try:
+                res = _mesh_trainer_run(mesh, cfg, c["case"], steps, kills)
+            finally:
+                tdist.destroy_process_group()
+            if name not in c["final"] and not killed:
+                res["final"] = None
+            out[f"{name}/{tag}"] = res
+    mesh = init_process_mesh(*c["mesh"], "gloo", rank=rank, world_size=world, device="cpu",
+                             init_method="file://" + os.path.join(rdv_dir, "grads"))
+    try:
+        for name, arch, over, _, _ in c["runs"]:
+            if name in c["grads"]:
+                out[f"{name}/grads"] = _mesh_grads(mesh, get_config(arch).reduced().with_(**over), c["case"])
+    finally:
+        tdist.destroy_process_group()
+    out["modules"] = loaded_reference_modules()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the recovery policies and the out-of-run calls on the mesh
+# (tests/test_torch_trainer_mesh_policies.py)
+# ---------------------------------------------------------------------------
+
+def _engine_meta(t) -> dict | None:
+    """Rank 0's engine as the oracle's ``_engine_meta`` gives it (None on
+    the other ranks, which hold no engine)."""
+    if t.engine is None:
+        return None
+    return {"n_ranks": t.engine.n_ranks, "created": t.engine.stats.created, "aborted": t.engine.stats.aborted,
+            "manifests": committed_manifests(t.engine)}
+
+
+def _hist(h) -> list:
+    return [[x["step"], x["loss"]] for x in h]
+
+
+def _policy_runs(mesh, c, policy: str | None, kills) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime.failures import FailureInjector
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    case = dict(c["case"], **({"recovery_policy": policy} if policy else {}))
+    t = Trainer(build_model(get_config("llama3.2-1b").reduced()), TrainerConfig(**case), mesh=mesh,
+                injector=FailureInjector(4, schedule=kills) if kills else None)
+    return {"history": _hist(t.run(c["steps"])), "n_recoveries": t.n_recoveries, "engine": _engine_meta(t),
+            "final": _gathered(t, mesh)}
+
+
+def _out_of_run(mesh, c, tier: str) -> dict:
+    """run(4), restore_elastic(2), regrow(4), run(6); then a fresh 2-host
+    Trainer's cold_restart() and run(resume)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    model = build_model(get_config("llama3.2-1b").reduced())
+    a = Trainer(model, TrainerConfig(**c["out_case"], tier_dir=tier), mesh=mesh)
+    out = {"first": _hist(a.run(4))}
+    out["elastic_step"] = int(a.restore_elastic(2)["step"])
+    out["after_elastic"] = _engine_meta(a)
+    a.regrow(4)
+    out["after_regrow"] = _engine_meta(a)
+    out["second"] = _hist(a.run(6))
+    out["end"] = _engine_meta(a)
+    if a.engine is not None:
+        a.engine.close()
+    out["final"] = _gathered(a, mesh)
+    b = Trainer(model, TrainerConfig(**{**c["out_case"], "n_virtual_hosts": 2}, tier_dir=tier), mesh=mesh)
+    out["cold_step"] = int(b.cold_restart()["step"])
+    out["cold"] = _engine_meta(b)
+    out["resumed"] = _hist(b.run(c["resume"]))
+    out["n_recoveries"] = [a.n_recoveries, b.n_recoveries]
+    if b.engine is not None:
+        b.engine.close()
+    out["cold_final"] = _gathered(b, mesh)
+    return out
+
+
+def trainer_mesh_policies_rank(rank, world, init_method, rdv_dir, tier_dir, c) -> dict:
+    """The "shrink" and "elastic" runs through ``c["kills"]``, the clean run
+    they replay, and the out-of-run calls (their disk rung under
+    ``tier_dir``), on one process of the mesh."""
+    import os
+
+    import torch.distributed as tdist
+
+    from repro_torch.launch.mesh import init_process_mesh
+
+    cases = {
+        "shrink": lambda m: _policy_runs(m, c, "shrink", c["kills"]),
+        "elastic": lambda m: _policy_runs(m, c, "elastic", c["kills"]),
+        "clean": lambda m: _policy_runs(m, c, None, None),
+        "out": lambda m: _out_of_run(m, c, tier_dir),
     }
     out = {}
     for name, run in cases.items():

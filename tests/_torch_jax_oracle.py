@@ -15,7 +15,10 @@ drain's and the pipelined restore's cases (``async_cases``); ``... psum OUT.npz`
 OUT.npz`` the reference ``Trainer``'s plan and committed stores under expert parallelism
 (``TRAINER_EP_CASE``); ``... trainer_mesh OUT.npz`` the reference ``Trainer(mesh=)`` on a
 (2, 2) mesh with Auto axes through ``TRAINER_KILLS``, the ``fsdp`` preset's first steps on it,
-and ``NamedSharding`` device maps (``MESH_PLACEMENT_CASES``). The arrays go to the
+and ``NamedSharding`` device maps (``MESH_PLACEMENT_CASES``); ``... trainer_mesh_zoo OUT.npz`` the
+same mesh's ``Trainer`` for every model family (``ZOO_RUNS``); ``... trainer_mesh_policies OUT.npz``
+its "shrink" and "elastic" recoveries and its out-of-run calls (``POLICY_CASE``,
+``OUT_OF_RUN_CASE``). The arrays go to the
 ``.npz``, the metadata to ``OUT.npz.json``.
 
 The engine cases' entities (``ShardedVec``, ``Counter``, ``engine_state``),
@@ -1289,6 +1292,111 @@ def run_trainer_mesh(out_path: str) -> None:
     _save(out_path, arrays, meta)
 
 
+# The rest of the sharded train step: every family on the same mesh.
+# (name, arch, config overrides, steps, killed): the kill runs go through
+# ZOO_KILLS; the others take a few clean steps. The MoE runs are held
+# against the reference over their first ZOO_MOE_COMPARED steps (routing
+# ties part the trajectories after a few steps).
+ZOO_CASE = dict(batch=4, seq=32, total_steps=20, checkpoint_period=2, n_virtual_hosts=4, n_spares=4)
+ZOO_KILLS = {3: [1]}
+ZOO_RUNS = (
+    ("mixtral-tp", "mixtral-8x7b", {}, 5, True),
+    ("mixtral-ep", "mixtral-8x7b", {"num_experts": 16, "moe_mode": "ep"}, 5, True),
+    ("mamba2", "mamba2-780m", {}, 5, True),
+    ("jamba", "jamba-1.5-large-398b", {}, 2, False),
+    ("hubert", "hubert-xlarge", {}, 3, False),
+    ("vlm", "llama-3.2-vision-90b", {}, 3, False),
+    ("gemma2", "gemma2-2b", {}, 3, False),
+)
+ZOO_MOE_COMPARED = 3
+ZOO_FINAL = ("mamba2", "hubert", "vlm", "gemma2")  # final states held against the reference
+
+
+def run_trainer_mesh_zoo(out_path: str) -> None:
+    """The reference Trainer(mesh=) for every run of ``ZOO_RUNS``: history
+    and recoveries, and the final state of ``ZOO_FINAL``'s."""
+    from repro.configs import get_config
+    from repro.models import build_model
+    from repro.runtime.failures import FailureInjector
+    from repro.runtime.trainer import Trainer, TrainerConfig
+
+    mesh = reference_mesh(*MESH_SHAPE)
+    arrays, meta = {}, {}
+    for name, arch, over, steps, killed in ZOO_RUNS:
+        inj = FailureInjector(4, schedule=ZOO_KILLS) if killed else None
+        t = Trainer(build_model(get_config(arch).reduced().with_(**over)), TrainerConfig(**ZOO_CASE), mesh=mesh,
+                    injector=inj)
+        hist = t.run(steps)
+        meta[name] = {"history": [[h["step"], h["loss"]] for h in hist], "n_recoveries": t.n_recoveries}
+        if name in ZOO_FINAL:
+            arrays.update({f"{name}/{k}": v for k, v in _flat_np(jax.device_get(t.state)).items()})
+    _save(out_path, arrays, meta)
+
+
+# The recovery policies and the out-of-run calls on the mesh: the reduced
+# llama with no spares loses host 2 at step 4 under "shrink" and under
+# "elastic"; then, with a spare and a disk rung flushed at every commit,
+# run(4), restore_elastic(2), regrow(4), run(6), and a fresh 2-host job's
+# cold_restart() and run(POLICY_RESUME_STEPS).
+POLICY_CASE = dict(batch=4, seq=32, total_steps=20, checkpoint_period=3, n_virtual_hosts=4, n_spares=0)
+POLICY_KILLS = {4: [2]}
+POLICY_STEPS = 7
+OUT_OF_RUN_CASE = dict(POLICY_CASE, n_spares=1, disk_flush_every=1)
+POLICY_RESUME_STEPS = 8
+
+
+def _engine_meta(t) -> dict:
+    _, stores = dump_engine(t.engine, np.asarray)
+    return {"n_ranks": t.engine.n_ranks, "created": t.engine.stats.created, "aborted": t.engine.stats.aborted,
+            "manifests": {r: {"own": d["own"], "manifests": d["manifests"], "step": d["step"]}
+                          for r, d in stores["stores"].items()}}
+
+
+def run_trainer_mesh_policies(out_path: str) -> None:
+    """The reference Trainer(mesh=) under "shrink" and "elastic" through
+    ``POLICY_KILLS``, and through the out-of-run calls: each run's history,
+    recoveries, engine (rank count, created, aborted, committed manifests)
+    and final state."""
+    import os
+
+    from repro.configs import get_config
+    from repro.models import build_model
+    from repro.runtime.failures import FailureInjector
+    from repro.runtime.trainer import Trainer, TrainerConfig
+
+    def hist(h):
+        return [[x["step"], x["loss"]] for x in h]
+
+    mesh = reference_mesh(*MESH_SHAPE)
+    model = build_model(get_config("llama3.2-1b").reduced())
+    arrays, meta = {}, {}
+    for policy in ("shrink", "elastic"):
+        t = Trainer(model, TrainerConfig(**POLICY_CASE, recovery_policy=policy), mesh=mesh,
+                    injector=FailureInjector(4, schedule=POLICY_KILLS))
+        meta[policy] = {"history": hist(t.run(POLICY_STEPS)), "n_recoveries": t.n_recoveries, **_engine_meta(t)}
+        arrays.update({f"{policy}/{k}": v for k, v in _flat_np(jax.device_get(t.state)).items()})
+    tier = os.path.join(os.path.dirname(os.path.abspath(out_path)), "policy_tier")
+    a = Trainer(model, TrainerConfig(**OUT_OF_RUN_CASE, tier_dir=tier), mesh=mesh)
+    out = {"first": hist(a.run(4))}
+    out["elastic_step"] = int(a.restore_elastic(2)["step"])
+    out["after_elastic"] = _engine_meta(a)
+    a.regrow(4)
+    out["after_regrow"] = _engine_meta(a)
+    out["second"] = hist(a.run(6))
+    out["end"] = _engine_meta(a)
+    a.engine.close()
+    arrays.update({f"out/{k}": v for k, v in _flat_np(jax.device_get(a.state)).items()})
+    b = Trainer(model, TrainerConfig(**{**OUT_OF_RUN_CASE, "n_virtual_hosts": 2}, tier_dir=tier), mesh=mesh)
+    out["cold_step"] = int(b.cold_restart()["step"])
+    out["cold"] = _engine_meta(b)
+    out["resumed"] = hist(b.run(POLICY_RESUME_STEPS))
+    out["n_recoveries"] = [a.n_recoveries, b.n_recoveries]
+    b.engine.close()
+    arrays.update({f"cold/{k}": v for k, v in _flat_np(jax.device_get(b.state)).items()})
+    meta["out"] = out
+    _save(out_path, arrays, meta)
+
+
 MOE_ARCHS = ("mixtral-8x7b", "grok-1-314b", "jamba-1.5-large-398b")
 
 
@@ -1378,4 +1486,5 @@ if __name__ == "__main__":
     {"device_tier": run_device_tier, "state": run_state, "engine": run_engine,
      "elastic": run_elastic, "trainer": run_trainer, "async": run_async,
      "trainer_tiers": run_trainer_tiers, "psum": run_psum, "dryrun": run_dryrun,
-     "trainer_ep": run_trainer_ep, "trainer_mesh": run_trainer_mesh}[sys.argv[1]](sys.argv[2])
+     "trainer_ep": run_trainer_ep, "trainer_mesh": run_trainer_mesh, "trainer_mesh_zoo": run_trainer_mesh_zoo,
+     "trainer_mesh_policies": run_trainer_mesh_policies}[sys.argv[1]](sys.argv[2])

@@ -19,8 +19,12 @@ without ``ctx=None`` bit-equal; (iii) the sharded ``Trainer`` through
 aborted checkpoints, committed manifests, final state); (iv) the same
 against the port's one-card ``Trainer``; (v) the sharded faulty run
 bit-equal to the sharded clean run; (vi) the ``fsdp`` preset (the per-layer
-gather) against the reference's on the same mesh; (vii) Mixtral and
-Mamba-2 on the mesh raise the ``NotImplementedError`` that names ROADMAP A15.
+gather) against the reference's on the same mesh; (vii) the decode steps
+no runtime path runs on a mesh (``ssm.decode``, an MoE slot's
+``decode_block``) raise on a DTensor, naming the missing rule. The other
+model families, the recovery policies and the out-of-run calls on the mesh
+are ``tests/test_torch_trainer_mesh_zoo.py``'s and
+``tests/test_torch_trainer_mesh_policies.py``'s.
 The staged backend's hold on torch's API is checked on its own, in this
 process.
 """
@@ -265,10 +269,12 @@ def test_fsdp_preset_matches_the_reference_on_the_mesh(runs):
 
 
 # ---------------------------------------------------------------------------
-# (vii) MoE and Mamba-2 raise, named
+# (vii) the decode steps raise on a DTensor, named
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["mixtral", "mamba2"])
-def test_moe_and_ssm_on_a_mesh_raise_a15(runs, arch):
+@pytest.mark.parametrize("what", ["ssm", "moe"])
+def test_decode_on_a_dtensor_raises_naming_the_rule(runs, what):
     for res in runs["pool"]:
-        assert "ROADMAP A15" in res[arch] and "DTensor sharding rule" in res[arch], res[arch]
+        words = res["decode"][what]
+        assert "has no DTensor sharding rule" in words and "no runtime path runs it on a mesh" in words, words
+        assert ("Mamba-2 decode step" if what == "ssm" else "MoE in decode") in words

@@ -9,7 +9,8 @@ CPU, at a small config, in seconds.
     python3 tools/rehearse_chip_smoke.py --phase13  # the phase-field application alone
     python3 tools/rehearse_chip_smoke.py --phase4b  # the device-tier path, then the dry run's accounting of it
     python3 tools/rehearse_chip_smoke.py --phase4c  # the device tier over 8 processes (gloo on the CPU)
-    python3 tools/rehearse_chip_smoke.py --phase7c  # phase 7's sync run, then the sharded Trainer on 4 processes
+    python3 tools/rehearse_chip_smoke.py --phase7c  # phase 7's sync run and the sharded Trainer on 4 processes
+                                                    # (llama, then Mamba-2 and mixtral at small_zoo's sizes)
 
 It runs a copy of ``chip_smoke.py``'s source in which the card is the CPU:
 ``"cuda"`` strings and ``.cuda()`` calls name the CPU, every entry point of
@@ -199,7 +200,7 @@ def load_chip_smoke(cfg) -> types.ModuleType:
     # phase 4c's and 7c's processes run the kernels' plain versions, which
     # count nothing
     mod.RANK_KERNELS = ()
-    mod.MESH7C_KERNELS = ()
+    mod.MESH7C_KERNELS = mod.MESH7C_SSM_KERNELS = ()
     mod.PHASE4_LAYERS = cfg.num_layers
     if not hasattr(os, "posix_fadvise"):
         mod.drop_cached = lambda root: False
@@ -256,9 +257,14 @@ def main() -> int:
         try:
             mod.feed_mesh_trainer(group)
             run, _ = mod.trainer_path(one, "sync")
+            ssm, moe = small_zoo()
+            mod.feed_mesh_zoo(group, ssm, moe)
             counts, runs = mod.mesh_trainer_path(group, run["loss"], {"phase 7 (sync)": time.time()})
         finally:
             group.stop()
+        one_card, _ = mod.trainer_path(ssm, "sync", engine=checkpoint.EngineConfig(**mod.ZOO_TRAIN_ENGINE),
+                                       train=mod.ZOO_TRAIN, label="zoo trainer")
+        mod.check_mesh_ssm_losses(runs["ssm"], one_card["loss"])
         print(json.dumps(runs))
         return 0
     if args.phase13:
